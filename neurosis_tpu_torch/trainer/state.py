@@ -1,0 +1,28 @@
+"""Training state threaded through ``DiffusionEngine.train_step`` (port of
+neurosis_tpu/trainer/state.py). The trainable parameters themselves live in
+the engine's modules and are updated in place."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ..modules.ema import EmaState
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int
+    optimizer: torch.optim.Optimizer
+    ema: Optional[EmaState]
+    generator: torch.Generator  # per-run source of the loss's t and noise draws
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """L2 norm over all tensors, in fp32."""
+    total = torch.zeros((), dtype=torch.float32, device=tensors[0].device)
+    for t in tensors:
+        total = total + t.float().square().sum()
+    return total.sqrt()

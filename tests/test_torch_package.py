@@ -1,0 +1,113 @@
+"""Rules of the neurosis_tpu_torch package: it imports neither JAX nor the
+JAX package, calls no library attention kernel and no torch.compile, builds
+on CUDA unless told otherwise, and hands non-CPU tensors to its kernels
+rather than to their plain versions."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "neurosis_tpu_torch"
+_FORBIDDEN_IMPORT = re.compile(r"^\s*(?:from|import)\s+(?:jax|flax|optax|neurosis_tpu)\b", re.M)
+
+
+def test_imports_no_jax_in_a_fresh_process():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import neurosis_tpu_torch as p\n"
+        "mods = [m.name for m in pkgutil.walk_packages(p.__path__, 'neurosis_tpu_torch.')]\n"
+        "[importlib.import_module(m) for m in mods]\n"
+        "import chip_smoke\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'neurosis_tpu')]\n"
+        "assert not bad, bad\n"
+        "print(len(mods))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 25  # every module of the package was imported
+
+
+def test_sources_call_no_library_kernel():
+    sources = sorted(PKG.rglob("*.py"))
+    assert sources
+    for path in sources:
+        text = path.read_text()
+        assert not _FORBIDDEN_IMPORT.search(text), path
+        assert "scaled_dot_product_attention" not in text, path
+        assert "torch.compile" not in text, path
+    # the smoke script may time SDPA as a yardstick, but imports nothing of JAX
+    assert not _FORBIDDEN_IMPORT.search((ROOT / "chip_smoke.py").read_text())
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    from neurosis_tpu_torch import resolve_device
+    from neurosis_tpu_torch.models.text_encoder.clip import CLIPTextTower
+    from neurosis_tpu_torch.models.unet import UNetModel
+
+    tiny = dict(in_channels=4, model_channels=32, out_channels=4, num_res_blocks=1, attention_resolutions=[2],
+                channel_mult=[1, 2], num_heads=2, context_dim=64)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in (lambda **kw: UNetModel(**tiny, **kw), lambda **kw: CLIPTextTower(width=64, layers=1, heads=2, **kw)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build()
+        assert next(build(device="cpu").parameters()).device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device() == torch.device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+class _KernelReached(Exception):
+    pass
+
+
+@pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd", "conv3x3", "gn_silu_conv3x3"])
+def test_non_cpu_tensors_go_to_the_kernel(monkeypatch, name):
+    """A wrapper runs its plain version only for CPU tensors: given tensors
+    on another device (meta here) it heads for the kernel's library."""
+    from neurosis_tpu_torch import _nvcc, ops
+
+    def load(lib):
+        raise _KernelReached(lib)
+
+    monkeypatch.setattr(_nvcc, "load", load)
+    meta = dict(device="meta", dtype=torch.bfloat16)
+    x = torch.empty(1, 2, 64, 40, **meta)
+    stat = torch.empty(1, 2, 64, device="meta")
+    img = torch.empty(1, 32, 32, 128, **meta)
+    w = torch.empty(3, 3, 128, 128, **meta)
+    ab = torch.empty(1, 128, device="meta")
+    args = {
+        "flash_fwd": (x, x, x),
+        "flash_bwd": (x, x, x, x, stat, stat, 0.1),
+        "conv3x3": (img, w),
+        "gn_silu_conv3x3": (img, ab, ab, w),
+    }[name]
+    before = ops.launch_counts()[name]
+    with pytest.raises(_KernelReached):
+        ops.KERNEL_WRAPPERS[name](*args)
+    assert ops.launch_counts()[name] == before
+
+
+def test_kernel_refuses_what_it_cannot_take():
+    """Off the CPU a shape or dtype the kernel does not take raises rather
+    than falling back: head dims other than 40/64/80/160 (the VAE's 512
+    waits for its own kernel), fp32 inputs, a filter of the wrong size."""
+    from neurosis_tpu_torch.ops.conv3x3 import conv3x3_nhwc
+    from neurosis_tpu_torch.ops.flash_attention import flash_fwd
+
+    big_d = torch.empty(1, 1, 16, 512, device="meta", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_fwd(big_d, big_d, big_d)
+    f32 = torch.empty(1, 1, 16, 40, device="meta")
+    with pytest.raises(TypeError, match="bf16"):
+        flash_fwd(f32, f32, f32)
+    img = torch.empty(1, 32, 32, 128, device="meta", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bad shapes"):
+        conv3x3_nhwc(img, torch.empty(3, 3, 64, 128, device="meta", dtype=torch.bfloat16))
+
