@@ -3,21 +3,33 @@
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
+Two main paths run at full width: the SD1.5 train step from images (the
+frozen fp32 VAE encode in front of the UNet step) and the VAE-GAN trainer
+(alternating generator and discriminator steps).
+
 Phases, each fatal on failure:
   1. environment: Python, torch and CUDA versions, the card's name and power limit;
-  2. build: nvcc compiles every source of neurosis_tpu_torch/csrc for sm_90a;
+  2. build: nvcc compiles every source of neurosis_tpu_torch/csrc for sm_90a, one
+     process per source, all at once;
   3. kernels: each kernel wrapper against its plain PyTorch version on the card,
-     on the same bf16 inputs at the shapes of the SD1.5 train step, with the
-     kernel's time, the plain version's, one library call's (a yardstick only:
-     the port never calls it) and the least time an H100 could take;
-  4. reference: a small engine whose layers all take the kernels, one train step
-     on the card against the same step on the CPU (plain versions throughout);
+     on the same inputs at every shape either path gives it, with the kernel's
+     time, the plain version's, one library call's (a yardstick only: the port
+     never calls it) and the least time an H100 could take;
+  4. reference: small engines whose layers all take the kernels, on the card
+     against the same computation on the CPU (plain versions throughout): one
+     SD train step, one VAE-GAN generator and discriminator pair, one fp32
+     frozen encode;
   5. slice: three DiffusionEngine.train_steps of SD1.5 at full width (batch 4 of
-     64x64x4 latents and 77 token ids, bf16 UNet, fp32 CLIP-L, Adafactor, EMA),
-     with every kernel's launch count read around them;
+     uint8 512x512 images and 77 token ids; frozen fp32 VAE encode, bf16 UNet,
+     fp32 CLIP-L, Adafactor, EMA), with every kernel's launch count read around
+     them;
   6. profile: a fourth step under torch.profiler, device time by kernel and by
      kind (the port's kernels, library matmuls and convs, the rest) and the
-     device's busy share of a step.
+     device's busy share of a step; the frozen encode profiled on its own;
+  7. VAE-GAN: one warm generator/discriminator pair, then three timed pairs of
+     the VAE-GAN trainer at full width (batch 8 of uint8 256x256 images, bf16
+     encoder and decoder, fp32 LPIPS alex and PatchGAN, AdamW), with the launch
+     counts read around the three pairs, and a fourth pair profiled.
 Then one JSON line of kernels, the nvidia-smi line and, last, the result line.
 Everything measured also goes to chiprun_out/chip_smoke.json.
 
@@ -35,8 +47,10 @@ import sys
 import time
 from pathlib import Path
 
-# published H100 SXM peaks: dense bf16 tensor-core rate and HBM3 bandwidth
+# published H100 SXM peaks: dense bf16 tensor-core rate, fp32 FFMA rate on the
+# CUDA cores (the fp32 flash forward's units) and HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 66.9e12
 PEAK_BYTES_PER_S = 3.35e12
 OUT_FILE = Path("chiprun_out") / "chip_smoke.json"
 
@@ -54,10 +68,28 @@ CONV_SHAPES = {(4, 32, 32, 640, 640): (0, 6), (4, 32, 32, 1280, 640): (0, 1),
 # fused GroupNorm+SiLU->conv: the ResBlock in/out pairs at 32x32 (the dgrad of
 # a 1920-channel input stays on the library: JAX's dgrad gate takes c_in <= 1280)
 GN_CONV_SHAPES = {(4, 32, 32, 640, 640): 6, (4, 32, 32, 1280, 640): 1, (4, 32, 32, 1920, 640): 1}
+# the SD1.5 step's frozen fp32 encode: the VAE's mid attention over 64x64 latents
+FLASH_F32_SHAPES = {(4, 1, 4096, 4096, 512): 1}
+
+# The VAE-GAN trainer (256 px, batch 8, bf16 encoder and decoder), launches per
+# generator + discriminator pair. The mid attention (1024 tokens, d=512) runs in
+# the encoder and the decoder of both steps, backward in the generator step.
+VAE_FLASH_SHAPES = {(8, 1, 1024, 1024, 512): (4, 2)}
+# convs: the decoder's upsample conv into 64x64 in both steps; the generator
+# step's dgrads of every fused ResnetBlock conv (the C -> F conv's dgrad is
+# listed under (B, H, W, C, F)) and of the upsample conv
+VAE_CONV_SHAPES = {(8, 64, 64, 512, 512): (2, 10), (8, 64, 64, 256, 512): (0, 1),
+                   (8, 32, 32, 512, 512): (0, 18)}
+# fused GroupNorm+SiLU->conv: the ResnetBlock pairs at 64x64 (encoder level 2,
+# decoder level 2) and at 32x32 (encoder level 3, both mid blocks, decoder
+# level 3), forward in both steps
+VAE_GN_CONV_SHAPES = {(8, 64, 64, 256, 512): 2, (8, 64, 64, 512, 512): 18, (8, 32, 32, 512, 512): 36}
+PATHS = {"sd15": "SD1.5 train step", "vae_gan": "VAE-GAN generator + discriminator pair"}
 
 # tolerances on max|kernel - plain| / max|plain|, same bf16 inputs on both sides
 TOL = {
     "flash_fwd": 2e-2,  # kernel rounds P to bf16 before P.V; both round O to bf16
+    "flash_fwd_f32": 2e-5,  # fp32 throughout on both sides (FFMA, no TF32), sums in another order
     "flash_lse": 1e-3,  # fp32 both sides, absolute in log2 units
     "flash_bwd": 5e-2,  # kernel rounds P and dS to bf16 and sums dQ with fp32 atomics
     "conv3x3": 1e-2,  # fp32 accumulation in another order, bf16 output rounding
@@ -70,6 +102,8 @@ KERNELS = {
                       replaces="neurosis_tpu/ops/flash_attention.py:575"),
     "flash_bwd": dict(source="neurosis_tpu_torch/csrc/flash_attention.cu",
                       replaces="neurosis_tpu/ops/flash_attention.py:843"),
+    "flash_fwd_f32": dict(source="neurosis_tpu_torch/csrc/flash_attention.cu",
+                          replaces="neurosis_tpu/ops/flash_attention.py:297"),
     "conv3x3": dict(source="neurosis_tpu_torch/csrc/conv3x3.cu",
                     replaces="neurosis_tpu/ops/conv3x3.py:42"),
     "gn_silu_conv3x3": dict(source="neurosis_tpu_torch/csrc/conv3x3.cu",
@@ -90,10 +124,11 @@ def nvidia_smi_line() -> str:
     return (r.stdout.strip() or r.stderr.strip()).splitlines()[0]
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    """The least time the card could take: operations over the bf16 peak or
-    bytes over the memory rate, whichever is larger."""
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+def bound_ms(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
+    """The least time the card could take: operations over the peak of the
+    units that do them (bf16 tensor cores unless given) or bytes over the
+    memory rate, whichever is larger."""
+    t_ops = flops / peak_flops * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -133,34 +168,51 @@ def time_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
 
 
 def check_flash(torch, log: list) -> dict:
+    """Each flash shape of both paths in its dtype: the bf16 forward and
+    backward, and the fp32 forward of the frozen encode (fp32 plain version
+    with TF32 off, SDPA on the same fp32 inputs as the yardstick)."""
     import torch.nn.functional as F
 
     from neurosis_tpu_torch.ops import flash_attention as fa
 
-    rows = {"flash_fwd": [], "flash_bwd": []}
-    for shape, (n_fwd, n_bwd) in FLASH_SHAPES.items():
+    rows = {"flash_fwd": [], "flash_bwd": [], "flash_fwd_f32": []}
+    bf16, f32 = torch.bfloat16, torch.float32
+    tables = [("sd15", sh, n, bf16) for sh, n in FLASH_SHAPES.items()] + \
+             [("vae_gan", sh, n, bf16) for sh, n in VAE_FLASH_SHAPES.items()] + \
+             [("sd15", sh, (n, 0), f32) for sh, n in FLASH_F32_SHAPES.items()]
+    for path, shape, (n_fwd, n_bwd), dtype in tables:
+        is_f32 = dtype == f32
+        name = "flash_fwd_f32" if is_f32 else "flash_fwd"
+        fwd = fa.flash_fwd_f32 if is_f32 else fa.flash_fwd
         b, h, sq, skv, d = shape
-        g = torch.Generator("cuda").manual_seed(sum(shape))
-        q, do = (torch.randn(b, h, sq, d, generator=g, device="cuda").bfloat16() for _ in range(2))
-        k, v = (torch.randn(b, h, skv, d, generator=g, device="cuda").bfloat16() for _ in range(2))
+        g = torch.Generator("cuda").manual_seed(sum(shape) + is_f32)
+        q, do = (torch.randn(b, h, sq, d, generator=g, device="cuda").to(dtype) for _ in range(2))
+        k, v = (torch.randn(b, h, skv, d, generator=g, device="cuda").to(dtype) for _ in range(2))
         scale = 1.0 / math.sqrt(d)
-        qs = (q * (scale * fa.LOG2_E)).to(q.dtype)
-        tag = "x".join(map(str, shape))
+        qs = (q * (scale * fa.LOG2_E)).to(dtype)
+        tag = "x".join(map(str, shape)) + (" fp32" if is_f32 else "")
 
-        o, lse = fa.flash_fwd(qs, k, v)
+        o, lse = fwd(qs, k, v)
         o_ref, lse_ref = fa.flash_fwd_plain(qs, k, v)
         err, rel = rel_err(o, o_ref)
-        check(f"flash_fwd {tag} O", rel, TOL["flash_fwd"], log, err)
+        check(f"{name} {tag} O", rel, TOL[name], log, err)
         lse_err = float((lse - lse_ref).abs().max())
-        check(f"flash_fwd {tag} LSE (abs)", lse_err, TOL["flash_lse"], log)
-        bh_in = b * h * (sq + 2 * skv) * d * 2
-        t, by = bound_ms(4.0 * b * h * sq * skv * d, bh_in + b * h * sq * (d * 2 + 4))
-        rows["flash_fwd"].append(dict(
-            shape=tag, per_step=n_fwd, max_abs_err=err, rel_err=rel,
-            ms=time_ms(torch, lambda: fa.flash_fwd(qs, k, v)),
+        check(f"{name} {tag} LSE (abs)", lse_err, TOL["flash_fwd_f32" if is_f32 else "flash_lse"], log)
+        # reads q~, k, v; writes O and the fp32 LSE; bf16 on tensor cores or fp32 FFMA
+        elem = q.element_size()
+        bh_in = b * h * (sq + 2 * skv) * d * elem
+        t, by = bound_ms(4.0 * b * h * sq * skv * d, bh_in + b * h * sq * (d * elem + 4),
+                         PEAK_FP32_FLOPS if is_f32 else PEAK_BF16_FLOPS)
+        rows[name].append(dict(
+            path=path, shape=tag, per_step=n_fwd, max_abs_err=err, rel_err=rel,
+            ms=time_ms(torch, lambda: fwd(qs, k, v)),
             plain_ms=time_ms(torch, lambda: fa.flash_fwd_plain(qs, k, v), iters=3, warmup=1),
             library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v)),
             bound_ms=t, bound_by=by))
+        if is_f32:  # the fp32 backward is not ported
+            del q, k, v, do, qs, o, o_ref
+            torch.cuda.empty_cache()
+            continue
 
         di = (do.float() * o_ref.float()).sum(-1)
         grads = fa.flash_bwd(qs, k, v, do, lse_ref, di, scale)
@@ -176,7 +228,7 @@ def check_flash(torch, log: list) -> dict:
         t, by = bound_ms(10.0 * b * h * sq * skv * d,
                          bh_in + b * h * sq * (d * 2 + 8) + b * h * (sq + 2 * skv) * d * 2)
         rows["flash_bwd"].append(dict(
-            shape=tag, per_step=n_bwd, max_abs_err=max(e for e, _ in errs), rel_err=max(r for _, r in errs),
+            path=path, shape=tag, per_step=n_bwd, max_abs_err=max(e for e, _ in errs), rel_err=max(r for _, r in errs),
             ms=time_ms(torch, lambda: fa.flash_bwd(qs, k, v, do, lse_ref, di, scale)),
             plain_ms=time_ms(torch, lambda: fa.flash_bwd_plain(qs, k, v, do, lse_ref, di, scale),
                              iters=3, warmup=1),
@@ -194,7 +246,9 @@ def check_conv(torch, log: list) -> dict:
     from neurosis_tpu_torch.ops import conv3x3 as cv
 
     rows = {"conv3x3": [], "gn_silu_conv3x3": []}
-    for shape, (n_fwd, n_dgrad) in CONV_SHAPES.items():
+    tables = [("sd15", sh, n) for sh, n in CONV_SHAPES.items()] + \
+             [("vae_gan", sh, n) for sh, n in VAE_CONV_SHAPES.items()]
+    for path, shape, (n_fwd, n_dgrad) in tables:
         b, hh, ww, c, f = shape
         g = torch.Generator("cuda").manual_seed(sum(shape))
         x = torch.randn(b, hh, ww, c, generator=g, device="cuda").bfloat16()
@@ -213,13 +267,15 @@ def check_conv(torch, log: list) -> dict:
             inp_nchw = inp.permute(0, 3, 1, 2)
             t, by = bound_ms(2.0 * 9 * b * hh * ww * ci * fo, 2 * (b * hh * ww * (ci + fo) + 9 * ci * fo))
             rows["conv3x3"].append(dict(
-                shape=tag, per_step=n, max_abs_err=err, rel_err=rel,
+                path=path, shape=tag, per_step=n, max_abs_err=err, rel_err=rel,
                 ms=time_ms(torch, lambda: cv.conv3x3_nhwc(inp, filt)),
                 plain_ms=time_ms(torch, lambda: cv.conv3x3_plain(inp, filt), iters=3, warmup=1),
                 library_ms=time_ms(torch, lambda: F.conv2d(inp_nchw, lib_w, padding=1)),
                 bound_ms=t, bound_by=by))
 
-    for shape, n in GN_CONV_SHAPES.items():
+    gn_tables = [("sd15", sh, n) for sh, n in GN_CONV_SHAPES.items()] + \
+                [("vae_gan", sh, n) for sh, n in VAE_GN_CONV_SHAPES.items()]
+    for path, shape, n in gn_tables:
         b, hh, ww, c, f = shape
         g = torch.Generator("cuda").manual_seed(sum(shape) + 7)
         x = torch.randn(b, hh, ww, c, generator=g, device="cuda").bfloat16()
@@ -239,10 +295,12 @@ def check_conv(torch, log: list) -> dict:
             check(f"gn_silu_conv3x3 bwd {b}x{hh}x{ww}x{c}->{f} {gname}", r, TOL["gn_silu_conv3x3_bwd"], log, e)
         t, by = bound_ms(2.0 * 9 * b * hh * ww * c * f, 2 * (b * hh * ww * (c + f) + 9 * c * f) + 8 * b * c)
         rows["gn_silu_conv3x3"].append(dict(
-            shape=tag, per_step=n, max_abs_err=err, rel_err=rel,
+            path=path, shape=tag, per_step=n, max_abs_err=err, rel_err=rel,
             ms=time_ms(torch, lambda: cv.gn_silu_conv3x3_nhwc(x, a, bb, w_k)),
             plain_ms=time_ms(torch, lambda: cv.gn_silu_conv3x3_plain(x, a, bb, w_k), iters=3, warmup=1),
             library_ms=None, bound_ms=t, bound_by=by))
+        del x, dy, w, w_k, got, want
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -251,17 +309,20 @@ def check_conv(torch, log: list) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def make_engine(torch, device, seed: int, unet: dict, clip: dict, use_ema: bool = True):
-    """DiffusionEngine on the latents path with the SD1.5 config's classes:
-    bf16 UNet with fp32 parameters, fp32 frozen CLIP embedder, DiscreteDenoiser
-    with EpsPreconditioning over LegacyDDPM, DiscreteSigmaGenerator,
-    EpsWeighting, Adafactor(scale_parameter, relative_step, warmup_init)."""
+def make_engine(torch, device, seed: int, unet: dict, clip: dict, use_ema: bool = True, vae: dict = None):
+    """DiffusionEngine with the SD1.5 config's classes: bf16 UNet with fp32
+    parameters, fp32 frozen CLIP embedder, DiscreteDenoiser with
+    EpsPreconditioning over LegacyDDPM, DiscreteSigmaGenerator, EpsWeighting,
+    Adafactor(scale_parameter, relative_step, warmup_init); with ``vae`` (a
+    ddconfig) a frozen fp32 AutoencoderKL encodes images in front (scale
+    0.18215), else the batch carries latents."""
     from neurosis_tpu_torch.diffusion.denoiser import DiscreteDenoiser
     from neurosis_tpu_torch.diffusion.discretization import LegacyDDPMDiscretization
     from neurosis_tpu_torch.diffusion.loss import StandardDiffusionLoss
     from neurosis_tpu_torch.diffusion.preconditioning import EpsPreconditioning
     from neurosis_tpu_torch.diffusion.sigma_generators import DiscreteSigmaGenerator
     from neurosis_tpu_torch.diffusion.weighting import EpsWeighting
+    from neurosis_tpu_torch.models.autoencoder import AutoencoderKL
     from neurosis_tpu_torch.models.unet import UNetModel
     from neurosis_tpu_torch.modules.encoders.embedding import FrozenCLIPEmbedder, GeneralConditioner
     from neurosis_tpu_torch.optimizers.adafactor import Adafactor
@@ -270,9 +331,12 @@ def make_engine(torch, device, seed: int, unet: dict, clip: dict, use_ema: bool 
     g = torch.Generator(device).manual_seed(seed)
     model = UNetModel(**unet, use_checkpoint=True, dtype=torch.bfloat16, device=device, generator=g)
     conditioner = GeneralConditioner([FrozenCLIPEmbedder(**clip, device=device, generator=g)])
+    first_stage = None if vae is None else AutoencoderKL(vae, embed_dim=4, device=device, generator=g)
     disc = LegacyDDPMDiscretization()
     return DiffusionEngine(
         model=model,
+        first_stage=first_stage,
+        scale_factor=0.18215,
         denoiser=DiscreteDenoiser(EpsPreconditioning(), 1000, disc, device=device),
         loss_fn=StandardDiffusionLoss(DiscreteSigmaGenerator(disc, 1000, device=device), EpsWeighting()),
         conditioner=conditioner,
@@ -282,15 +346,30 @@ def make_engine(torch, device, seed: int, unet: dict, clip: dict, use_ema: bool 
     )
 
 
-def make_batch(torch, device, batch: int, side: int, seed: int) -> dict:
+def make_batch(torch, device, batch: int, side: int, seed: int, images: bool = False) -> dict:
+    """Token ids and either latents (side x side x 4) or uint8 images
+    (side x side x 3), from a seed."""
     g = torch.Generator("cpu").manual_seed(seed)
     ids = torch.randint(1, 49406, (batch, 77), generator=g)
     ids[:, 0] = 49406  # BOS
     eos = torch.randint(4, 77, (batch,), generator=g)
     for i in range(batch):
         ids[i, eos[i]:] = 49407  # EOS, then padding with the EOS id
+    if images:
+        return {"image": make_images(torch, device, batch, side, g), "caption_ids": ids.to(device)}
     latents = torch.randn(batch, side, side, 4, generator=g)
     return {"latents": latents.to(device), "caption_ids": ids.to(device)}
+
+
+def make_images(torch, device, batch: int, side: int, g) -> "torch.Tensor":
+    """uint8 NHWC images: smooth random fields (as photos are smoother than
+    noise) with some pixel noise, drawn from ``g``."""
+    import torch.nn.functional as F
+
+    coarse = torch.rand(batch, 3, max(side // 32, 2), max(side // 32, 2), generator=g)
+    img = F.interpolate(coarse, size=(side, side), mode="bilinear", align_corners=False)
+    img = (img + 0.05 * torch.randn(batch, 3, side, side, generator=g)).clamp(0, 1)
+    return (img * 255).round().to(torch.uint8).permute(0, 2, 3, 1).contiguous().to(device)
 
 
 SMALL_UNET = dict(in_channels=4, model_channels=128, out_channels=4, num_res_blocks=1,
@@ -329,12 +408,110 @@ def reference_step(torch, log: list) -> dict:
         metrics[device] = {k: float(v) for k, v in m.items()}
     launched = {k: ops.launch_counts()[k] - counts_before[k] for k in counts_before}
     print(f"reference step launches: {launched}", flush=True)
-    if not all(launched.values()):
-        raise PhaseError(f"the small engine did not launch every kernel: {launched}")
+    missing = [k for k in ("flash_fwd", "flash_bwd", "conv3x3", "gn_silu_conv3x3") if not launched[k]]
+    if missing:
+        raise PhaseError(f"the small engine did not launch {missing}: {launched}")
     for key, tol in (("loss", 2e-2), ("grad_norm", 5e-2)):
         cpu, gpu = metrics["cpu"][key], metrics["cuda"][key]
         check(f"small engine {key}: cuda {gpu:.6g} vs cpu {cpu:.6g}", abs(gpu - cpu) / abs(cpu), tol, log)
     return metrics
+
+
+# A small VAE whose every level takes the kernels: 64x64 at 128 channels (fused
+# convs, dgrads), 32x32 at 512 (fused convs, the decoder's upsample conv into
+# 64x64) and the mid attention over 1024 tokens at head dim 512.
+SMALL_VAE = dict(ch=128, ch_mult=[1, 4], num_res_blocks=1, attn_resolutions=[], resolution=64, z_channels=4,
+                 dropout=0.0)
+SMALL_LOSS = dict(perceptual_weight=1.0, lpips_type="alex", disc_start=1, disc_weight=0.5, disc_n_layers=1)
+
+
+def make_vae_engine(torch, device, seed: int, dd: dict, loss_cfg: dict, lr: float = 4.5e-6):
+    """AutoencodingEngine as configs/vae/vae.example.yaml builds it: bf16
+    Encoder and Decoder (bf16-mixed), AutoencoderLPIPSWithDiscr (l1, hinge,
+    fp32 LPIPS and PatchGAN), kl_weight 1e-6, AdamW with optax's defaults
+    for both optimizers, disc_start from ``loss_cfg``."""
+    from neurosis_tpu_torch.losses.vae_loss import AutoencoderLPIPSWithDiscr
+    from neurosis_tpu_torch.models.vae import Decoder, Encoder
+    from neurosis_tpu_torch.optimizers.adamw import adamw
+    from neurosis_tpu_torch.trainer.vae_engine import AutoencodingEngine
+
+    g = torch.Generator(device).manual_seed(seed)
+    enc = Encoder(**dd, double_z=True, in_channels=3, dtype=torch.bfloat16, device=device, generator=g)
+    dec = Decoder(**dd, out_ch=3, dtype=torch.bfloat16, device=device, generator=g)
+    loss = AutoencoderLPIPSWithDiscr(recon_type="l1", disc_loss="hinge", **loss_cfg, device=device, generator=g)
+    return AutoencodingEngine(enc, dec, loss, g_optimizer=lambda ps: adamw(ps, lr),
+                              d_optimizer=lambda ps: adamw(ps, lr), kl_weight=1e-6,
+                              disc_start=loss_cfg["disc_start"], device=device)
+
+
+def reference_vae_pair(torch, log: list) -> dict:
+    """One generator and one discriminator step of a small VAE-GAN on the
+    card against the same steps on the CPU, from the same weights and
+    posterior noise; the discriminator step runs with the gate open. Every
+    bf16 kernel case of the VAE takes part: flash at d=512 forward and
+    backward, fused and plain 3x3 convs, their dgrads."""
+    from neurosis_tpu_torch import ops
+
+    engines = {dev: make_vae_engine(torch, dev, 3, SMALL_VAE, SMALL_LOSS, lr=1e-4) for dev in ("cpu", "cuda")}
+    g = torch.Generator("cpu").manual_seed(4)
+    with torch.no_grad():
+        for name in ("encoder", "decoder", "loss"):
+            src, dst = getattr(engines["cpu"], name), getattr(engines["cuda"], name)
+            for p_cpu in src.parameters():
+                p_cpu.add_(0.01 * torch.randn(p_cpu.shape, generator=g))
+            dst.load_state_dict(src.state_dict())
+    images = make_images(torch, "cpu", 2, 64, torch.Generator("cpu").manual_seed(5))
+    eps = torch.randn(2, 32, 32, 4, generator=torch.Generator("cpu").manual_seed(6))
+    metrics = {}
+    counts_before = ops.launch_counts()
+    for dev, eng in engines.items():
+        state = eng.init(seed=0)
+        batch = {"image": images.to(dev)}
+        state, g_log = eng.g_step(state, batch, posterior_noise=eps.to(dev))
+        g_norm = float(torch.stack([p.grad.float().norm() for p in eng.g_parameters()]).norm())
+        state, d_log = eng.d_step(state, batch, posterior_noise=eps.to(dev))
+        d_norm = float(torch.stack([p.grad.float().norm() for p in eng.d_parameters()]).norm())
+        metrics[dev] = dict(g_total=float(g_log["total"]), g_rec=float(g_log["train/loss/rec"]),
+                            g_p=float(g_log["train/loss/p"]), g_grad_norm=g_norm, d_total=float(d_log["total"]),
+                            d_grad_norm=d_norm)
+    launched = {k: ops.launch_counts()[k] - counts_before[k] for k in counts_before}
+    print(f"reference VAE-GAN pair launches: {launched}", flush=True)
+    missing = [k for k in ("flash_fwd", "flash_bwd", "conv3x3", "gn_silu_conv3x3") if not launched[k]]
+    if missing:
+        raise PhaseError(f"the small VAE-GAN did not launch {missing}: {launched}")
+    # bf16 encoder and decoder: the kernels round where the plain versions do,
+    # sums run in another order
+    for key, tol in (("g_total", 2e-2), ("g_rec", 2e-2), ("g_p", 2e-2), ("g_grad_norm", 5e-2),
+                     ("d_total", 2e-2), ("d_grad_norm", 5e-2)):
+        cpu, gpu = metrics["cpu"][key], metrics["cuda"][key]
+        check(f"small VAE-GAN {key}: cuda {gpu:.6g} vs cpu {cpu:.6g}", abs(gpu - cpu) / abs(cpu), tol, log)
+    return metrics
+
+
+def reference_encode(torch, log: list) -> dict:
+    """The frozen fp32 encode of a small SD engine's first stage on the card
+    against the CPU: the fp32 flash forward at d=512 over 1024 tokens."""
+    from neurosis_tpu_torch import ops
+    from neurosis_tpu_torch.models.autoencoder import AutoencoderKL
+    from neurosis_tpu_torch.ops.dequant import dequant_image
+
+    dd = dict(SMALL_VAE, double_z=True, in_channels=3, out_ch=3)
+    vaes = {dev: AutoencoderKL(dd, embed_dim=4, device=dev, generator=torch.Generator(dev).manual_seed(7))
+            for dev in ("cpu", "cuda")}
+    vaes["cuda"].load_state_dict(vaes["cpu"].state_dict())
+    images = make_images(torch, "cpu", 2, 64, torch.Generator("cpu").manual_seed(8))
+    x = dequant_image(images)
+    before = ops.launch_counts()["flash_fwd_f32"]
+    with torch.no_grad():
+        want = vaes["cpu"].encode(x)
+        got = vaes["cuda"].encode(x.cuda()).cpu()
+    launched = ops.launch_counts()["flash_fwd_f32"] - before
+    if launched != 1:
+        raise PhaseError(f"the small fp32 encode launched flash_fwd_f32 {launched} times, not once")
+    err, rel = rel_err(got, want)
+    # fp32 on both sides with TF32 off: sums in another order through ~20 layers
+    check("small fp32 encode moments", rel, 1e-4, log, err)
+    return dict(max_abs_err=err, rel_err=rel)
 
 
 SD15_UNET = dict(in_channels=4, model_channels=320, out_channels=4, num_res_blocks=2,
@@ -343,27 +520,56 @@ SD15_UNET = dict(in_channels=4, model_channels=320, out_channels=4, num_res_bloc
 SD15_CLIP = dict(width=768, layers=12, heads=12)
 
 
-def step_totals(rows: dict) -> dict:
-    """Per kernel, from the shape tables and phase 3's times: launches per
-    SD1.5 step, their summed time and their summed bound."""
-    return {name: dict(launches=sum(r["per_step"] for r in rs),
-                       ms=sum(r["per_step"] * r["ms"] for r in rs),
-                       bound_ms=sum(r["per_step"] * r["bound_ms"] for r in rs))
-            for name, rs in rows.items()}
+# the SD1.5 config's first stage (configs/sd15/sd15.example.yaml), fp32
+SD15_VAE = dict(ch=128, ch_mult=[1, 2, 4, 4], num_res_blocks=2, attn_resolutions=[], resolution=256, z_channels=4,
+                double_z=True, in_channels=3, out_ch=3, dropout=0.0)
+# configs/vae/vae.example.yaml at bench.py's on-chip setting: 256 px, batch 8,
+# bf16 encoder and decoder; disc_start lowered to 1 so both steps run
+VAE_GAN_DD = dict(ch=128, ch_mult=[1, 2, 4, 4], num_res_blocks=2, attn_resolutions=[], resolution=256,
+                  z_channels=4, dropout=0.0)
+VAE_GAN_LOSS = dict(perceptual_weight=1.0, lpips_type="alex", disc_start=1, disc_factor=1.0, disc_weight=0.5,
+                    disc_n_layers=3)
+
+
+def step_totals(rows: dict, path: str) -> dict:
+    """Per kernel, from one path's shape tables and phase 3's times: launches
+    per step (or pair) of that path, their summed time and summed bound."""
+    out = {}
+    for name, rs in rows.items():
+        rs = [r for r in rs if r["path"] == path]
+        out[name] = dict(launches=sum(r["per_step"] for r in rs), ms=sum(r["per_step"] * r["ms"] for r in rs),
+                         bound_ms=sum(r["per_step"] * r["bound_ms"] for r in rs))
+    return out
+
+
+def check_launches(launches: dict, totals: dict, units: int, label: str) -> None:
+    """Each kernel the path's tables list was launched, and every counter
+    equals units x the tables' count (0 for a kernel the path does not run)."""
+    print(f"{label} launches: {launches}", flush=True)
+    missing = [k for k, t in totals.items() if t["launches"] and not launches[k]]
+    if missing:
+        raise PhaseError(f"{label} never launched {missing}")
+    for name, tot in totals.items():
+        print(f"{name} per {label} unit: {tot['launches']} launches, {tot['ms']:.3f} ms at the phase-3 times, "
+              f"bound {tot['bound_ms']:.3f} ms", flush=True)
+    unlisted = {k: n for k, n in launches.items() if n != units * totals[k]["launches"]}
+    if unlisted:
+        raise PhaseError(f"{label} launches {unlisted} differ from the shape tables' counts x {units}")
 
 
 def run_slice(torch, rows: dict, steps: int = 3) -> dict:
     from neurosis_tpu_torch import ops
 
     t0 = time.perf_counter()
-    engine = make_engine(torch, "cuda", 0, SD15_UNET, SD15_CLIP)
+    engine = make_engine(torch, "cuda", 0, SD15_UNET, SD15_CLIP, vae=SD15_VAE)
     n_unet = sum(p.numel() for p in engine.model.parameters())
     n_clip = sum(p.numel() for p in engine.conditioner.parameters())
+    n_vae = sum(p.numel() for p in engine.first_stage.parameters())
     state = engine.init(seed=0)
-    batch = make_batch(torch, "cuda", 4, 64, 5)
+    batch = make_batch(torch, "cuda", 4, 512, 5, images=True)
     torch.cuda.synchronize()
     print(f"SD1.5 engine built in {time.perf_counter() - t0:.1f} s: UNet {n_unet} params, "
-          f"CLIP-L {n_clip} params", flush=True)
+          f"CLIP-L {n_clip} params, VAE {n_vae} params (frozen, fp32)", flush=True)
 
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -381,24 +587,86 @@ def run_slice(torch, rows: dict, steps: int = 3) -> dict:
             raise PhaseError(f"step {i} is not finite: loss {loss}, grad_norm {grad_norm}")
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    print(f"slice launches: {launches}", flush=True)
     print(f"peak device memory: {peak} bytes ({peak / 2**30:.2f} GiB)", flush=True)
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        raise PhaseError(f"the slice never launched {missing}")
-    totals = step_totals(rows)
-    for name, tot in totals.items():
-        print(f"{name} per step: {tot['launches']} launches, {tot['ms']:.3f} ms at the phase-3 times, "
-              f"bound {tot['bound_ms']:.3f} ms", flush=True)
-    unlisted = {k: n for k, n in launches.items() if n != steps * totals[k]["launches"]}
-    if unlisted:
-        raise PhaseError(f"launches {unlisted} differ from the shape tables' per-step counts x {steps}")
+    totals = step_totals(rows, "sd15")
+    check_launches(launches, totals, steps, "SD1.5 step")
     ema_ok = all(bool(torch.isfinite(s).all()) for s in state.ema.params)
     if not ema_ok:
         raise PhaseError("EMA shadows are not finite")
+    latents = engine.encode_first_stage(batch["image"], state.generator)
+    if tuple(latents.shape) != (4, 64, 64, 4) or not bool(torch.isfinite(latents).all()):
+        raise PhaseError(f"the frozen encode gave {tuple(latents.shape)} latents, finite: "
+                         f"{bool(torch.isfinite(latents).all())}")
+    print(f"frozen encode: latents {tuple(latents.shape)}, std {float(latents.std()):.4f}", flush=True)
     step_ms = statistics.median(r["ms"] for r in step_rows[1:])
+    profile = profile_fn(torch, lambda: engine.train_step(state, batch), "SD1.5 step", step_ms)
+    encode = profile_fn(torch, lambda: engine.encode_first_stage(batch["image"], state.generator),
+                        "frozen encode", None)
+    if profile.get("device_ms") is not None and encode.get("device_ms") is not None:
+        print(f"profile: SD1.5 step without the frozen encode: {profile['device_ms'] - encode['device_ms']:.3f} ms "
+              f"device busy", flush=True)
     return dict(steps=step_rows, launches=launches, per_step=totals, peak_bytes=peak, unet_params=n_unet,
-                clip_params=n_clip, profile=profile_step(torch, engine, state, batch, step_ms))
+                clip_params=n_clip, vae_params=n_vae, profile=profile, encode_profile=encode)
+
+
+def run_vae_gan(torch, rows: dict, pairs: int = 3) -> dict:
+    """Path B: the VAE-GAN trainer at full width. One warm pair, then
+    ``pairs`` timed generator/discriminator pairs with the counters read
+    around them, then one profiled pair."""
+    from neurosis_tpu_torch import ops
+
+    t0 = time.perf_counter()
+    engine = make_vae_engine(torch, "cuda", 0, VAE_GAN_DD, VAE_GAN_LOSS)
+    n_g = sum(p.numel() for p in engine.g_parameters())
+    n_d = sum(p.numel() for p in engine.d_parameters())
+    state = engine.init(seed=0)
+    g = torch.Generator("cpu").manual_seed(9)
+    batches = [{"image": make_images(torch, "cuda", 8, 256, g)} for _ in range(2 * pairs + 4)]
+    torch.cuda.synchronize()
+    print(f"VAE-GAN engine built in {time.perf_counter() - t0:.1f} s: encoder+decoder {n_g} params (bf16 compute), "
+          f"discriminator {n_d} params", flush=True)
+
+    def step(i: int):
+        idx = engine.train_step_schedule(i, state.step)
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        _, log = (engine.g_step if idx == 0 else engine.d_step)(state, batches[i])
+        total = float(log["total"])
+        torch.cuda.synchronize()
+        return idx, total, (time.perf_counter() - t_start) * 1e3, {k: float(v) for k, v in log.items()}
+
+    rows_out = []
+    for i in range(2):  # warm pair: generator (gate closed), discriminator
+        idx, total, ms, log = step(i)
+        rows_out.append(dict(step=i, kind="gd"[idx], total=total, ms=ms, warm=True))
+        print(f"VAE-GAN warm {'gd'[idx]}_step {i}: total {total:.6f} {ms:.1f} ms", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    for i in range(2, 2 + 2 * pairs):
+        idx, total, ms, log = step(i)
+        rows_out.append(dict(step=i, kind="gd"[idx], total=total, ms=ms, log=log))
+        detail = (f"rec {log['train/loss/rec']:.5f} p {log['train/loss/p']:.5f} g {log['train/loss/g']:.5f} "
+                  f"kl {log['train/loss/kl']:.2f}") if idx == 0 else \
+                 f"real {log['train/logits/real']:.5f} fake {log['train/logits/fake']:.5f}"
+        print(f"VAE-GAN {'gd'[idx]}_step {i}: total {total:.6f} ({detail}) {ms:.1f} ms", flush=True)
+        if not all(math.isfinite(v) for v in log.values()):
+            raise PhaseError(f"VAE-GAN step {i} is not finite: {log}")
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    kinds = [r["kind"] for r in rows_out if not r.get("warm")]
+    if kinds != ["g", "d"] * pairs:
+        raise PhaseError(f"the schedule ran {kinds}, not {pairs} alternating pairs")
+    totals = step_totals(rows, "vae_gan")
+    check_launches(launches, totals, pairs, "VAE-GAN pair")
+    g_ms = statistics.median(r["ms"] for r in rows_out if r["kind"] == "g" and not r.get("warm"))
+    d_ms = statistics.median(r["ms"] for r in rows_out if r["kind"] == "d" and not r.get("warm"))
+    print(f"VAE-GAN: G step {g_ms:.3f} ms, D step {d_ms:.3f} ms (median of {pairs}), "
+          f"{2 * 8 / (g_ms + d_ms) * 1e3:.2f} images/s over a pair; peak device memory {peak} bytes "
+          f"({peak / 2**30:.2f} GiB)", flush=True)
+    i0 = 2 + 2 * pairs
+    profile = profile_fn(torch, lambda: (step(i0), step(i0 + 1)), "VAE-GAN pair", g_ms + d_ms)
+    return dict(steps=rows_out, launches=launches, per_pair=totals, g_ms=g_ms, d_ms=d_ms, peak_bytes=peak,
+                g_params=n_g, d_params=n_d, profile=profile)
 
 
 def kernel_kind(name: str) -> str:
@@ -415,14 +683,14 @@ def kernel_kind(name: str) -> str:
     return "other (elementwise, norms, reductions, optimizer)"
 
 
-def profile_step(torch, engine, state, batch, step_ms: float, top: int = 15) -> dict:
-    """One more train step under torch.profiler: device time by kernel and by
-    kind, and the device's busy share of the median unprofiled step."""
+def profile_fn(torch, fn, label: str, step_ms, top: int = 15) -> dict:
+    """``fn`` once under torch.profiler: device time by kernel and by kind,
+    and (given the median unprofiled ``step_ms``) the device's busy share."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        engine.train_step(state, batch)
+        fn()
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
     by_name: dict = {}
@@ -435,7 +703,7 @@ def profile_step(torch, engine, state, batch, step_ms: float, top: int = 15) -> 
         by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
         spans.append((e.time_range.start, e.time_range.end))
     if not spans:
-        print("profile: the profiler recorded no device kernels: device time not measured", flush=True)
+        print(f"profile {label}: the profiler recorded no device kernels: device time not measured", flush=True)
         return dict(device_ms=None)
     busy_us, end = 0.0, -math.inf  # union of the kernels' intervals
     for s, e in sorted(spans):
@@ -447,14 +715,14 @@ def profile_step(torch, engine, state, batch, step_ms: float, top: int = 15) -> 
         kinds[kernel_kind(name)] = kinds.get(kernel_kind(name), 0.0) + us / 1e3
     rows = sorted(((us / 1e3, n, name) for name, (n, us) in by_name.items()), reverse=True)
     device_ms = busy_us / 1e3
-    print(f"profile: device busy {device_ms:.3f} ms in one step; median unprofiled step {step_ms:.3f} ms, "
-          f"busy share {device_ms / step_ms:.4f}", flush=True)
+    share = "" if step_ms is None else f"; median unprofiled {step_ms:.3f} ms, busy share {device_ms / step_ms:.4f}"
+    print(f"profile {label}: device busy {device_ms:.3f} ms{share}", flush=True)
     for kind, ms in sorted(kinds.items(), key=lambda kv: -kv[1]):
-        print(f"profile: {kind}: {ms:.3f} ms", flush=True)
+        print(f"profile {label}: {kind}: {ms:.3f} ms", flush=True)
     for ms, n, name in rows[:top]:
-        print(f"profile: {ms:9.3f} ms {n:6d} x {name[:110]}", flush=True)
-    return dict(device_ms=device_ms, step_ms=step_ms, busy_share=device_ms / step_ms, kinds_ms=kinds,
-                launches=sum(n for _, n, _ in rows),
+        print(f"profile {label}: {ms:9.3f} ms {n:6d} x {name[:100]}", flush=True)
+    return dict(device_ms=device_ms, step_ms=step_ms, busy_share=None if step_ms is None else device_ms / step_ms,
+                kinds_ms=kinds, launches=sum(n for _, n, _ in rows),
                 kernels=[dict(name=name, ms=ms, count=n) for ms, n, name in rows[:40]])
 
 
@@ -499,11 +767,15 @@ def main() -> int:
         for name, rs in rows.items():
             for r in rs:
                 lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.3f}"
-                print(f"{name} {r['shape']}: {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, library {lib} ms, "
-                      f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})", flush=True)
+                print(f"{name} {r['shape']} ({r['path']}): {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+                      f"library {lib} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']})", flush=True)
 
         report["reference"] = reference_step(torch, log)
+        report["reference_vae_gan"] = reference_vae_pair(torch, log)
+        report["reference_encode"] = reference_encode(torch, log)
         report["slice"] = run_slice(torch, rows)
+        torch.cuda.empty_cache()
+        report["vae_gan"] = run_vae_gan(torch, rows)
     except Exception as e:  # any failed phase ends the run without a result line
         report["error"] = repr(e)
         _write(report, log)
@@ -513,11 +785,13 @@ def main() -> int:
     _write(report, log)
     kernels = []
     for name, meta in KERNELS.items():
-        head = max(rows[name], key=lambda r: r["per_step"] * r["ms"])  # the shape that costs the step most
+        head = max(rows[name], key=lambda r: r["per_step"] * r["ms"])  # the shape that costs its path most
+        by_path = {"sd15": report["slice"]["launches"][name], "vae_gan": report["vae_gan"]["launches"][name]}
         kernels.append(dict(name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
-                            launches=report["slice"]["launches"][name], max_abs_err=head["max_abs_err"],
-                            ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
-                            bound_by=head["bound_by"], library_ms=head["library_ms"], shape=head["shape"]))
+                            launches=sum(by_path.values()), launches_by_path=by_path,
+                            max_abs_err=head["max_abs_err"], ms=head["ms"], plain_ms=head["plain_ms"],
+                            bound_ms=head["bound_ms"], bound_by=head["bound_by"], library_ms=head["library_ms"],
+                            shape=head["shape"], path=head["path"]))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

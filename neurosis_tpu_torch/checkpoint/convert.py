@@ -5,7 +5,12 @@ The JAX modules are named with the reference's torch dotted paths, so a
 flax path ('input_blocks.1.0', 'in_layers.2', 'Conv_0', 'kernel') becomes
 the key 'input_blocks.1.0.in_layers.2.weight': wrapper-internal auto names
 are dropped, leaves renamed, and kernels transposed HWIO → OIHW (conv) or
-(in, out) → (out, in) (dense).
+(in, out) → (out, in) (dense). The same rules name the VAE
+('encoder.down.0.block.1.conv1.weight', 'encoder.mid.attn_1.q.weight',
+'quant_conv.weight'), LPIPS ('perceptual_loss.pnet.features.3.weight',
+'perceptual_loss.lin0.model.1.weight') and the discriminator
+('discr.layers.2.weight'); a ``batch_stats`` tree gives the BatchNorm
+buffers ('discr.layers.3.running_mean', '...running_var').
 """
 
 from __future__ import annotations
@@ -17,7 +22,8 @@ import numpy as np
 import torch
 
 _SKIP_COMPONENTS = re.compile(r"^(Conv|Dense|GroupNorm|LayerNorm|Embed)_\d+$")
-_LEAF_MAP = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias"}
+_LEAF_MAP = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias",
+             "mean": "running_mean", "var": "running_var"}
 _EMBEDDER = re.compile(r"^embedders_(\d+)$")
 
 

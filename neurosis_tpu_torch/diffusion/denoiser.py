@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from .._device import DeviceLike, resolve_device
 from ..utils import append_dims
 from .discretization import LegacyDDPMDiscretization
 from .preconditioning import EpsPreconditioning
@@ -19,11 +20,11 @@ class DiscreteDenoiser:
 
     def __init__(self, preconditioning: EpsPreconditioning, num_idx: int,
                  discretization: LegacyDDPMDiscretization, quantize_c_noise: bool = True,
-                 flip: bool = False, device=None):
+                 flip: bool = False, device: DeviceLike = None):
         self.preconditioning = preconditioning
         self.num_idx = num_idx
         self.quantize_c_noise = quantize_c_noise
-        self.sigmas = discretization(num_idx, flip=flip, device=device)
+        self.sigmas = discretization(num_idx, flip=flip, device=resolve_device(device))
 
     def sigma_to_idx(self, sigma: torch.Tensor) -> torch.Tensor:
         dists = sigma - self.sigmas.reshape((-1,) + (1,) * sigma.ndim)

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import torch
 
+from .._device import DeviceLike, resolve_device
 from .discretization import LegacyDDPMDiscretization
 
 
@@ -14,9 +15,9 @@ class DiscreteSigmaGenerator:
     to index floor(t·num_idx); an integer t ≥ 1 is an index."""
 
     def __init__(self, discretization: LegacyDDPMDiscretization, num_idx: int = 1000,
-                 flip: bool = True, exclude_zero: bool = True, device=None):
+                 flip: bool = True, exclude_zero: bool = True, device: DeviceLike = None):
         self.num_idx = num_idx
-        sigmas = discretization(num_idx, flip=flip, device=device)
+        sigmas = discretization(num_idx, flip=flip, device=resolve_device(device))
         if exclude_zero and sigmas.shape[0] > num_idx and float(sigmas[0]) == 0.0:
             sigmas = sigmas[1:]
         self.sigmas = sigmas

@@ -6,13 +6,16 @@ dtype before the kernel (ops/flash_attention.py:1226), scale = 1/√d of the
 true head dim, logits are base 2 and the per-row LSE (base 2) is the
 backward residual together with the pre-scaled q (:1244).
 
-Two kernels (``csrc/flash_attention.cu``) stand behind it:
+Three kernels (``csrc/flash_attention.cu``) stand behind it:
 ``flash_fwd`` (replaces the four Pallas forward families) and ``flash_bwd``
-(replaces the dq and dk/dv families). Each wrapper runs its plain PyTorch
-version for CPU tensors and launches its kernel for CUDA tensors; the
-kernels take bf16 and head dims 40, 64, 80 and 160, and raise otherwise.
-``Di = rowsum(dO∘O)`` is a plain reduction outside the kernel, as in the JAX
-backward (:1037).
+(replaces the dq and dk/dv families) take bf16 at head dims 40, 64, 80, 160
+and 512; ``flash_fwd_f32`` is the fp32 forward at head dim 512, for the
+VAE's fp32 encode (the JAX kernel takes fp32 there, ops/flash_attention.py:1264).
+``flash_fwd`` hands fp32 inputs to it. Each wrapper runs its plain PyTorch
+version for CPU tensors and launches its kernel for CUDA tensors; a head dim
+or dtype its kernel does not take raises, and so does the backward of an
+fp32 forward on the card (no fp32 backward kernel yet). ``Di = rowsum(dO∘O)``
+is a plain reduction outside the kernel, as in the JAX backward (:1037).
 """
 
 from __future__ import annotations
@@ -25,7 +28,8 @@ import torch
 from .. import _nvcc
 
 LOG2_E = 1.4426950408889634
-KERNEL_HEAD_DIMS = (40, 64, 80, 160)
+KERNEL_HEAD_DIMS = (40, 64, 80, 160, 512)
+F32_HEAD_DIMS = (512,)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
@@ -36,8 +40,10 @@ def _lib():
     if not getattr(lib, "_argtypes_set", False):
         lib.flash_fwd_bf16.argtypes = [_P] * 5 + [_I] * 14 + [_P]
         lib.flash_bwd_bf16.argtypes = [_P] * 9 + [_I] * 17 + [_P]
+        lib.flash_fwd_f32.argtypes = [_P] * 5 + [_I] * 14 + [_P]
         lib.flash_fwd_bf16.restype = ctypes.c_int
         lib.flash_bwd_bf16.restype = ctypes.c_int
+        lib.flash_fwd_f32.restype = ctypes.c_int
         lib._argtypes_set = True
     return lib
 
@@ -45,21 +51,23 @@ def _lib():
 def _kernel_view(t: torch.Tensor) -> torch.Tensor:
     """t itself when the kernel can read it in place (unit stride on D,
     16-byte aligned rows), else a contiguous copy."""
+    per_16b = 16 // t.element_size()
     ok = (
         t.stride(-1) == 1
-        and all(s % 8 == 0 for s in t.stride()[:-1])
+        and all(s % per_16b == 0 for s in t.stride()[:-1])
         and t.data_ptr() % 16 == 0
     )
     return t if ok else t.contiguous()
 
 
-def _check_cuda_inputs(*ts: torch.Tensor) -> None:
+def _check_cuda_inputs(*ts: torch.Tensor, dtype=torch.bfloat16, head_dims=KERNEL_HEAD_DIMS) -> None:
     d = ts[0].shape[-1]
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash kernel takes head dims {KERNEL_HEAD_DIMS}, got {d}")
+    name = "bf16" if dtype == torch.bfloat16 else "fp32"
+    if d not in head_dims:
+        raise ValueError(f"flash {name} kernel takes head dims {head_dims}, got {d}")
     for t in ts:
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"flash kernel takes bf16, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"flash {name} kernel takes {name}, got {t.dtype}")
         if t.device != ts[0].device:
             raise ValueError("flash kernel inputs must share one device")
 
@@ -84,28 +92,49 @@ def flash_fwd_plain(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     return o, (m + torch.log2(l)).squeeze(-1)
 
 
-def flash_fwd(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    """Forward kernel wrapper: qs [B,H,Sq,D] pre-scaled, k/v [B,H,Skv,D] →
-    (o [B,H,Sq,D], lse [B,H,Sq] fp32)."""
-    if qs.device.type == "cpu":
-        return flash_fwd_plain(qs, k, v)
-    _check_cuda_inputs(qs, k, v)
+def _launch_fwd(entry: str, qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     qs, k, v = (_kernel_view(t) for t in (qs, k, v))
     b, h, sq, d = qs.shape
     skv = k.shape[2]
     o = torch.empty((b, h, sq, d), dtype=qs.dtype, device=qs.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=qs.device)
-    status = _lib().flash_fwd_bf16(
+    status = getattr(_lib(), entry)(
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         b, h, sq, skv, d, *_strides(qs), *_strides(k), *_strides(v),
         torch.cuda.current_stream(qs.device).cuda_stream,
     )
-    _nvcc.check(status, "flash_fwd_bf16")
-    flash_fwd.launches += 1
+    _nvcc.check(status, entry)
     return o, lse
 
 
+def flash_fwd(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """Forward kernel wrapper: qs [B,H,Sq,D] pre-scaled, k/v [B,H,Skv,D] →
+    (o [B,H,Sq,D], lse [B,H,Sq] fp32). fp32 inputs go to ``flash_fwd_f32``."""
+    if qs.device.type == "cpu":
+        return flash_fwd_plain(qs, k, v)
+    if qs.dtype == torch.float32:
+        return flash_fwd_f32(qs, k, v)
+    _check_cuda_inputs(qs, k, v)
+    out = _launch_fwd("flash_fwd_bf16", qs, k, v)
+    flash_fwd.launches += 1
+    return out
+
+
 flash_fwd.launches = 0
+
+
+def flash_fwd_f32(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """The fp32 forward kernel (head dim 512, FFMA): as ``flash_fwd``, with
+    o in fp32."""
+    if qs.device.type == "cpu":
+        return flash_fwd_plain(qs, k, v)
+    _check_cuda_inputs(qs, k, v, dtype=torch.float32, head_dims=F32_HEAD_DIMS)
+    out = _launch_fwd("flash_fwd_f32", qs, k, v)
+    flash_fwd_f32.launches += 1
+    return out
+
+
+flash_fwd_f32.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -170,7 +199,7 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         qs, k, v, o, lse = ctx.saved_tensors
-        di = (do.float() * o.float()).sum(dim=-1)
+        di =(do.float() * o.float()).sum(dim=-1)
         return flash_bwd(qs, k, v, do, lse, di, ctx.scale)
 
 

@@ -2,9 +2,12 @@
 
 ``init(seed)`` builds the optimizer over the trainable parameters, the EMA
 shadows and the run's generator; ``train_step(state, batch)`` runs
-conditioner → loss → backward → Adafactor → EMA on pre-encoded latents
-(``batch['latents']``, NHWC, already scaled) and updates the module
-parameters in place. The frozen VAE encode comes with a later slice.
+[frozen encode →] conditioner → loss → backward → Adafactor → EMA and
+updates the module parameters in place. The latents are
+``batch['latents']`` (NHWC, already scaled) when the batch has them, else
+the frozen first stage encodes ``batch[input_key]`` (uint8 or [-1, 1]
+images, NHWC): moments → posterior sample → ·scale_factor, without grad
+(models/diffusion.py:187-197).
 """
 
 from __future__ import annotations
@@ -16,9 +19,12 @@ import torch
 from .._device import DeviceLike, resolve_device
 from ..diffusion.denoiser import DiscreteDenoiser
 from ..diffusion.loss import StandardDiffusionLoss
+from ..models.autoencoder import AutoencoderKL
 from ..models.unet import UNetModel
+from ..modules.distributions import DiagonalGaussian
 from ..modules.ema import ema_init, ema_update
 from ..modules.encoders.embedding import GeneralConditioner
+from ..ops.dequant import dequant_image
 from .state import TrainState, global_norm
 
 
@@ -27,7 +33,8 @@ class DiffusionEngine:
                  conditioner: GeneralConditioner,
                  optimizer: Callable[[list], torch.optim.Optimizer],
                  use_ema: bool = False, ema_decay: float = 0.9999, latents_key: str = "latents",
-                 trainable_embedders: Sequence[int] = (), device: DeviceLike = None):
+                 trainable_embedders: Sequence[int] = (), first_stage: Optional[AutoencoderKL] = None,
+                 scale_factor: float = 0.18215, input_key: str = "image", device: DeviceLike = None):
         self.device = resolve_device(device)
         self.model = model
         self.denoiser = denoiser
@@ -37,6 +44,9 @@ class DiffusionEngine:
         self.use_ema = use_ema
         self.ema_decay = ema_decay
         self.latents_key = latents_key
+        self.first_stage = first_stage.requires_grad_(False) if first_stage is not None else None
+        self.scale_factor = scale_factor
+        self.input_key = input_key
         for i, emb in enumerate(conditioner.embedders):
             emb.requires_grad_(i in set(trainable_embedders))
 
@@ -52,6 +62,16 @@ class DiffusionEngine:
         ema = ema_init(params) if self.use_ema else None
         return TrainState(step=0, optimizer=self.optimizer(params), ema=ema, generator=generator)
 
+    @torch.no_grad()
+    def encode_first_stage(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                           posterior_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """images → scale_factor · a posterior sample of the frozen VAE's
+        encode, with noise ``posterior_noise`` or drawn from ``generator``."""
+        if self.first_stage is None:
+            raise ValueError("no first stage: pass pre-encoded latents")
+        moments = self.first_stage.encode(dequant_image(x))
+        return self.scale_factor * DiagonalGaussian.from_moments(moments).sample(generator, eps=posterior_noise)
+
     def loss(self, batch: dict, latents: torch.Tensor, generator: Optional[torch.Generator] = None,
              t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Batch-mean loss (models/diffusion.py:199-233 forward path)."""
@@ -63,16 +83,19 @@ class DiffusionEngine:
         return self.loss_fn(network_apply, self.denoiser, cond, latents, generator, t=t, noise=noise).mean()
 
     def train_step(self, state: TrainState, batch: dict, t: Optional[torch.Tensor] = None,
-                   noise: Optional[torch.Tensor] = None):
+                   noise: Optional[torch.Tensor] = None, posterior_noise: Optional[torch.Tensor] = None):
         """One optimization step; returns (state, {'loss', 'grad_norm'}) with
-        the metrics as 0-d device tensors. ``t`` and ``noise`` override the
-        generator's draws (tests hold the port against JAX with them)."""
-        if self.latents_key not in batch:
-            raise NotImplementedError("the VAE encode is not ported yet: pass pre-encoded latents")
+        the metrics as 0-d device tensors. ``t``, ``noise`` and
+        ``posterior_noise`` override the generator's draws (tests hold the
+        port against JAX with them)."""
+        if self.latents_key in batch:
+            latents = batch[self.latents_key]
+        else:
+            latents = self.encode_first_stage(batch[self.input_key], state.generator, posterior_noise)
         params = self.trainable_parameters()
         for p in params:
             p.grad = None
-        loss = self.loss(batch, batch[self.latents_key], state.generator, t=t, noise=noise)
+        loss = self.loss(batch, latents, state.generator, t=t, noise=noise)
         loss.backward()
         grad_norm = global_norm([p.grad for p in params])
         state.optimizer.step()

@@ -1,6 +1,8 @@
-"""Training state threaded through ``DiffusionEngine.train_step`` (port of
-neurosis_tpu/trainer/state.py). The trainable parameters themselves live in
-the engine's modules and are updated in place."""
+"""Training state threaded through ``DiffusionEngine.train_step`` and the
+VAE-GAN steps (port of neurosis_tpu/trainer/state.py and the VAETrainState
+of trainer/vae_engine.py). The trainable parameters themselves live in the
+engine's modules and are updated in place; so do the discriminator's
+BatchNorm running statistics."""
 
 from __future__ import annotations
 
@@ -18,6 +20,14 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     ema: Optional[EmaState]
     generator: torch.Generator  # per-run source of the loss's t and noise draws
+
+
+@dataclasses.dataclass
+class VAETrainState:
+    step: int
+    g_optimizer: torch.optim.Optimizer  # encoder and decoder
+    d_optimizer: Optional[torch.optim.Optimizer]  # the discriminator, None without one
+    generator: torch.Generator  # per-run source of the posterior draws
 
 
 def global_norm(tensors) -> torch.Tensor:

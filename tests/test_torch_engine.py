@@ -30,6 +30,8 @@ TINY_UNET = dict(in_channels=4, model_channels=32, out_channels=4, num_res_block
                  use_checkpoint=True)
 TINY_CLIP = dict(width=64, layers=2, heads=2)
 NUM_IDX = 50
+TINY_VAE = dict(ch=32, ch_mult=[1, 2], num_res_blocks=1, attn_resolutions=[], resolution=32, z_channels=4,
+                double_z=True, in_channels=3, out_ch=3, dropout=0.0)
 EMA_DECAY = 0.9999
 
 
@@ -82,7 +84,7 @@ def _jax_step(junet, jcond, cond_params, warmup_init):
     return tx, step
 
 
-def _torch_engine(p_unet, p_cond, warmup_init=True):
+def _torch_engine(p_unet, p_cond, warmup_init=True, p_vae=None):
     from neurosis_tpu_torch.diffusion.denoiser import DiscreteDenoiser
     from neurosis_tpu_torch.diffusion.discretization import LegacyDDPMDiscretization
     from neurosis_tpu_torch.diffusion.loss import StandardDiffusionLoss
@@ -98,9 +100,16 @@ def _torch_engine(p_unet, p_cond, warmup_init=True):
     load_into(unet, p_unet)
     cond = GeneralConditioner([FrozenCLIPEmbedder(**TINY_CLIP, device="cpu")])
     load_into(cond, p_cond)
+    first_stage = None
+    if p_vae is not None:
+        from neurosis_tpu_torch.models.autoencoder import AutoencoderKL
+
+        first_stage = AutoencoderKL(TINY_VAE, embed_dim=4, device="cpu")
+        load_into(first_stage, p_vae)
     disc = LegacyDDPMDiscretization()
     return DiffusionEngine(
         model=unet,
+        first_stage=first_stage,
         denoiser=DiscreteDenoiser(EpsPreconditioning(), NUM_IDX, disc, device="cpu"),
         loss_fn=StandardDiffusionLoss(DiscreteSigmaGenerator(disc, NUM_IDX, device="cpu"), EpsWeighting()),
         conditioner=cond,
@@ -192,3 +201,57 @@ def test_train_step_draws_from_the_state_generator():
         losses.append(float(m["loss"]))
         assert np.isfinite(losses[-1]) and np.isfinite(float(m["grad_norm"]))
     assert losses[0] == losses[1]
+
+
+def test_images_in_train_step_matches_jax():
+    """One step from uint8 images: the frozen encode (JAX AutoencoderKL.encode,
+    DiagonalGaussian, scale 0.18215, as engine.encode_first_stage) feeds the
+    same step as above, with explicit t, noise and posterior noise."""
+    from neurosis_tpu.models.autoencoder import AutoencoderKL as JAE
+    from neurosis_tpu.models.unet import UNetModel as JUNet
+    from neurosis_tpu.modules.distributions import DiagonalGaussian
+    from neurosis_tpu.modules.ema import ema_init
+    from neurosis_tpu.modules.encoders.embedding import FrozenCLIPEmbedder as JEmb
+    from neurosis_tpu.modules.encoders.embedding import GeneralConditioner as JCond
+    from neurosis_tpu.modules.encoders.embedding import with_embedder_names
+    from neurosis_tpu.ops.dequant import dequant_image
+
+    rng = np.random.RandomState(9)
+    batch = _batch(rng)
+    images = rng.randint(0, 256, size=(2, 32, 32, 3)).astype(np.uint8)
+    post_eps = rng.randn(2, 16, 16, 4).astype(np.float32)
+    ts, noise = np.array([0.3, 0.85], np.float32), rng.randn(2, 16, 16, 4).astype(np.float32)
+
+    jae = JAE(ddconfig=TINY_VAE, embed_dim=4)
+    jimg = dequant_image(jnp.asarray(images.copy()))
+    p_vae = perturb(jae.init(jax.random.PRNGKey(4), jimg)["params"], 5)
+    dist = DiagonalGaussian.from_moments(jae.apply({"params": p_vae}, jimg, method="encode"))
+    jlatents = 0.18215 * (dist.mean + dist.std * jnp.asarray(post_eps.copy()))
+    jbatch = {"latents": jlatents, "caption_ids": jnp.asarray(batch["caption_ids"].copy())}
+
+    junet = JUNet(**TINY_UNET)
+    jcond = JCond(embedders=with_embedder_names([JEmb(**TINY_CLIP)]))
+    p_cond = perturb(jcond.init(jax.random.PRNGKey(1), jbatch, rng=None)["params"], 6)
+    ctx = jcond.apply({"params": p_cond}, jbatch, rng=None)["crossattn"]
+    p_unet = perturb(junet.init(jax.random.PRNGKey(0), jlatents, jnp.zeros((2,)), ctx)["params"], 7)
+    tx, jstep = _jax_step(junet, jcond, p_cond, True)
+    jparams = jax.tree_util.tree_map(jnp.asarray, p_unet)
+    jparams, _, _, jloss, jgrads, jnorm = jstep(jparams, tx.init(jparams), ema_init(jparams), jbatch,
+                                                jnp.asarray(ts.copy()), jnp.asarray(noise.copy()))
+
+    engine = _torch_engine(p_unet, p_cond, p_vae=p_vae)
+    assert not any(p.requires_grad for p in engine.first_stage.parameters())
+    state = engine.init(seed=0)
+    tbatch = {"image": torch.tensor(images.copy()), "caption_ids": torch.tensor(batch["caption_ids"].copy())}
+    latents = engine.encode_first_stage(tbatch["image"], posterior_noise=torch.tensor(post_eps.copy()))
+    assert rel_err(latents.numpy(), jlatents) < 1e-5
+    state, metrics = engine.train_step(state, tbatch, t=torch.tensor(ts.copy()), noise=torch.tensor(noise.copy()),
+                                       posterior_noise=torch.tensor(post_eps.copy()))
+    np.testing.assert_allclose(float(metrics["loss"]), float(jloss), rtol=1e-5)
+    np.testing.assert_allclose(float(metrics["grad_norm"]), float(jnorm), rtol=1e-5)
+    want_g, want_p = grads_by_key(jgrads), grads_by_key(jparams)
+    floor = 1e-3 * max(float(np.abs(g).max()) for g in want_g.values())
+    for n, prm in engine.model.named_parameters():
+        scale = max(float(np.abs(want_g[n]).max()), floor)
+        assert float(np.abs(prm.grad.numpy() - want_g[n]).max()) / scale < 2e-4, n
+        assert rel_err(prm.detach().numpy(), want_p[n]) < 1e-5, n

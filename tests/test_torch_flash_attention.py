@@ -35,6 +35,8 @@ def interpreted_flash(monkeypatch):
         (1, 2, 256, 256, 80),  # SD1.5 level-1 head dim
         (1, 2, 300, 77, 40),  # cross-attention: kv=77 tail, ragged q
         (1, 2, 128, 77, 80),
+        (1, 1, 256, 256, 512),  # the VAE's single-head mid attention
+        (2, 1, 200, 128, 512),  # ragged q and kv at head dim 512
     ],
 )
 def test_flash_matches_jax(interpreted_flash, shape):

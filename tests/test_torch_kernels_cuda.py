@@ -1,14 +1,17 @@
 """The port's CUDA kernels against their plain versions on the card, at small
 shapes that reach every code path of each kernel: a ragged q tail, the
-masked kv=77 tail, each head dim the kernel takes, channel counts that
-take one and several tiles, the GroupNorm prologue's zeroed halo.
+masked kv=77 tail, each head dim the kernel takes (512 with ragged q and kv
+tails, in bf16 and in fp32), channel counts that take one and several tiles,
+the GroupNorm prologue's zeroed halo.
 
 These need a CUDA card (a CUDA kernel has no interpreter) and skip without
 one. On the card, where JAX is absent (tests/conftest.py imports it):
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py
 Tolerances are on max|kernel - plain| / max|plain|, bf16 inputs on both
 sides: 2e-2 for outputs (the kernels round P, dS or the activation to bf16
-where the plain versions keep fp32), 5e-2 for attention grads.
+where the plain versions keep fp32), 5e-2 for attention grads. The fp32
+flash forward computes in fp32 throughout, as its plain version does: 2e-5
+(the same fp32 sums in another order).
 """
 
 import math
@@ -34,7 +37,7 @@ def _rel(got, want):
 
 
 @pytest.mark.parametrize("shape", [(2, 3, 300, 77, 40), (1, 2, 256, 256, 80), (1, 2, 130, 200, 64),
-                                   (1, 1, 64, 77, 160)])
+                                   (1, 1, 64, 77, 160), (2, 1, 200, 300, 512), (1, 1, 1024, 1024, 512)])
 def test_flash_kernels(cuda, shape):
     from neurosis_tpu_torch.ops import flash_attention as fa
 
@@ -54,6 +57,23 @@ def test_flash_kernels(cuda, shape):
         assert _rel(got, want) < 5e-2
     torch.cuda.synchronize()
     assert (fa.flash_fwd.launches, fa.flash_bwd.launches) == (n_fwd + 1, n_bwd + 1)
+
+
+@pytest.mark.parametrize("shape", [(2, 1, 100, 130, 512), (1, 1, 1024, 1024, 512)])
+def test_flash_fwd_f32_kernel(cuda, shape):
+    from neurosis_tpu_torch.ops import flash_attention as fa
+
+    b, h, sq, skv, d = shape
+    q = torch.randn(b, h, sq, d, generator=cuda, device="cuda")
+    k, v = (torch.randn(b, h, skv, d, generator=cuda, device="cuda") for _ in range(2))
+    qs = q * (fa.LOG2_E / math.sqrt(d))
+    n = fa.flash_fwd_f32.launches
+    o, lse = fa.flash_fwd(qs, k, v)
+    o_ref, lse_ref = fa.flash_fwd_plain(qs, k, v)
+    torch.cuda.synchronize()
+    assert o.dtype == torch.float32 and fa.flash_fwd_f32.launches == n + 1
+    assert _rel(o, o_ref) < 2e-5
+    assert float((lse - lse_ref).abs().max()) < 2e-5
 
 
 def test_flash_autograd_through_strided_views(cuda):

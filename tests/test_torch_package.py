@@ -1,7 +1,8 @@
 """Rules of the neurosis_tpu_torch package: it imports neither JAX nor the
-JAX package, calls no library attention kernel and no torch.compile, builds
-on CUDA unless told otherwise, and hands non-CPU tensors to its kernels
-rather than to their plain versions."""
+JAX package (nor the safetensors package, absent on the card's machine),
+calls no library attention kernel and no torch.compile, builds on CUDA
+unless told otherwise, and hands non-CPU tensors to its kernels rather than
+to their plain versions."""
 
 import re
 import subprocess
@@ -14,7 +15,7 @@ torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "neurosis_tpu_torch"
-_FORBIDDEN_IMPORT = re.compile(r"^\s*(?:from|import)\s+(?:jax|flax|optax|neurosis_tpu)\b", re.M)
+_FORBIDDEN_IMPORT = re.compile(r"^\s*(?:from|import)\s+(?:jax|flax|optax|neurosis_tpu|safetensors)\b", re.M)
 
 
 def test_imports_no_jax_in_a_fresh_process():
@@ -24,7 +25,8 @@ def test_imports_no_jax_in_a_fresh_process():
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, 'neurosis_tpu_torch.')]\n"
         "[importlib.import_module(m) for m in mods]\n"
         "import chip_smoke\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'neurosis_tpu')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'neurosis_tpu',"
+        " 'safetensors')]\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )
@@ -62,11 +64,56 @@ def test_entry_points_default_to_cuda(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+def _entry_points():
+    """Every public constructor of the port that makes tensors, at tiny widths."""
+    from neurosis_tpu_torch.diffusion.denoiser import DiscreteDenoiser
+    from neurosis_tpu_torch.diffusion.discretization import LegacyDDPMDiscretization
+    from neurosis_tpu_torch.diffusion.preconditioning import EpsPreconditioning
+    from neurosis_tpu_torch.diffusion.sigma_generators import DiscreteSigmaGenerator
+    from neurosis_tpu_torch.losses.lpips import LPIPS
+    from neurosis_tpu_torch.losses.patchgan import NLayerDiscriminator
+    from neurosis_tpu_torch.losses.vae_loss import AutoencoderLPIPSWithDiscr, AutoencoderPerceptual
+    from neurosis_tpu_torch.models.autoencoder import AutoencoderKL
+    from neurosis_tpu_torch.models.vae import Decoder, Encoder
+
+    dd = dict(ch=32, ch_mult=[1], num_res_blocks=1, z_channels=2)
+    return {
+        "DiscreteDenoiser": (lambda **kw: DiscreteDenoiser(EpsPreconditioning(), 10, LegacyDDPMDiscretization(), **kw),
+                             lambda m: m.sigmas),
+        "DiscreteSigmaGenerator": (lambda **kw: DiscreteSigmaGenerator(LegacyDDPMDiscretization(), 10, **kw),
+                                   lambda m: m.sigmas),
+        "Encoder": (lambda **kw: Encoder(**dd, **kw), lambda m: next(m.parameters())),
+        "Decoder": (lambda **kw: Decoder(out_ch=3, **dd, **kw), lambda m: next(m.parameters())),
+        "AutoencoderKL": (lambda **kw: AutoencoderKL(dd, embed_dim=2, **kw), lambda m: m.quant_conv.weight),
+        "LPIPS": (lambda **kw: LPIPS("alex", **kw), lambda m: m.lin0.model[1].weight),
+        "NLayerDiscriminator": (lambda **kw: NLayerDiscriminator(n_layers=1, **kw),
+                                lambda m: m.layers[3].running_var),
+        "AutoencoderLPIPSWithDiscr": (lambda **kw: AutoencoderLPIPSWithDiscr(disc_n_layers=1, **kw),
+                                      lambda m: m.perceptual_loss.shift),
+        "AutoencoderPerceptual": (lambda **kw: AutoencoderPerceptual(**kw), lambda m: m.perceptual_loss.scale),
+    }
+
+
+@pytest.mark.parametrize("name", ["DiscreteDenoiser", "DiscreteSigmaGenerator", "Encoder", "Decoder",
+                                  "AutoencoderKL", "LPIPS", "NLayerDiscriminator", "AutoencoderLPIPSWithDiscr",
+                                  "AutoencoderPerceptual"])
+def test_every_entry_point_resolves_its_device(monkeypatch, name):
+    """Each constructor goes through resolve_device: CUDA unless asked, so
+    without CUDA it raises instead of building on the CPU; device='cpu'
+    builds there (the σ tables of the denoiser and the σ generator once
+    landed on the CPU by default)."""
+    build, probe = _entry_points()[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build()
+    assert probe(build(device="cpu")).device.type == "cpu"
+
+
 class _KernelReached(Exception):
     pass
 
 
-@pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd", "conv3x3", "gn_silu_conv3x3"])
+@pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd", "flash_fwd_f32", "conv3x3", "gn_silu_conv3x3"])
 def test_non_cpu_tensors_go_to_the_kernel(monkeypatch, name):
     """A wrapper runs its plain version only for CPU tensors: given tensors
     on another device (meta here) it heads for the kernel's library."""
@@ -78,6 +125,7 @@ def test_non_cpu_tensors_go_to_the_kernel(monkeypatch, name):
     monkeypatch.setattr(_nvcc, "load", load)
     meta = dict(device="meta", dtype=torch.bfloat16)
     x = torch.empty(1, 2, 64, 40, **meta)
+    x32 = torch.empty(1, 1, 64, 512, device="meta")
     stat = torch.empty(1, 2, 64, device="meta")
     img = torch.empty(1, 32, 32, 128, **meta)
     w = torch.empty(3, 3, 128, 128, **meta)
@@ -85,6 +133,7 @@ def test_non_cpu_tensors_go_to_the_kernel(monkeypatch, name):
     args = {
         "flash_fwd": (x, x, x),
         "flash_bwd": (x, x, x, x, stat, stat, 0.1),
+        "flash_fwd_f32": (x32, x32, x32),
         "conv3x3": (img, w),
         "gn_silu_conv3x3": (img, ab, ab, w),
     }[name]
@@ -96,17 +145,24 @@ def test_non_cpu_tensors_go_to_the_kernel(monkeypatch, name):
 
 def test_kernel_refuses_what_it_cannot_take():
     """Off the CPU a shape or dtype the kernel does not take raises rather
-    than falling back: head dims other than 40/64/80/160 (the VAE's 512
-    waits for its own kernel), fp32 inputs, a filter of the wrong size."""
+    than falling back: bf16 head dims other than 40/64/80/160/512, fp32 at
+    any head dim but 512, mixed dtypes, a filter of the wrong size."""
     from neurosis_tpu_torch.ops.conv3x3 import conv3x3_nhwc
-    from neurosis_tpu_torch.ops.flash_attention import flash_fwd
+    from neurosis_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd
 
-    big_d = torch.empty(1, 1, 16, 512, device="meta", dtype=torch.bfloat16)
+    odd_d = torch.empty(1, 1, 16, 96, device="meta", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dims"):
-        flash_fwd(big_d, big_d, big_d)
+        flash_fwd(odd_d, odd_d, odd_d)
     f32 = torch.empty(1, 1, 16, 40, device="meta")
-    with pytest.raises(TypeError, match="bf16"):
+    with pytest.raises(ValueError, match="fp32 kernel takes head dims"):
         flash_fwd(f32, f32, f32)
+    bf16 = torch.empty(1, 1, 16, 512, device="meta", dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="bf16"):
+        flash_fwd(bf16, bf16.float(), bf16)
+    f32 = bf16.float()  # no fp32 backward kernel: the backward of the fp32 forward raises
+    stat = torch.empty(1, 1, 16, device="meta")
+    with pytest.raises(TypeError, match="bf16"):
+        flash_bwd(f32, f32, f32, f32, stat, stat, 0.1)
     img = torch.empty(1, 32, 32, 128, device="meta", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="bad shapes"):
         conv3x3_nhwc(img, torch.empty(3, 3, 64, 128, device="meta", dtype=torch.bfloat16))

@@ -44,6 +44,19 @@ def grads_by_key(jax_grads) -> dict:
     return {k: v.numpy() for k, v in jax_params_to_state_dict(to_np(jax_grads)).items()}
 
 
+def check_grads(module: torch.nn.Module, jax_grads, tol: float) -> None:
+    """Each parameter's grad within tol of its own largest value, or of
+    1e-3 of the largest grad anywhere for tensors whose true grad is ~0 (a
+    conv bias right before a GroupNorm)."""
+    want = grads_by_key(jax_grads)
+    got = {k: p.grad for k, p in module.named_parameters()}
+    assert set(got) == set(want)
+    floor = 1e-3 * max(float(np.abs(w).max()) for w in want.values())
+    for k, g in got.items():
+        err = float(np.abs(g.numpy() - want[k]).max())
+        assert err / max(float(np.abs(want[k]).max()), floor) < tol, k
+
+
 def rel_err(got, want) -> float:
     got = np.asarray(got, np.float32)
     want = np.asarray(want, np.float32)
