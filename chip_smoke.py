@@ -3,22 +3,24 @@
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
-Two main paths run at full width: the SD1.5 train step from images (the
-frozen fp32 VAE encode in front of the UNet step) and the VAE-GAN trainer
-(alternating generator and discriminator steps).
+Five paths run at full width: the SD1.5 train step from images (the frozen
+fp32 VAE encode in front of the UNet step), the VAE-GAN trainer (alternating
+generator and discriminator steps) with a bf16 and with an fp32 encoder and
+decoder, the SDXL train step from 1024 px images, and the flash-overlap tool.
 
 Phases, each fatal on failure:
   1. environment: Python, torch and CUDA versions, the card's name and power limit;
   2. build: nvcc compiles every source of neurosis_tpu_torch/csrc for sm_90a, one
      process per source, all at once;
   3. kernels: each kernel wrapper against its plain PyTorch version on the card,
-     on the same inputs at every shape either path gives it, with the kernel's
+     on the same inputs at every shape a path gives it, with the kernel's
      time, the plain version's, one library call's (a yardstick only: the port
      never calls it) and the least time an H100 could take;
   4. reference: small engines whose layers all take the kernels, on the card
      against the same computation on the CPU (plain versions throughout): one
-     SD train step, one VAE-GAN generator and discriminator pair, one fp32
-     frozen encode;
+     SD train step, one SDXL-layout train step (two text towers, size
+     embedders, the label embedding), one VAE-GAN generator and discriminator
+     pair in bf16 and one in fp32, one fp32 frozen encode;
   5. slice: three DiffusionEngine.train_steps of SD1.5 at full width (batch 4 of
      uint8 512x512 images and 77 token ids; frozen fp32 VAE encode, bf16 UNet,
      fp32 CLIP-L, Adafactor, EMA), with every kernel's launch count read around
@@ -29,7 +31,18 @@ Phases, each fatal on failure:
   7. VAE-GAN: one warm generator/discriminator pair, then three timed pairs of
      the VAE-GAN trainer at full width (batch 8 of uint8 256x256 images, bf16
      encoder and decoder, fp32 LPIPS alex and PatchGAN, AdamW), with the launch
-     counts read around the three pairs, and a fourth pair profiled.
+     counts read around the three pairs, and a fourth pair profiled;
+  8. fp32 VAE-GAN: the same trainer as configs/vae/vae.example.yaml is written
+     (no precision key: fp32 encoder and decoder), one warm pair, three timed,
+     one profiled; its kernels are the fp32 flash forward and backward;
+  9. SDXL: one warm and three timed DiffusionEngine.train_steps of
+     configs/sdxl/sdxl.example.yaml at full width (batch 2 of uint8 1024x1024
+     images, 77 token ids and the three size conditionings; frozen fp32 VAE
+     encode, fp32 CLIP-L and OpenCLIP bigG, bf16 UNet with the label embedding,
+     Adafactor, no EMA), launch counts read around the three, then a profiled
+     step, and the encode and each text tower profiled on their own;
+ 10. overlap: python -m neurosis_tpu_torch.tools.overlap_bench's cases, with
+     the launch counts read around them.
 Then one JSON line of kernels, the nvidia-smi line and, last, the result line.
 Everything measured also goes to chiprun_out/chip_smoke.json.
 
@@ -48,7 +61,7 @@ import time
 from pathlib import Path
 
 # published H100 SXM peaks: dense bf16 tensor-core rate, fp32 FFMA rate on the
-# CUDA cores (the fp32 flash forward's units) and HBM3 bandwidth
+# CUDA cores (the fp32 flash kernels' units) and HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 66.9e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -84,7 +97,41 @@ VAE_CONV_SHAPES = {(8, 64, 64, 512, 512): (2, 10), (8, 64, 64, 256, 512): (0, 1)
 # decoder level 2) and at 32x32 (encoder level 3, both mid blocks, decoder
 # level 3), forward in both steps
 VAE_GN_CONV_SHAPES = {(8, 64, 64, 256, 512): 2, (8, 64, 64, 512, 512): 18, (8, 32, 32, 512, 512): 36}
-PATHS = {"sd15": "SD1.5 train step", "vae_gan": "VAE-GAN generator + discriminator pair"}
+# The same trainer with an fp32 encoder and decoder (the config as written):
+# the conv gate wants bf16, so every conv goes to the library and the mid
+# attention is the path's only kernel work, forward and backward in fp32.
+VAE_F32_FLASH_SHAPES = {(8, 1, 1024, 1024, 512): (4, 2)}
+
+# The SDXL step (batch 2, 1024 px, 128x128 latents; UNet 320 x [1, 2, 4], two
+# ResBlocks a level, transformer depth [1, 2, 10] at 64 heads channels).
+# Attention lives at level 1 (64x64, 640 ch, 10 heads, depth 2: two input and
+# three output blocks = 10 transformer blocks) and at level 2 with the middle
+# (32x32, 1280 ch, 20 heads, depth 10: two input, the middle, three output =
+# 60 blocks); each block has one self and one cross (kv = 77) attention, run
+# forward twice a step (recomputed in the backward) and backward once.
+SDXL_FLASH_SHAPES = {(2, 10, 4096, 4096, 64): (20, 10), (2, 10, 4096, 77, 64): (20, 10),
+                     (2, 20, 1024, 1024, 64): (120, 60), (2, 20, 1024, 77, 64): (120, 60)}
+# fused GroupNorm+SiLU->conv (128-multiple channels at 64x64 and 32x32; level 0
+# is 128x128 = 16384 pixels and 320 and 960 channels are no 128-multiples:
+# library). 64x64: the input blocks' 640->640 pairs (3) and the output blocks'
+# out_layers (3), the output blocks' in_layers from 1920 and 1280 channels;
+# 32x32: 640->1280 once, 1280->1280 in the input blocks (3), the middle (4) and
+# the output blocks' out_layers (3), the output blocks' in_layers from 2560
+# (twice) and 1920 channels.
+SDXL_GN_CONV_SHAPES = {(2, 64, 64, 640, 640): 6, (2, 64, 64, 1280, 640): 1, (2, 64, 64, 1920, 640): 1,
+                       (2, 32, 32, 640, 1280): 1, (2, 32, 32, 1280, 1280): 10, (2, 32, 32, 1920, 1280): 1,
+                       (2, 32, 32, 2560, 1280): 2}
+# conv3x3: the upsample conv into 64x64 (1280 channels), forward and dgrad, and
+# the dgrads of the fused convs whose input has at most 1280 channels
+SDXL_CONV_SHAPES = {(2, 64, 64, 1280, 1280): (1, 1), (2, 64, 64, 640, 640): (0, 6), (2, 64, 64, 1280, 640): (0, 1),
+                    (2, 32, 32, 640, 1280): (0, 1), (2, 32, 32, 1280, 1280): (0, 10)}
+# the SDXL step's frozen fp32 encode: the VAE's mid attention over 128x128 latents
+SDXL_FLASH_F32_SHAPES = {(2, 1, 16384, 16384, 512): 1}
+
+# path -> (its key in the report, the unit its launch tables count)
+PATHS = {"sd15": ("slice", "SD1.5 train step"), "vae_gan": ("vae_gan", "VAE-GAN generator + discriminator pair, bf16"),
+         "vae_gan_f32": ("vae_gan_f32", "VAE-GAN generator + discriminator pair, fp32"),
+         "sdxl": ("sdxl", "SDXL train step"), "overlap": ("overlap", "one run of the flash-overlap tool")}
 
 # tolerances on max|kernel - plain| / max|plain|, same bf16 inputs on both sides
 TOL = {
@@ -92,6 +139,8 @@ TOL = {
     "flash_fwd_f32": 2e-5,  # fp32 throughout on both sides (FFMA, no TF32), sums in another order
     "flash_lse": 1e-3,  # fp32 both sides, absolute in log2 units
     "flash_bwd": 5e-2,  # kernel rounds P and dS to bf16 and sums dQ with fp32 atomics
+    "flash_bwd_f32": 1e-4,  # fp32 throughout on both sides; dQ summed by atomics in a changing order
+    "flash_overlap": 1e-2,  # P rounded to bf16 on both sides; bf16 output rounding, sums in another order
     "conv3x3": 1e-2,  # fp32 accumulation in another order, bf16 output rounding
     "gn_silu_conv3x3": 1e-2,
     "gn_silu_conv3x3_bwd": 2e-2,  # adds the dgrad kernel's rounding of dact
@@ -104,6 +153,12 @@ KERNELS = {
                       replaces="neurosis_tpu/ops/flash_attention.py:843"),
     "flash_fwd_f32": dict(source="neurosis_tpu_torch/csrc/flash_attention.cu",
                           replaces="neurosis_tpu/ops/flash_attention.py:297"),
+    "flash_bwd_f32": dict(source="neurosis_tpu_torch/csrc/flash_attention.cu",
+                          replaces="neurosis_tpu/ops/flash_attention.py:751"),
+    "flash_fwd_split2": dict(source="neurosis_tpu_torch/csrc/flash_overlap.cu",
+                             replaces="tools/overlap_bench.py:37"),
+    "flash_fwd_chunked": dict(source="neurosis_tpu_torch/csrc/flash_overlap.cu",
+                              replaces="tools/overlap_bench.py:66"),
     "conv3x3": dict(source="neurosis_tpu_torch/csrc/conv3x3.cu",
                     replaces="neurosis_tpu/ops/conv3x3.py:42"),
     "gn_silu_conv3x3": dict(source="neurosis_tpu_torch/csrc/conv3x3.cu",
@@ -167,23 +222,45 @@ def time_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
 # ---------------------------------------------------------------------------
 
 
+def overlap_launches() -> dict:
+    """Launches of each kernel in one run of the overlap tool, by shape:
+    {kernel: {(B, H, Sq, Skv, D) or (..., chunks): launches}} from its case
+    list, plus the one base and one split2 call of its opening check."""
+    from neurosis_tpu_torch.tools.overlap_bench import CASES, HEAD_DIM, ITERS, WARMUP
+
+    names = {"base": "flash_fwd", "split2": "flash_fwd_split2", "chunked": "flash_fwd_chunked"}
+    out = {name: {} for name in names.values()}
+    for _label, variant, chunks, sq, skv, batch, heads in CASES:
+        key = (batch, heads, sq, skv, HEAD_DIM) + ((chunks,) if variant == "chunked" else ())
+        out[names[variant]][key] = out[names[variant]].get(key, 0) + WARMUP + ITERS
+    out["flash_fwd"][(1, 2, 1024, 1024, HEAD_DIM)] = 1
+    out["flash_fwd_split2"][(1, 2, 1024, 1024, HEAD_DIM)] = 1
+    return out
+
+
 def check_flash(torch, log: list) -> dict:
-    """Each flash shape of both paths in its dtype: the bf16 forward and
-    backward, and the fp32 forward of the frozen encode (fp32 plain version
-    with TF32 off, SDPA on the same fp32 inputs as the yardstick)."""
+    """Each flash shape of every path in its dtype: forward and backward in
+    bf16, and in fp32 (the frozen encodes run the forward only; fp32 plain
+    version with TF32 off, SDPA on the same inputs as the yardstick)."""
     import torch.nn.functional as F
 
     from neurosis_tpu_torch.ops import flash_attention as fa
 
-    rows = {"flash_fwd": [], "flash_bwd": [], "flash_fwd_f32": []}
+    rows = {"flash_fwd": [], "flash_bwd": [], "flash_fwd_f32": [], "flash_bwd_f32": []}
     bf16, f32 = torch.bfloat16, torch.float32
     tables = [("sd15", sh, n, bf16) for sh, n in FLASH_SHAPES.items()] + \
              [("vae_gan", sh, n, bf16) for sh, n in VAE_FLASH_SHAPES.items()] + \
-             [("sd15", sh, (n, 0), f32) for sh, n in FLASH_F32_SHAPES.items()]
+             [("sdxl", sh, n, bf16) for sh, n in SDXL_FLASH_SHAPES.items()] + \
+             [("overlap", sh, (n, 0), bf16) for sh, n in overlap_launches()["flash_fwd"].items()] + \
+             [("sd15", sh, (n, 0), f32) for sh, n in FLASH_F32_SHAPES.items()] + \
+             [("vae_gan_f32", sh, n, f32) for sh, n in VAE_F32_FLASH_SHAPES.items()] + \
+             [("sdxl", sh, (n, 0), f32) for sh, n in SDXL_FLASH_F32_SHAPES.items()]
     for path, shape, (n_fwd, n_bwd), dtype in tables:
         is_f32 = dtype == f32
-        name = "flash_fwd_f32" if is_f32 else "flash_fwd"
+        name, bwd_name = ("flash_fwd_f32", "flash_bwd_f32") if is_f32 else ("flash_fwd", "flash_bwd")
         fwd = fa.flash_fwd_f32 if is_f32 else fa.flash_fwd
+        bwd = fa.flash_bwd_f32 if is_f32 else fa.flash_bwd
+        peak = PEAK_FP32_FLOPS if is_f32 else PEAK_BF16_FLOPS  # fp32 FFMA or bf16 tensor cores
         b, h, sq, skv, d = shape
         g = torch.Generator("cuda").manual_seed(sum(shape) + is_f32)
         q, do = (torch.randn(b, h, sq, d, generator=g, device="cuda").to(dtype) for _ in range(2))
@@ -198,38 +275,37 @@ def check_flash(torch, log: list) -> dict:
         check(f"{name} {tag} O", rel, TOL[name], log, err)
         lse_err = float((lse - lse_ref).abs().max())
         check(f"{name} {tag} LSE (abs)", lse_err, TOL["flash_fwd_f32" if is_f32 else "flash_lse"], log)
-        # reads q~, k, v; writes O and the fp32 LSE; bf16 on tensor cores or fp32 FFMA
+        # reads q~, k, v; writes O and the fp32 LSE
         elem = q.element_size()
         bh_in = b * h * (sq + 2 * skv) * d * elem
-        t, by = bound_ms(4.0 * b * h * sq * skv * d, bh_in + b * h * sq * (d * elem + 4),
-                         PEAK_FP32_FLOPS if is_f32 else PEAK_BF16_FLOPS)
+        t, by = bound_ms(4.0 * b * h * sq * skv * d, bh_in + b * h * sq * (d * elem + 4), peak)
         rows[name].append(dict(
             path=path, shape=tag, per_step=n_fwd, max_abs_err=err, rel_err=rel,
             ms=time_ms(torch, lambda: fwd(qs, k, v)),
             plain_ms=time_ms(torch, lambda: fa.flash_fwd_plain(qs, k, v), iters=3, warmup=1),
             library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v)),
             bound_ms=t, bound_by=by))
-        if is_f32:  # the fp32 backward is not ported
+        if not n_bwd:  # a forward-only shape: a frozen encode, the overlap tool's base cases
             del q, k, v, do, qs, o, o_ref
             torch.cuda.empty_cache()
             continue
 
         di = (do.float() * o_ref.float()).sum(-1)
-        grads = fa.flash_bwd(qs, k, v, do, lse_ref, di, scale)
+        grads = bwd(qs, k, v, do, lse_ref, di, scale)
         grads_ref = fa.flash_bwd_plain(qs, k, v, do, lse_ref, di, scale)
         errs = []
         for gname, got, want in zip(("dq", "dk", "dv"), grads, grads_ref):
             e, r = rel_err(got, want)
-            check(f"flash_bwd {tag} {gname}", r, TOL["flash_bwd"], log, e)
+            check(f"{bwd_name} {tag} {gname}", r, TOL[bwd_name], log, e)
             errs.append((e, r))
         qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
         lib_out = F.scaled_dot_product_attention(qg, kg, vg)
-        # reads q~, k, v, dO (bf16) and LSE, Di (fp32); writes dq, dk, dv (bf16)
+        # reads q~, k, v, dO and LSE, Di (fp32); writes dq, dk, dv
         t, by = bound_ms(10.0 * b * h * sq * skv * d,
-                         bh_in + b * h * sq * (d * 2 + 8) + b * h * (sq + 2 * skv) * d * 2)
-        rows["flash_bwd"].append(dict(
+                         bh_in + b * h * sq * (d * elem + 8) + b * h * (sq + 2 * skv) * d * elem, peak)
+        rows[bwd_name].append(dict(
             path=path, shape=tag, per_step=n_bwd, max_abs_err=max(e for e, _ in errs), rel_err=max(r for _, r in errs),
-            ms=time_ms(torch, lambda: fa.flash_bwd(qs, k, v, do, lse_ref, di, scale)),
+            ms=time_ms(torch, lambda: bwd(qs, k, v, do, lse_ref, di, scale)),
             plain_ms=time_ms(torch, lambda: fa.flash_bwd_plain(qs, k, v, do, lse_ref, di, scale),
                              iters=3, warmup=1),
             library_ms=time_ms(torch, lambda: torch.autograd.grad(lib_out, (qg, kg, vg), do,
@@ -240,6 +316,46 @@ def check_flash(torch, log: list) -> dict:
     return rows
 
 
+def check_overlap(torch, log: list) -> dict:
+    """The split2 and chunked forwards at every shape and chunk count of the
+    overlap tool's cases, against their plain version (the same chunk loop)
+    and against the unchunked softmax; SDPA as the yardstick."""
+    import torch.nn.functional as F
+
+    from neurosis_tpu_torch.ops import flash_attention as fa
+    from neurosis_tpu_torch.ops import flash_overlap as fo
+
+    rows = {"flash_fwd_split2": [], "flash_fwd_chunked": []}
+    launches = overlap_launches()
+    for name in rows:
+        for shape, n in launches[name].items():
+            b, h, sq, skv, d = shape[:5]
+            chunks = shape[5] if name == "flash_fwd_chunked" else 2
+            kernel = (lambda qs, k, v: fo.flash_fwd_split2(qs, k, v)) if name == "flash_fwd_split2" else \
+                     (lambda qs, k, v: fo.flash_fwd_chunked(qs, k, v, chunks))
+            g = torch.Generator("cuda").manual_seed(sum(shape))
+            q = torch.randn(b, h, sq, d, generator=g, device="cuda").bfloat16()
+            k, v = (torch.randn(b, h, skv, d, generator=g, device="cuda").bfloat16() for _ in range(2))
+            qs = (q * (fa.LOG2_E / math.sqrt(d))).to(q.dtype)
+            tag = "x".join(map(str, shape[:5])) + f" in {chunks} chunks"
+            o = kernel(qs, k, v)
+            err, rel = rel_err(o, fo.flash_fwd_chunked_plain(qs, k, v, chunks))
+            check(f"{name} {tag}", rel, TOL["flash_overlap"], log, err)
+            _, rel_whole = rel_err(o, fa.flash_fwd_plain(qs, k, v)[0])
+            check(f"{name} {tag} against the unchunked softmax", rel_whole, TOL["flash_fwd"], log)
+            # reads q~, k, v and writes O, all bf16
+            t, by = bound_ms(4.0 * b * h * sq * skv * d, 2 * b * h * (2 * sq + 2 * skv) * d)
+            rows[name].append(dict(
+                path="overlap", shape=tag, per_step=n, max_abs_err=err, rel_err=rel,
+                ms=time_ms(torch, lambda: kernel(qs, k, v)),
+                plain_ms=time_ms(torch, lambda: fo.flash_fwd_chunked_plain(qs, k, v, chunks), iters=3, warmup=1),
+                library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v)),
+                bound_ms=t, bound_by=by))
+            del q, k, v, qs, o
+            torch.cuda.empty_cache()
+    return rows
+
+
 def check_conv(torch, log: list) -> dict:
     import torch.nn.functional as F
 
@@ -247,7 +363,8 @@ def check_conv(torch, log: list) -> dict:
 
     rows = {"conv3x3": [], "gn_silu_conv3x3": []}
     tables = [("sd15", sh, n) for sh, n in CONV_SHAPES.items()] + \
-             [("vae_gan", sh, n) for sh, n in VAE_CONV_SHAPES.items()]
+             [("vae_gan", sh, n) for sh, n in VAE_CONV_SHAPES.items()] + \
+             [("sdxl", sh, n) for sh, n in SDXL_CONV_SHAPES.items()]
     for path, shape, (n_fwd, n_dgrad) in tables:
         b, hh, ww, c, f = shape
         g = torch.Generator("cuda").manual_seed(sum(shape))
@@ -274,7 +391,8 @@ def check_conv(torch, log: list) -> dict:
                 bound_ms=t, bound_by=by))
 
     gn_tables = [("sd15", sh, n) for sh, n in GN_CONV_SHAPES.items()] + \
-                [("vae_gan", sh, n) for sh, n in VAE_GN_CONV_SHAPES.items()]
+                [("vae_gan", sh, n) for sh, n in VAE_GN_CONV_SHAPES.items()] + \
+                [("sdxl", sh, n) for sh, n in SDXL_GN_CONV_SHAPES.items()]
     for path, shape, n in gn_tables:
         b, hh, ww, c, f = shape
         g = torch.Generator("cuda").manual_seed(sum(shape) + 7)
@@ -309,13 +427,17 @@ def check_conv(torch, log: list) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def make_engine(torch, device, seed: int, unet: dict, clip: dict, use_ema: bool = True, vae: dict = None):
-    """DiffusionEngine with the SD1.5 config's classes: bf16 UNet with fp32
-    parameters, fp32 frozen CLIP embedder, DiscreteDenoiser with
+def make_engine(torch, device, seed: int, unet: dict, clip: dict, use_ema: bool = True, vae: dict = None,
+                bigg: dict = None, size_outdim: int = 256):
+    """DiffusionEngine with the SD configs' classes: bf16 UNet with fp32
+    parameters, fp32 frozen embedders, DiscreteDenoiser with
     EpsPreconditioning over LegacyDDPM, DiscreteSigmaGenerator, EpsWeighting,
     Adafactor(scale_parameter, relative_step, warmup_init); with ``vae`` (a
-    ddconfig) a frozen fp32 AutoencoderKL encodes images in front (scale
-    0.18215), else the batch carries latents."""
+    ddconfig) a frozen fp32 AutoencoderKL encodes images in front, else the
+    batch carries latents. Without ``bigg`` the conditioner is SD1.5's (CLIP-L
+    ``layer: last``, scale factor 0.18215); with it SDXL's five embedders
+    (CLIP-L hidden layer 11 or the tower's last if it is shallower, OpenCLIP
+    penultimate + pooled, three size embedders; scale factor 0.13025)."""
     from neurosis_tpu_torch.diffusion.denoiser import DiscreteDenoiser
     from neurosis_tpu_torch.diffusion.discretization import LegacyDDPMDiscretization
     from neurosis_tpu_torch.diffusion.loss import StandardDiffusionLoss
@@ -324,41 +446,64 @@ def make_engine(torch, device, seed: int, unet: dict, clip: dict, use_ema: bool 
     from neurosis_tpu_torch.diffusion.weighting import EpsWeighting
     from neurosis_tpu_torch.models.autoencoder import AutoencoderKL
     from neurosis_tpu_torch.models.unet import UNetModel
-    from neurosis_tpu_torch.modules.encoders.embedding import FrozenCLIPEmbedder, GeneralConditioner
+    from neurosis_tpu_torch.modules.encoders.embedding import (
+        ConcatTimestepEmbedderND,
+        FrozenCLIPEmbedder,
+        FrozenOpenCLIPEmbedder2,
+        GeneralConditioner,
+    )
     from neurosis_tpu_torch.optimizers.adafactor import Adafactor
     from neurosis_tpu_torch.trainer.engine import DiffusionEngine
 
     g = torch.Generator(device).manual_seed(seed)
     model = UNetModel(**unet, use_checkpoint=True, dtype=torch.bfloat16, device=device, generator=g)
-    conditioner = GeneralConditioner([FrozenCLIPEmbedder(**clip, device=device, generator=g)])
+    if bigg is None:
+        embedders = [FrozenCLIPEmbedder(**clip, device=device, generator=g)]
+    else:
+        embedders = [FrozenCLIPEmbedder(layer="hidden", layer_idx=min(11, clip["layers"] - 1), **clip, device=device,
+                                        generator=g),
+                     FrozenOpenCLIPEmbedder2(layer="penultimate", always_return_pooled=True, legacy=False, **bigg,
+                                             device=device, generator=g)]
+        embedders += [ConcatTimestepEmbedderND(outdim=size_outdim, input_key=key) for key in SIZE_KEYS]
     first_stage = None if vae is None else AutoencoderKL(vae, embed_dim=4, device=device, generator=g)
     disc = LegacyDDPMDiscretization()
     return DiffusionEngine(
         model=model,
         first_stage=first_stage,
-        scale_factor=0.18215,
+        scale_factor=0.18215 if bigg is None else 0.13025,
         denoiser=DiscreteDenoiser(EpsPreconditioning(), 1000, disc, device=device),
         loss_fn=StandardDiffusionLoss(DiscreteSigmaGenerator(disc, 1000, device=device), EpsWeighting()),
-        conditioner=conditioner,
+        conditioner=GeneralConditioner(embedders),
         optimizer=lambda params: Adafactor(params, scale_parameter=True, relative_step=True, warmup_init=True),
         use_ema=use_ema,
         device=device,
     )
 
 
-def make_batch(torch, device, batch: int, side: int, seed: int, images: bool = False) -> dict:
+SIZE_KEYS = ("original_size_as_tuple", "crop_coords_top_left", "target_size_as_tuple")
+
+
+def make_batch(torch, device, batch: int, side: int, seed: int, images: bool = False, sizes: bool = False) -> dict:
     """Token ids and either latents (side x side x 4) or uint8 images
-    (side x side x 3), from a seed."""
+    (side x side x 3), from a seed; with ``sizes`` SDXL's three size
+    conditionings (original size, crop offset, target size) as float [B, 2]."""
     g = torch.Generator("cpu").manual_seed(seed)
     ids = torch.randint(1, 49406, (batch, 77), generator=g)
     ids[:, 0] = 49406  # BOS
     eos = torch.randint(4, 77, (batch,), generator=g)
     for i in range(batch):
         ids[i, eos[i]:] = 49407  # EOS, then padding with the EOS id
+    out = {"caption_ids": ids.to(device)}
+    if sizes:
+        px = side if images else side * 8
+        out["original_size_as_tuple"] = torch.randint(px, 2 * px, (batch, 2), generator=g).float().to(device)
+        out["crop_coords_top_left"] = torch.randint(0, px // 4, (batch, 2), generator=g).float().to(device)
+        out["target_size_as_tuple"] = torch.full((batch, 2), float(px), device=device)
     if images:
-        return {"image": make_images(torch, device, batch, side, g), "caption_ids": ids.to(device)}
-    latents = torch.randn(batch, side, side, 4, generator=g)
-    return {"latents": latents.to(device), "caption_ids": ids.to(device)}
+        out["image"] = make_images(torch, device, batch, side, g)
+    else:
+        out["latents"] = torch.randn(batch, side, side, 4, generator=g).to(device)
+    return out
 
 
 def make_images(torch, device, batch: int, side: int, g) -> "torch.Tensor":
@@ -375,18 +520,32 @@ def make_images(torch, device, batch: int, side: int, g) -> "torch.Tensor":
 SMALL_UNET = dict(in_channels=4, model_channels=128, out_channels=4, num_res_blocks=1,
                   attention_resolutions=[1], channel_mult=[1, 1], num_heads=2, context_dim=64)
 SMALL_CLIP = dict(width=64, layers=2, heads=2)
+# SDXL's layout at small widths: 64-channel heads, linear projections, per-level
+# depth, the label embedding of 64 pooled + 3 x 2 x 32 size features
+SMALL_SDXL_UNET = dict(in_channels=4, model_channels=128, out_channels=4, num_res_blocks=1,
+                       attention_resolutions=[1], channel_mult=[1, 1], num_head_channels=64,
+                       transformer_depth=[1, 2], context_dim=128, use_linear_in_transformer=True,
+                       num_classes="sequential", adm_in_channels=64 + 3 * 2 * 32)
+SMALL_BIGG = dict(width=64, layers=2, heads=2)
 
 
-def reference_step(torch, log: list) -> dict:
+def reference_step(torch, log: list, sdxl: bool = False) -> dict:
     """One train step of a small engine on the card against the same step on
     the CPU. At 32x32 latents with 128 channels and 2 heads of 64 every
     kernel takes part: flash (S=1024 self, kv=77 cross), conv3x3 (upsample
-    conv, dgrad), gn_silu_conv3x3 (ResBlock pairs)."""
+    conv, dgrad), gn_silu_conv3x3 (ResBlock pairs). With ``sdxl`` the engine
+    has SDXL's layout: two text towers, the size embedders and the UNet's
+    label embedding of the vector conditioning."""
     from neurosis_tpu_torch import ops
 
+    label = "small SDXL engine" if sdxl else "small engine"
     engines, metrics = {}, {}
     for device in ("cpu", "cuda"):
-        eng = make_engine(torch, device, 1, SMALL_UNET, SMALL_CLIP)
+        if sdxl:
+            eng = make_engine(torch, device, 1, SMALL_SDXL_UNET, SMALL_CLIP, use_ema=False, bigg=SMALL_BIGG,
+                              size_outdim=32)
+        else:
+            eng = make_engine(torch, device, 1, SMALL_UNET, SMALL_CLIP)
         engines[device] = eng
     # perturb the weights (zero-init output layers included) identically
     g = torch.Generator("cpu").manual_seed(2)
@@ -397,23 +556,28 @@ def reference_step(torch, log: list) -> dict:
     for p_cpu, p_gpu in zip(engines["cpu"].conditioner.parameters(), engines["cuda"].conditioner.parameters()):
         with torch.no_grad():
             p_gpu.copy_(p_cpu)
-    batch = make_batch(torch, "cpu", 2, 32, 3)
+    batch = make_batch(torch, "cpu", 2, 32, 3, sizes=sdxl)
     t = torch.tensor([0.3, 0.8])
     noise = torch.randn(batch["latents"].shape, generator=torch.Generator("cpu").manual_seed(4))
     counts_before = ops.launch_counts()
     for device, eng in engines.items():
         state = eng.init(seed=0)
         b = {k: v.to(device) for k, v in batch.items()}
+        if sdxl:
+            cond = eng.conditioner(b)
+            want = {"crossattn": (2, 77, 128), "vector": (2, SMALL_SDXL_UNET["adm_in_channels"])}
+            if {k: tuple(v.shape) for k, v in cond.items()} != want:
+                raise PhaseError(f"{label}: conditioning {({k: tuple(v.shape) for k, v in cond.items()})}, not {want}")
         _, m = eng.train_step(state, b, t=t.to(device), noise=noise.to(device))
         metrics[device] = {k: float(v) for k, v in m.items()}
     launched = {k: ops.launch_counts()[k] - counts_before[k] for k in counts_before}
-    print(f"reference step launches: {launched}", flush=True)
+    print(f"{label} step launches: {launched}", flush=True)
     missing = [k for k in ("flash_fwd", "flash_bwd", "conv3x3", "gn_silu_conv3x3") if not launched[k]]
     if missing:
-        raise PhaseError(f"the small engine did not launch {missing}: {launched}")
+        raise PhaseError(f"the {label} did not launch {missing}: {launched}")
     for key, tol in (("loss", 2e-2), ("grad_norm", 5e-2)):
         cpu, gpu = metrics["cpu"][key], metrics["cuda"][key]
-        check(f"small engine {key}: cuda {gpu:.6g} vs cpu {cpu:.6g}", abs(gpu - cpu) / abs(cpu), tol, log)
+        check(f"{label} {key}: cuda {gpu:.6g} vs cpu {cpu:.6g}", abs(gpu - cpu) / abs(cpu), tol, log)
     return metrics
 
 
@@ -425,34 +589,41 @@ SMALL_VAE = dict(ch=128, ch_mult=[1, 4], num_res_blocks=1, attn_resolutions=[], 
 SMALL_LOSS = dict(perceptual_weight=1.0, lpips_type="alex", disc_start=1, disc_weight=0.5, disc_n_layers=1)
 
 
-def make_vae_engine(torch, device, seed: int, dd: dict, loss_cfg: dict, lr: float = 4.5e-6):
-    """AutoencodingEngine as configs/vae/vae.example.yaml builds it: bf16
-    Encoder and Decoder (bf16-mixed), AutoencoderLPIPSWithDiscr (l1, hinge,
-    fp32 LPIPS and PatchGAN), kl_weight 1e-6, AdamW with optax's defaults
-    for both optimizers, disc_start from ``loss_cfg``."""
+def make_vae_engine(torch, device, seed: int, dd: dict, loss_cfg: dict, lr: float = 4.5e-6, fp32: bool = False):
+    """AutoencodingEngine as configs/vae/vae.example.yaml builds it: Encoder
+    and Decoder computing in bf16 (precision: bf16-mixed) or, with ``fp32``,
+    in fp32 (the file as written, without a precision key),
+    AutoencoderLPIPSWithDiscr (l1, hinge, fp32 LPIPS and PatchGAN), kl_weight
+    1e-6, AdamW with optax's defaults for both optimizers, disc_start from
+    ``loss_cfg``."""
     from neurosis_tpu_torch.losses.vae_loss import AutoencoderLPIPSWithDiscr
     from neurosis_tpu_torch.models.vae import Decoder, Encoder
     from neurosis_tpu_torch.optimizers.adamw import adamw
     from neurosis_tpu_torch.trainer.vae_engine import AutoencodingEngine
 
     g = torch.Generator(device).manual_seed(seed)
-    enc = Encoder(**dd, double_z=True, in_channels=3, dtype=torch.bfloat16, device=device, generator=g)
-    dec = Decoder(**dd, out_ch=3, dtype=torch.bfloat16, device=device, generator=g)
+    dtype = None if fp32 else torch.bfloat16
+    enc = Encoder(**dd, double_z=True, in_channels=3, dtype=dtype, device=device, generator=g)
+    dec = Decoder(**dd, out_ch=3, dtype=dtype, device=device, generator=g)
     loss = AutoencoderLPIPSWithDiscr(recon_type="l1", disc_loss="hinge", **loss_cfg, device=device, generator=g)
     return AutoencodingEngine(enc, dec, loss, g_optimizer=lambda ps: adamw(ps, lr),
                               d_optimizer=lambda ps: adamw(ps, lr), kl_weight=1e-6,
                               disc_start=loss_cfg["disc_start"], device=device)
 
 
-def reference_vae_pair(torch, log: list) -> dict:
+def reference_vae_pair(torch, log: list, fp32: bool = False) -> dict:
     """One generator and one discriminator step of a small VAE-GAN on the
     card against the same steps on the CPU, from the same weights and
-    posterior noise; the discriminator step runs with the gate open. Every
-    bf16 kernel case of the VAE takes part: flash at d=512 forward and
-    backward, fused and plain 3x3 convs, their dgrads."""
+    posterior noise; the discriminator step runs with the gate open. In bf16
+    every bf16 kernel case of the VAE takes part: flash at d=512 forward and
+    backward, fused and plain 3x3 convs, their dgrads. With ``fp32`` the
+    convs go to the library and the mid attention to the fp32 flash forward
+    (4 launches) and backward (2)."""
     from neurosis_tpu_torch import ops
 
-    engines = {dev: make_vae_engine(torch, dev, 3, SMALL_VAE, SMALL_LOSS, lr=1e-4) for dev in ("cpu", "cuda")}
+    label = "small fp32 VAE-GAN" if fp32 else "small VAE-GAN"
+    engines = {dev: make_vae_engine(torch, dev, 3, SMALL_VAE, SMALL_LOSS, lr=1e-4, fp32=fp32)
+               for dev in ("cpu", "cuda")}
     g = torch.Generator("cpu").manual_seed(4)
     with torch.no_grad():
         for name in ("encoder", "decoder", "loss"):
@@ -475,16 +646,27 @@ def reference_vae_pair(torch, log: list) -> dict:
                             g_p=float(g_log["train/loss/p"]), g_grad_norm=g_norm, d_total=float(d_log["total"]),
                             d_grad_norm=d_norm)
     launched = {k: ops.launch_counts()[k] - counts_before[k] for k in counts_before}
-    print(f"reference VAE-GAN pair launches: {launched}", flush=True)
-    missing = [k for k in ("flash_fwd", "flash_bwd", "conv3x3", "gn_silu_conv3x3") if not launched[k]]
-    if missing:
-        raise PhaseError(f"the small VAE-GAN did not launch {missing}: {launched}")
-    # bf16 encoder and decoder: the kernels round where the plain versions do,
-    # sums run in another order
-    for key, tol in (("g_total", 2e-2), ("g_rec", 2e-2), ("g_p", 2e-2), ("g_grad_norm", 5e-2),
-                     ("d_total", 2e-2), ("d_grad_norm", 5e-2)):
+    print(f"reference {label} pair launches: {launched}", flush=True)
+    if fp32:
+        want = dict.fromkeys(launched, 0) | {"flash_fwd_f32": 4, "flash_bwd_f32": 2}
+        if launched != want:
+            raise PhaseError(f"the {label} launched {launched}, not {want}")
+        # fp32 on both sides with TF32 off: sums in another order (cuDNN and
+        # cuBLAS against the CPU's) through ~60 layers; the grad norms also
+        # feel the few LeakyReLU and hinge kinks that this noise flips
+        tols = (("g_total", 1e-3), ("g_rec", 1e-3), ("g_p", 1e-3), ("g_grad_norm", 1e-2), ("d_total", 1e-3),
+                ("d_grad_norm", 1e-2))
+    else:
+        missing = [k for k in ("flash_fwd", "flash_bwd", "conv3x3", "gn_silu_conv3x3") if not launched[k]]
+        if missing:
+            raise PhaseError(f"the {label} did not launch {missing}: {launched}")
+        # bf16 encoder and decoder: the kernels round where the plain versions
+        # do, sums run in another order
+        tols = (("g_total", 2e-2), ("g_rec", 2e-2), ("g_p", 2e-2), ("g_grad_norm", 5e-2), ("d_total", 2e-2),
+                ("d_grad_norm", 5e-2))
+    for key, tol in tols:
         cpu, gpu = metrics["cpu"][key], metrics["cuda"][key]
-        check(f"small VAE-GAN {key}: cuda {gpu:.6g} vs cpu {cpu:.6g}", abs(gpu - cpu) / abs(cpu), tol, log)
+        check(f"{label} {key}: cuda {gpu:.6g} vs cpu {cpu:.6g}", abs(gpu - cpu) / abs(cpu), tol, log)
     return metrics
 
 
@@ -531,6 +713,13 @@ VAE_GAN_LOSS = dict(perceptual_weight=1.0, lpips_type="alex", disc_start=1, disc
                     disc_n_layers=3)
 
 
+# configs/sdxl/sdxl.example.yaml: UNet, first stage (the SD VAE's ddconfig, scale factor 0.13025) and towers
+SDXL_UNET = dict(in_channels=4, model_channels=320, out_channels=4, num_res_blocks=2, attention_resolutions=[4, 2],
+                 channel_mult=[1, 2, 4], num_head_channels=64, transformer_depth=[1, 2, 10], context_dim=2048,
+                 use_linear_in_transformer=True, num_classes="sequential", adm_in_channels=2816)
+SDXL_BIGG = dict(width=1280, layers=32, heads=20)
+
+
 def step_totals(rows: dict, path: str) -> dict:
     """Per kernel, from one path's shape tables and phase 3's times: launches
     per step (or pair) of that path, their summed time and summed bound."""
@@ -557,19 +746,41 @@ def check_launches(launches: dict, totals: dict, units: int, label: str) -> None
         raise PhaseError(f"{label} launches {unlisted} differ from the shape tables' counts x {units}")
 
 
-def run_slice(torch, rows: dict, steps: int = 3) -> dict:
+def run_slice(torch, rows: dict, path: str = "sd15", steps: int = 3) -> dict:
+    """A DiffusionEngine at full width from uint8 images: SD1.5 (512 px, batch
+    4, EMA) or SDXL (1024 px, batch 2, no EMA; one warm step first). ``steps``
+    timed steps with the counters read around them, a profiled step, the
+    frozen encode profiled alone and, for SDXL, each text tower too."""
     from neurosis_tpu_torch import ops
 
+    sdxl = path == "sdxl"
+    label = "SDXL" if sdxl else "SD1.5"
+    batch_size, side = (2, 1024) if sdxl else (4, 512)
     t0 = time.perf_counter()
-    engine = make_engine(torch, "cuda", 0, SD15_UNET, SD15_CLIP, vae=SD15_VAE)
+    if sdxl:
+        engine = make_engine(torch, "cuda", 0, SDXL_UNET, SD15_CLIP, use_ema=False, vae=SD15_VAE, bigg=SDXL_BIGG)
+    else:
+        engine = make_engine(torch, "cuda", 0, SD15_UNET, SD15_CLIP, vae=SD15_VAE)
     n_unet = sum(p.numel() for p in engine.model.parameters())
-    n_clip = sum(p.numel() for p in engine.conditioner.parameters())
+    n_cond = [sum(p.numel() for p in e.parameters()) for e in engine.conditioner.embedders]
     n_vae = sum(p.numel() for p in engine.first_stage.parameters())
     state = engine.init(seed=0)
-    batch = make_batch(torch, "cuda", 4, 512, 5, images=True)
+    batch = make_batch(torch, "cuda", batch_size, side, 5, images=True, sizes=sdxl)
     torch.cuda.synchronize()
-    print(f"SD1.5 engine built in {time.perf_counter() - t0:.1f} s: UNet {n_unet} params, "
-          f"CLIP-L {n_clip} params, VAE {n_vae} params (frozen, fp32)", flush=True)
+    print(f"{label} engine built in {time.perf_counter() - t0:.1f} s: UNet {n_unet} params, "
+          f"embedders {n_cond} params (frozen, fp32), VAE {n_vae} params (frozen, fp32)", flush=True)
+    if sdxl:
+        cond = engine.conditioner(batch)
+        shapes = {k: tuple(v.shape) for k, v in cond.items()}
+        if shapes != {"crossattn": (2, 77, 2048), "vector": (2, 2816)}:
+            raise PhaseError(f"SDXL conditioning has shapes {shapes}")
+        del cond
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = engine.train_step(state, batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        print(f"{label} warm train_step: loss {loss:.6f} {(time.perf_counter() - t0) * 1e3:.1f} ms", flush=True)
 
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -582,48 +793,61 @@ def run_slice(torch, rows: dict, steps: int = 3) -> dict:
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         step_rows.append(dict(step=i, loss=loss, grad_norm=grad_norm, ms=ms))
-        print(f"train_step {i}: loss {loss:.6f} grad_norm {grad_norm:.6f} {ms:.1f} ms", flush=True)
+        print(f"{label} train_step {i}: loss {loss:.6f} grad_norm {grad_norm:.6f} {ms:.1f} ms", flush=True)
         if not (math.isfinite(loss) and math.isfinite(grad_norm)):
-            raise PhaseError(f"step {i} is not finite: loss {loss}, grad_norm {grad_norm}")
+            raise PhaseError(f"{label} step {i} is not finite: loss {loss}, grad_norm {grad_norm}")
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    print(f"peak device memory: {peak} bytes ({peak / 2**30:.2f} GiB)", flush=True)
-    totals = step_totals(rows, "sd15")
-    check_launches(launches, totals, steps, "SD1.5 step")
-    ema_ok = all(bool(torch.isfinite(s).all()) for s in state.ema.params)
-    if not ema_ok:
+    print(f"{label} peak device memory: {peak} bytes ({peak / 2**30:.2f} GiB)", flush=True)
+    totals = step_totals(rows, path)
+    check_launches(launches, totals, steps, f"{label} step")
+    if state.ema is not None and not all(bool(torch.isfinite(s).all()) for s in state.ema.params):
         raise PhaseError("EMA shadows are not finite")
     latents = engine.encode_first_stage(batch["image"], state.generator)
-    if tuple(latents.shape) != (4, 64, 64, 4) or not bool(torch.isfinite(latents).all()):
-        raise PhaseError(f"the frozen encode gave {tuple(latents.shape)} latents, finite: "
+    want = (batch_size, side // 8, side // 8, 4)
+    if tuple(latents.shape) != want or not bool(torch.isfinite(latents).all()):
+        raise PhaseError(f"the frozen encode gave {tuple(latents.shape)} latents, not {want}, finite: "
                          f"{bool(torch.isfinite(latents).all())}")
-    print(f"frozen encode: latents {tuple(latents.shape)}, std {float(latents.std()):.4f}", flush=True)
-    step_ms = statistics.median(r["ms"] for r in step_rows[1:])
-    profile = profile_fn(torch, lambda: engine.train_step(state, batch), "SD1.5 step", step_ms)
+    print(f"{label} frozen encode: latents {tuple(latents.shape)}, std {float(latents.std()):.4f}", flush=True)
+    del latents
+    step_ms = statistics.median(r["ms"] for r in (step_rows if sdxl else step_rows[1:]))
+    profile = profile_fn(torch, lambda: engine.train_step(state, batch), f"{label} step", step_ms)
     encode = profile_fn(torch, lambda: engine.encode_first_stage(batch["image"], state.generator),
-                        "frozen encode", None)
+                        f"{label} frozen encode", None)
     if profile.get("device_ms") is not None and encode.get("device_ms") is not None:
-        print(f"profile: SD1.5 step without the frozen encode: {profile['device_ms'] - encode['device_ms']:.3f} ms "
+        print(f"profile: {label} step without the frozen encode: {profile['device_ms'] - encode['device_ms']:.3f} ms "
               f"device busy", flush=True)
-    return dict(steps=step_rows, launches=launches, per_step=totals, peak_bytes=peak, unet_params=n_unet,
-                clip_params=n_clip, vae_params=n_vae, profile=profile, encode_profile=encode)
+    out = dict(steps=step_rows, launches=launches, per_step=totals, peak_bytes=peak, unet_params=n_unet,
+               embedder_params=n_cond, vae_params=n_vae, profile=profile, encode_profile=encode)
+    if sdxl:
+        with torch.no_grad():
+            ids = batch["caption_ids"]
+            out["clip_l_profile"] = profile_fn(torch, lambda: engine.conditioner.embedders[0](ids), "SDXL CLIP-L tower",
+                                               None, top=5)
+            out["bigg_profile"] = profile_fn(torch, lambda: engine.conditioner.embedders[1](ids),
+                                             "SDXL OpenCLIP bigG tower", None, top=5)
+    return out
 
 
-def run_vae_gan(torch, rows: dict, pairs: int = 3) -> dict:
-    """Path B: the VAE-GAN trainer at full width. One warm pair, then
-    ``pairs`` timed generator/discriminator pairs with the counters read
-    around them, then one profiled pair."""
+def run_vae_gan(torch, rows: dict, path: str = "vae_gan", pairs: int = 3) -> dict:
+    """The VAE-GAN trainer at full width, with a bf16 encoder and decoder
+    (``vae_gan``) or in fp32 (``vae_gan_f32``). One warm pair, then ``pairs``
+    timed generator/discriminator pairs with the counters read around them,
+    then one profiled pair."""
     from neurosis_tpu_torch import ops
 
+    fp32 = path == "vae_gan_f32"
+    name = "fp32 VAE-GAN" if fp32 else "VAE-GAN"
     t0 = time.perf_counter()
-    engine = make_vae_engine(torch, "cuda", 0, VAE_GAN_DD, VAE_GAN_LOSS)
+    engine = make_vae_engine(torch, "cuda", 0, VAE_GAN_DD, VAE_GAN_LOSS, fp32=fp32)
     n_g = sum(p.numel() for p in engine.g_parameters())
     n_d = sum(p.numel() for p in engine.d_parameters())
     state = engine.init(seed=0)
     g = torch.Generator("cpu").manual_seed(9)
     batches = [{"image": make_images(torch, "cuda", 8, 256, g)} for _ in range(2 * pairs + 4)]
     torch.cuda.synchronize()
-    print(f"VAE-GAN engine built in {time.perf_counter() - t0:.1f} s: encoder+decoder {n_g} params (bf16 compute), "
+    print(f"{name} engine built in {time.perf_counter() - t0:.1f} s: encoder+decoder {n_g} params "
+          f"({'fp32' if fp32 else 'bf16'} compute), "
           f"discriminator {n_d} params", flush=True)
 
     def step(i: int):
@@ -639,7 +863,7 @@ def run_vae_gan(torch, rows: dict, pairs: int = 3) -> dict:
     for i in range(2):  # warm pair: generator (gate closed), discriminator
         idx, total, ms, log = step(i)
         rows_out.append(dict(step=i, kind="gd"[idx], total=total, ms=ms, warm=True))
-        print(f"VAE-GAN warm {'gd'[idx]}_step {i}: total {total:.6f} {ms:.1f} ms", flush=True)
+        print(f"{name} warm {'gd'[idx]}_step {i}: total {total:.6f} {ms:.1f} ms", flush=True)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     for i in range(2, 2 + 2 * pairs):
@@ -648,25 +872,55 @@ def run_vae_gan(torch, rows: dict, pairs: int = 3) -> dict:
         detail = (f"rec {log['train/loss/rec']:.5f} p {log['train/loss/p']:.5f} g {log['train/loss/g']:.5f} "
                   f"kl {log['train/loss/kl']:.2f}") if idx == 0 else \
                  f"real {log['train/logits/real']:.5f} fake {log['train/logits/fake']:.5f}"
-        print(f"VAE-GAN {'gd'[idx]}_step {i}: total {total:.6f} ({detail}) {ms:.1f} ms", flush=True)
+        print(f"{name} {'gd'[idx]}_step {i}: total {total:.6f} ({detail}) {ms:.1f} ms", flush=True)
         if not all(math.isfinite(v) for v in log.values()):
-            raise PhaseError(f"VAE-GAN step {i} is not finite: {log}")
+            raise PhaseError(f"{name} step {i} is not finite: {log}")
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     kinds = [r["kind"] for r in rows_out if not r.get("warm")]
     if kinds != ["g", "d"] * pairs:
         raise PhaseError(f"the schedule ran {kinds}, not {pairs} alternating pairs")
-    totals = step_totals(rows, "vae_gan")
-    check_launches(launches, totals, pairs, "VAE-GAN pair")
+    totals = step_totals(rows, path)
+    check_launches(launches, totals, pairs, f"{name} pair")
     g_ms = statistics.median(r["ms"] for r in rows_out if r["kind"] == "g" and not r.get("warm"))
     d_ms = statistics.median(r["ms"] for r in rows_out if r["kind"] == "d" and not r.get("warm"))
-    print(f"VAE-GAN: G step {g_ms:.3f} ms, D step {d_ms:.3f} ms (median of {pairs}), "
+    print(f"{name}: G step {g_ms:.3f} ms, D step {d_ms:.3f} ms (median of {pairs}), "
           f"{2 * 8 / (g_ms + d_ms) * 1e3:.2f} images/s over a pair; peak device memory {peak} bytes "
           f"({peak / 2**30:.2f} GiB)", flush=True)
     i0 = 2 + 2 * pairs
-    profile = profile_fn(torch, lambda: (step(i0), step(i0 + 1)), "VAE-GAN pair", g_ms + d_ms)
+    profile = profile_fn(torch, lambda: (step(i0), step(i0 + 1)), f"{name} pair", g_ms + d_ms)
     return dict(steps=rows_out, launches=launches, per_pair=totals, g_ms=g_ms, d_ms=d_ms, peak_bytes=peak,
                 g_params=n_g, d_params=n_d, profile=profile)
+
+
+def run_overlap(torch, rows: dict, log: list) -> dict:
+    """Path C: the flash-overlap tool as a user runs it
+    (python -m neurosis_tpu_torch.tools.overlap_bench), its lines passed on,
+    with the launch counts read around it."""
+    import contextlib
+    import io
+
+    from neurosis_tpu_torch import ops
+    from neurosis_tpu_torch.tools import overlap_bench
+
+    ops.reset_launch_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = overlap_bench.main()
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    lines = [json.loads(line) for line in out.getvalue().splitlines()]
+    for line in lines:
+        print(f"overlap tool: {json.dumps(line, ensure_ascii=False)}", flush=True)
+    cases = [line for line in lines if "case" in line]
+    if rc != 0 or "check_maxabs_l2" not in lines[0] or len(cases) != len(overlap_bench.CASES):
+        raise PhaseError(f"the overlap tool returned {rc} and printed {len(lines)} lines")
+    # base against split2 on bf16 outputs of size ~1: each is within a rounding step of the true value
+    check("overlap tool check_maxabs_l2 (abs)", lines[0]["check_maxabs_l2"], 2e-2, log)
+    if not all(math.isfinite(c["tf_s"]) and c["tf_s"] > 0 for c in cases):
+        raise PhaseError(f"the overlap tool's rates are not finite and positive: {cases}")
+    check_launches(launches, step_totals(rows, "overlap"), 1, "overlap tool run")
+    return dict(lines=lines, launches=launches)
 
 
 def kernel_kind(name: str) -> str:
@@ -748,8 +1002,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    t_start = time.perf_counter()
     smi = nvidia_smi_line()
-    report: dict = {"card": smi}
+    report: dict = {"card": smi, "paths": {path: unit for path, (_key, unit) in PATHS.items()}}
     log: list = []
     try:
         print(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -762,7 +1017,7 @@ def main() -> int:
         print(f"build: {report['build_s']:.1f} s ({', '.join(f'{k} {v:.1f} s' for k, v in compile_s.items())})",
               flush=True)
 
-        rows = {**check_flash(torch, log), **check_conv(torch, log)}
+        rows = {**check_flash(torch, log), **check_overlap(torch, log), **check_conv(torch, log)}
         report["kernel_rows"] = rows
         for name, rs in rows.items():
             for r in rs:
@@ -771,11 +1026,21 @@ def main() -> int:
                       f"library {lib} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']})", flush=True)
 
         report["reference"] = reference_step(torch, log)
+        report["reference_sdxl"] = reference_step(torch, log, sdxl=True)
         report["reference_vae_gan"] = reference_vae_pair(torch, log)
+        report["reference_vae_gan_f32"] = reference_vae_pair(torch, log, fp32=True)
         report["reference_encode"] = reference_encode(torch, log)
         report["slice"] = run_slice(torch, rows)
         torch.cuda.empty_cache()
         report["vae_gan"] = run_vae_gan(torch, rows)
+        torch.cuda.empty_cache()
+        report["vae_gan_f32"] = run_vae_gan(torch, rows, "vae_gan_f32")
+        torch.cuda.empty_cache()
+        report["sdxl"] = run_slice(torch, rows, "sdxl")
+        torch.cuda.empty_cache()
+        report["overlap"] = run_overlap(torch, rows, log)
+        report["seconds"] = time.perf_counter() - t_start
+        print(f"all phases: {report['seconds']:.1f} s", flush=True)
     except Exception as e:  # any failed phase ends the run without a result line
         report["error"] = repr(e)
         _write(report, log)
@@ -786,7 +1051,7 @@ def main() -> int:
     kernels = []
     for name, meta in KERNELS.items():
         head = max(rows[name], key=lambda r: r["per_step"] * r["ms"])  # the shape that costs its path most
-        by_path = {"sd15": report["slice"]["launches"][name], "vae_gan": report["vae_gan"]["launches"][name]}
+        by_path = {path: report[key]["launches"][name] for path, (key, _unit) in PATHS.items()}
         kernels.append(dict(name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
                             launches=sum(by_path.values()), launches_by_path=by_path,
                             max_abs_err=head["max_abs_err"], ms=head["ms"], plain_ms=head["plain_ms"],

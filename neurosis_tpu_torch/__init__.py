@@ -1,8 +1,9 @@
 """PyTorch/CUDA port of neurosis_tpu for one NVIDIA H100.
 
 The package mirrors the JAX package's module layout (ops, modules, models,
-diffusion, optimizers, trainer, checkpoint) and keeps its activation layouts
-at public functions: NHWC in the UNet, [B, H, S, D] into attention. Weights
+diffusion, losses, optimizers, trainer, checkpoint, tools) and keeps its
+activation layouts at public functions: NHWC in the UNet, [B, H, S, D] into
+attention. Weights
 are held in torch shapes (OIHW, (out, in)) under the torch dotted names the
 JAX modules already use, so ``checkpoint.convert.jax_params_to_state_dict``
 loads a JAX parameter tree with ``strict=True``.

@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` becomes ``_build/lib<name>-<hash>.so``, a shared
 library with a plain C interface (no PyTorch headers, so a build takes
-seconds). The hash covers the source and the flags, so an edited source is
-rebuilt and a stale library is never loaded. Nothing is built at import:
+seconds). The hash covers the source, the ``*.cuh`` headers beside it and
+the flags, so an edited source is rebuilt and a stale library is never loaded. Nothing is built at import:
 the first kernel launch builds its library, and ``build_all`` builds several
 at once (one nvcc process per source).
 """
@@ -43,7 +43,8 @@ def nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the headers are few and shared, so an edit to one rebuilds every library
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -10,7 +10,12 @@ are dropped, leaves renamed, and kernels transposed HWIO → OIHW (conv) or
 'quant_conv.weight'), LPIPS ('perceptual_loss.pnet.features.3.weight',
 'perceptual_loss.lin0.model.1.weight') and the discriminator
 ('discr.layers.2.weight'); a ``batch_stats`` tree gives the BatchNorm
-buffers ('discr.layers.3.running_mean', '...running_var').
+buffers ('discr.layers.3.running_mean', '...running_var'). SDXL's modules
+follow from the same rules: the UNet's label embedding
+('label_emb.0.0.weight'), the open_clip text tower
+('model.transformer.resblocks.0.attn.q_proj.weight', 'model.ln_final.bias')
+and its bare parameters, which keep their names and layouts
+('model.positional_embedding', 'model.text_projection' as [width, proj]).
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
 // Flash attention forward and backward for Hopper (sm_90a), bf16 in, fp32 accumulate,
-// and an fp32 forward for the VAE's fp32 encode.
+// and an fp32 forward and backward at head dim 512 for the VAE in fp32.
 //
 // Replaces the Pallas TPU kernels of neurosis_tpu/ops/flash_attention.py:
 //   forward  : _fwd_kernel (:297), _fwd_chunked_kernel (:366),
@@ -46,15 +46,24 @@
 //              each warp owns 4 query rows for both the softmax and P.V, so
 //              O (4 rows x 512 per warp) stays in registers and is rescaled
 //              there. Bound on the H100 by the FFMA rate (67 TFLOP/s).
+//   fp32 bwd : fp32 VAE training (the JAX backward kernels take fp32 as they
+//              take bf16), FFMA for the same reason as the fp32 forward. An
+//              fp32 K tile plus V tile of 16 rows is 64 KB and there are no
+//              WMMA fragments to keep dK/dV in, so a block owns 16 kv rows,
+//              walks q in 32-row tiles (q~ and dO tiles, 129 KB) and keeps
+//              dK/dV in plain registers: warp w owns kv rows 2w, 2w+1, lane l
+//              the forward's 16 columns (64 registers a thread). Logits and
+//              dP are split between the two halves of the block; dQ of the
+//              warp's 4 query rows is formed in registers and added to the
+//              zeroed fp32 buffer with float4 atomics (~199 KB, one block
+//              per SM). Bound by the FFMA rate: 10 B H Sq Skv D operations.
 
 #include <math.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <mma.h>
-#include <stdint.h>
+
+#include "flash_common.cuh"
 
 using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
 
 namespace {
 
@@ -65,42 +74,6 @@ constexpr int NTHREADS = NWARPS * 32;
 constexpr int LDS = BK + 4;     // fp32 row stride of a logits tile
 constexpr int LDP = BK + 8;     // bf16 row stride of a probabilities tile
 constexpr float INV_LOG2E = 0.6931471805599453f;
-
-template <typename T>
-struct Rows {
-  const T* ptr;      // row 0 of this (batch, head)
-  int64_t stride;    // elements between rows
-};
-using StridedRows = Rows<bf16>;
-
-// Copy rows [row0, row0+R) x [0, d) of a strided bf16 or fp32 matrix into a
-// shared tile of R x DP (row stride LD) in 16-byte chunks; rows past n_rows
-// and columns past d are zero.
-template <int R, int DP, int LD, int NT = NTHREADS, typename T>
-__device__ __forceinline__ void load_tile(T* dst, Rows<T> src, int row0, int n_rows, int d) {
-  constexpr int PER = 16 / sizeof(T);  // elements per chunk
-  constexpr int CHUNKS = DP / PER;
-  for (int i = threadIdx.x; i < R * CHUNKS; i += NT) {
-    const int r = i / CHUNKS;
-    const int c = (i % CHUNKS) * PER;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    const int row = row0 + r;
-    if (row < n_rows && c < d) {
-      v = *reinterpret_cast<const uint4*>(src.ptr + (int64_t)row * src.stride + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = v;
-  }
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // acc[16 x BK] = A[16 x DP] . B[BK x DP]^T  for one warp's 16 rows, stored to S.
 template <int DP, int LDA>
@@ -164,7 +137,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(FwdArgs a) {
   StridedRows k = {a.k.ptr + b * a.k_sb + h * a.k_sh, a.k.stride};
   StridedRows v = {a.v.ptr + b * a.v_sb + h * a.v_sh, a.v.stride};
 
-  load_tile<BQ, DP, LDK>(sQ, q, q0, a.sq, a.d);
+  load_tile<BQ, DP, LDK, NTHREADS>(sQ, q, q0, a.sq, a.d);
   for (int i = threadIdx.x; i < BQ * LDO; i += NTHREADS) sO[i] = 0.0f;
   for (int i = threadIdx.x; i < BQ; i += NTHREADS) {
     sM[i] = -INFINITY;
@@ -173,8 +146,8 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(FwdArgs a) {
 
   for (int k0 = 0; k0 < a.skv; k0 += BK) {
     __syncthreads();  // the previous tile's readers of sK/sV are done
-    load_tile<BK, DP, LDK>(sK, k, k0, a.skv, a.d);
-    load_tile<BK, DP, LDK>(sV, v, k0, a.skv, a.d);
+    load_tile<BK, DP, LDK, NTHREADS>(sK, k, k0, a.skv, a.d);
+    load_tile<BK, DP, LDK, NTHREADS>(sV, v, k0, a.skv, a.d);
     __syncthreads();
 
     rows_times_tile_t<DP, LDK>(sQ + r0 * LDK, sK, sS + r0 * LDS);
@@ -285,8 +258,8 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_kernel(BwdArgs a) {
   float* dq = a.dq + (int64_t)bh * a.sq * a.d;
   float* scr = sScr + warp * 256;
 
-  load_tile<BK, DP, LDK>(sK, k, k0, a.skv, a.d);
-  load_tile<BK, DP, LDK>(sV, v, k0, a.skv, a.d);
+  load_tile<BK, DP, LDK, NTHREADS>(sK, k, k0, a.skv, a.d);
+  load_tile<BK, DP, LDK, NTHREADS>(sV, v, k0, a.skv, a.d);
   for (int i = threadIdx.x; i < BK * LDO; i += NTHREADS) {
     sdK[i] = 0.0f;
     sdV[i] = 0.0f;
@@ -294,8 +267,8 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_kernel(BwdArgs a) {
 
   for (int q0 = 0; q0 < a.sq; q0 += BQ) {
     __syncthreads();  // the previous tile's readers of sQ/sdO/sP/sdS are done
-    load_tile<BQ, DP, LDK>(sQ, q, q0, a.sq, a.d);
-    load_tile<BQ, DP, LDK>(sdO, dout, q0, a.sq, a.d);
+    load_tile<BQ, DP, LDK, NTHREADS>(sQ, q, q0, a.sq, a.d);
+    load_tile<BQ, DP, LDK, NTHREADS>(sdO, dout, q0, a.sq, a.d);
     for (int r = threadIdx.x; r < BQ; r += NTHREADS) {
       const bool in = q0 + r < a.sq;
       sLse[r] = in ? lse[q0 + r] : INFINITY;  // padded rows get P = 0
@@ -787,9 +760,205 @@ __global__ void __launch_bounds__(NT5, 1) flash_fwd_f32_kernel(FwdArgsF32 a) {
   }
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+// ---------------------------------------------------------------------------
+// head dim 512, fp32 backward (FFMA)
+// ---------------------------------------------------------------------------
+
+constexpr int BKG = 16;           // kv rows per block
+constexpr int BQG = 32;           // query rows per tile
+constexpr int LDG = BKG + 4;      // fp32 row stride of the logits / dP tiles
+
+struct BwdArgsF32 {
+  const float* q;         // pre-scaled q
+  const float* k;
+  const float* v;
+  const float* dout;
+  int64_t q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, do_sb, do_sh, do_ss;
+  const float* lse;       // [B, H, Sq]
+  const float* di;        // [B, H, Sq] rowsum(dO * O)
+  float* dq;              // [B, H, Sq, 512], zeroed; receives dS . k
+  float* dk;              // [B, H, Skv, 512]
+  float* dv;              // [B, H, Skv, 512]
+  int heads, sq, skv;
+};
+
+constexpr size_t bwdf32_smem_bytes() {
+  return sizeof(float) * ((size_t)(2 * BKG + 2 * BQG) * LDF   // k, v, q, dO tiles
+                          + (size_t)2 * BQG * LDG              // logits -> P, dP -> dS
+                          + 2 * BQG);                          // lse, Di
+}
+
+__global__ void __launch_bounds__(NT5, 1) flash_bwd_f32_kernel(BwdArgsF32 a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* sK = reinterpret_cast<float*>(smem);
+  float* sV = sK + BKG * LDF;
+  float* sQ = sV + BKG * LDF;
+  float* sdO = sQ + BQG * LDF;
+  float* sP = sdO + BQG * LDF;     // logits, then P
+  float* sdS = sP + BQG * LDG;     // dP, then dS
+  float* sLse = sdS + BQG * LDG;
+  float* sDi = sLse + BQG;
+
+  const int bh = blockIdx.y;
+  const int b = bh / a.heads, h = bh % a.heads;
+  const int k0 = blockIdx.x * BKG;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int kv_valid = min(BKG, a.skv - k0);
+  const Rows<float> q = {a.q + b * a.q_sb + h * a.q_sh, a.q_ss};
+  const Rows<float> k = {a.k + b * a.k_sb + h * a.k_sh, a.k_ss};
+  const Rows<float> v = {a.v + b * a.v_sb + h * a.v_sh, a.v_ss};
+  const Rows<float> dout = {a.dout + b * a.do_sb + h * a.do_sh, a.do_ss};
+  const float* lse = a.lse + (int64_t)bh * a.sq;
+  const float* di = a.di + (int64_t)bh * a.sq;
+  float* dq = a.dq + (int64_t)bh * a.sq * D5;
+
+  load_tile<BKG, D5, LDF, NT5>(sK, k, k0, a.skv, D5);
+  load_tile<BKG, D5, LDF, NT5>(sV, v, k0, a.skv, D5);
+
+  // dK, dV: warp w owns kv rows 2 w + {0, 1}; lane l owns columns
+  // 4 l + 128 m + {0..3}, m < 4 (the forward's column layout)
+  float acc_k[2][16], acc_v[2][16];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+      acc_k[i][c] = 0.0f;
+      acc_v[i][c] = 0.0f;
+    }
+  }
+  // logits (warps 0-3) or dP (warps 4-7): thread u of the 128 owns query rows
+  // 2 (u / 8) + {0, 1} and kv rows u % 8 + {0, 8}
+  const int u = threadIdx.x % 128;
+  const int sd_r = (u / 8) * 2, sd_c = u % 8;
+  const float* sd_a = warp < 4 ? sQ : sdO;
+  const float* sd_b = warp < 4 ? sK : sV;
+  float* sd_out = warp < 4 ? sP : sdS;
+
+  for (int q0 = 0; q0 < a.sq; q0 += BQG) {
+    __syncthreads();  // the previous tile's readers of sQ/sdO/sP/sdS are done
+    load_tile<BQG, D5, LDF, NT5>(sQ, q, q0, a.sq, D5);
+    load_tile<BQG, D5, LDF, NT5>(sdO, dout, q0, a.sq, D5);
+    for (int r = threadIdx.x; r < BQG; r += NT5) {
+      const bool in = q0 + r < a.sq;
+      sLse[r] = in ? lse[q0 + r] : INFINITY;  // padded rows get P = 0
+      sDi[r] = in ? di[q0 + r] : 0.0f;
+    }
+    __syncthreads();
+
+    {
+      float acc[2][2] = {};
+      for (int kk = 0; kk < D5; kk += 4) {
+        float4 av[2], bv[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) av[i] = *reinterpret_cast<const float4*>(sd_a + (sd_r + i) * LDF + kk);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) bv[j] = *reinterpret_cast<const float4*>(sd_b + (sd_c + 8 * j) * LDF + kk);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            acc[i][j] = fmaf(av[i].x, bv[j].x, acc[i][j]);
+            acc[i][j] = fmaf(av[i].y, bv[j].y, acc[i][j]);
+            acc[i][j] = fmaf(av[i].z, bv[j].z, acc[i][j]);
+            acc[i][j] = fmaf(av[i].w, bv[j].w, acc[i][j]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) sd_out[(sd_r + i) * LDG + sd_c + 8 * j] = acc[i][j];
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < BQG * BKG; i += NT5) {
+      const int r = i / BKG, c = i % BKG;
+      const float p = c < kv_valid ? exp2f(sP[r * LDG + c] - sLse[r]) : 0.0f;
+      sdS[r * LDG + c] = p * (sdS[r * LDG + c] - sDi[r]);
+      sP[r * LDG + c] = p;
+    }
+    __syncthreads();
+
+    // dV += P^T . dO ; dK += dS^T . q~  (this warp's two kv rows)
+    for (int r = 0; r < BQG; ++r) {
+      const float2 p = *reinterpret_cast<const float2*>(sP + r * LDG + 2 * warp);
+      const float2 ds = *reinterpret_cast<const float2*>(sdS + r * LDG + 2 * warp);
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const float4 dov = *reinterpret_cast<const float4*>(sdO + r * LDF + lane * 4 + 128 * m);
+        const float4 qv = *reinterpret_cast<const float4*>(sQ + r * LDF + lane * 4 + 128 * m);
+        acc_v[0][4 * m + 0] = fmaf(p.x, dov.x, acc_v[0][4 * m + 0]);
+        acc_v[0][4 * m + 1] = fmaf(p.x, dov.y, acc_v[0][4 * m + 1]);
+        acc_v[0][4 * m + 2] = fmaf(p.x, dov.z, acc_v[0][4 * m + 2]);
+        acc_v[0][4 * m + 3] = fmaf(p.x, dov.w, acc_v[0][4 * m + 3]);
+        acc_v[1][4 * m + 0] = fmaf(p.y, dov.x, acc_v[1][4 * m + 0]);
+        acc_v[1][4 * m + 1] = fmaf(p.y, dov.y, acc_v[1][4 * m + 1]);
+        acc_v[1][4 * m + 2] = fmaf(p.y, dov.z, acc_v[1][4 * m + 2]);
+        acc_v[1][4 * m + 3] = fmaf(p.y, dov.w, acc_v[1][4 * m + 3]);
+        acc_k[0][4 * m + 0] = fmaf(ds.x, qv.x, acc_k[0][4 * m + 0]);
+        acc_k[0][4 * m + 1] = fmaf(ds.x, qv.y, acc_k[0][4 * m + 1]);
+        acc_k[0][4 * m + 2] = fmaf(ds.x, qv.z, acc_k[0][4 * m + 2]);
+        acc_k[0][4 * m + 3] = fmaf(ds.x, qv.w, acc_k[0][4 * m + 3]);
+        acc_k[1][4 * m + 0] = fmaf(ds.y, qv.x, acc_k[1][4 * m + 0]);
+        acc_k[1][4 * m + 1] = fmaf(ds.y, qv.y, acc_k[1][4 * m + 1]);
+        acc_k[1][4 * m + 2] = fmaf(ds.y, qv.z, acc_k[1][4 * m + 2]);
+        acc_k[1][4 * m + 3] = fmaf(ds.y, qv.w, acc_k[1][4 * m + 3]);
+      }
+    }
+
+    // dQ[4 rows of this warp x 512] = dS . K, added into the fp32 buffer
+    float acc_q[4][16];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int c = 0; c < 16; ++c) acc_q[i][c] = 0.0f;
+    }
+    for (int j = 0; j < BKG; ++j) {
+      float ds[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ds[i] = sdS[(warp * 4 + i) * LDG + j];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const float4 kv = *reinterpret_cast<const float4*>(sK + j * LDF + lane * 4 + 128 * m);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc_q[i][4 * m + 0] = fmaf(ds[i], kv.x, acc_q[i][4 * m + 0]);
+          acc_q[i][4 * m + 1] = fmaf(ds[i], kv.y, acc_q[i][4 * m + 1]);
+          acc_q[i][4 * m + 2] = fmaf(ds[i], kv.z, acc_q[i][4 * m + 2]);
+          acc_q[i][4 * m + 3] = fmaf(ds[i], kv.w, acc_q[i][4 * m + 3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + warp * 4 + i;
+      if (row >= a.sq) continue;
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const float4 val = make_float4(acc_q[i][4 * m], acc_q[i][4 * m + 1], acc_q[i][4 * m + 2],
+                                       acc_q[i][4 * m + 3]);
+        atomicAdd(reinterpret_cast<float4*>(dq + (int64_t)row * D5 + lane * 4 + 128 * m), val);
+      }
+    }
+  }
+
+  // dk = dS^T . q~ / log2(e), as in flash_bwd_kernel
+  float* dk = a.dk + (int64_t)bh * a.skv * D5;
+  float* dv = a.dv + (int64_t)bh * a.skv * D5;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = k0 + 2 * warp + i;
+    if (row >= a.skv) continue;
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int col = lane * 4 + 128 * m;
+      *reinterpret_cast<float4*>(dk + (int64_t)row * D5 + col) =
+          make_float4(acc_k[i][4 * m] * INV_LOG2E, acc_k[i][4 * m + 1] * INV_LOG2E,
+                      acc_k[i][4 * m + 2] * INV_LOG2E, acc_k[i][4 * m + 3] * INV_LOG2E);
+      *reinterpret_cast<float4*>(dv + (int64_t)row * D5 + col) =
+          make_float4(acc_v[i][4 * m], acc_v[i][4 * m + 1], acc_v[i][4 * m + 2], acc_v[i][4 * m + 3]);
+    }
+  }
 }
 
 cudaError_t launch_fwd512(const FwdArgs& a, int batch, cudaStream_t stream) {
@@ -920,6 +1089,41 @@ int flash_fwd_f32(const void* q, const void* k, const void* v, void* o, void* ls
   if (err != cudaSuccess) return err;
   dim3 grid((a.sq + BQF - 1) / BQF, (int)batch * a.heads);
   flash_fwd_f32_kernel<<<grid, NT5, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return cudaGetLastError();
+}
+
+// q (pre-scaled), k, v, dout: fp32 [B, H, S, 512] strided as in flash_fwd_bf16;
+// lse, di: fp32 [B, H, Sq]. dq: zeroed fp32 [B, H, Sq, 512] receiving dS . k
+// (the caller multiplies by scale); dk, dv: fp32 [B, H, Skv, 512].
+int flash_bwd_f32(const void* q, const void* k, const void* v, const void* dout,
+                  const void* lse, const void* di, void* dq, void* dk, void* dv,
+                  int64_t batch, int64_t heads, int64_t sq, int64_t skv, int64_t d,
+                  int64_t q_sb, int64_t q_sh, int64_t q_ss,
+                  int64_t k_sb, int64_t k_sh, int64_t k_ss,
+                  int64_t v_sb, int64_t v_sh, int64_t v_ss,
+                  int64_t do_sb, int64_t do_sh, int64_t do_ss,
+                  void* stream) {
+  if (d != D5) return cudaErrorInvalidValue;
+  BwdArgsF32 a;
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.dout = static_cast<const float*>(dout);
+  a.q_sb = q_sb; a.q_sh = q_sh; a.q_ss = q_ss;
+  a.k_sb = k_sb; a.k_sh = k_sh; a.k_ss = k_ss;
+  a.v_sb = v_sb; a.v_sh = v_sh; a.v_ss = v_ss;
+  a.do_sb = do_sb; a.do_sh = do_sh; a.do_ss = do_ss;
+  a.lse = static_cast<const float*>(lse);
+  a.di = static_cast<const float*>(di);
+  a.dq = static_cast<float*>(dq);
+  a.dk = static_cast<float*>(dk);
+  a.dv = static_cast<float*>(dv);
+  a.heads = (int)heads; a.sq = (int)sq; a.skv = (int)skv;
+  const size_t smem = bwdf32_smem_bytes();
+  cudaError_t err = allow_smem(flash_bwd_f32_kernel, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.skv + BKG - 1) / BKG, (int)batch * a.heads);
+  flash_bwd_f32_kernel<<<grid, NT5, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return cudaGetLastError();
 }
 

@@ -1,8 +1,13 @@
-"""HF-layout CLIP text tower (port of neurosis_tpu/models/text_encoder/clip.py).
+"""CLIP text towers (port of neurosis_tpu/models/text_encoder/clip.py): the HF
+CLIP-L layout and the open_clip (ViT-bigG) layout.
 
-Pre-LN causal transformer with quick_gelu; submodules follow the HF
-CLIPTextModel key layout (``text_model.encoder.layers.{i}.self_attn.q_proj``...).
-Sequences are 77 tokens, so attention is the plain causal matmul-softmax.
+Both are pre-LN causal transformers; they differ in naming (for weight
+import), activation (quick_gelu against exact gelu) and the text projection.
+Submodules follow the HF CLIPTextModel key layout
+(``text_model.encoder.layers.{i}.self_attn.q_proj``...) and open_clip's
+(``transformer.resblocks.{i}.attn.q_proj``..., q/k/v split from the fused
+``in_proj`` by ``split_openclip_qkv``). Sequences are 77 tokens, so attention
+is the plain causal matmul-softmax.
 """
 
 from __future__ import annotations
@@ -10,6 +15,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..._device import DeviceLike, resolve_device
@@ -113,3 +119,87 @@ class CLIPTextTower(nn.Module):
         last = tm.final_layer_norm(x)
         pooled = last[torch.arange(b, device=last.device), input_ids.argmax(dim=-1)]
         return {"hidden_states": hidden_states, "last_hidden_state": last, "pooler_output": pooled}
+
+
+class _OpenCLIPMLP(nn.Module):
+    def __init__(self, width: int, dtype, device):
+        super().__init__()
+        self.c_fc = Dense(width, width * 4, dtype=dtype, device=device)
+        self.c_proj = Dense(width * 4, width, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.c_proj(F.gelu(self.c_fc(x)))  # exact (erf) gelu
+
+
+class _ResBlock(nn.Module):
+    def __init__(self, width: int, heads: int, dtype, device):
+        super().__init__()
+        self.ln_1 = LayerNorm32(width, device=device)
+        self.attn = _SelfAttention(width, heads, dtype, device)
+        self.ln_2 = LayerNorm32(width, device=device)
+        self.mlp = _OpenCLIPMLP(width, dtype, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(self.ln_1(x))
+        return x + self.mlp(self.ln_2(x))
+
+
+class _Transformer(nn.Module):
+    def __init__(self, width: int, layers: int, heads: int, dtype, device):
+        super().__init__()
+        self.resblocks = nn.ModuleList(_ResBlock(width, heads, dtype, device) for _ in range(layers))
+
+
+class OpenCLIPTextTower(nn.Module):
+    """open_clip-layout text tower (ViT-bigG: width 1280, 32 layers, 20 heads).
+
+    Returns 'penultimate' (the input of the last resblock), 'last' (after
+    all blocks, before ln_final), 'last_ln' (after ln_final) and 'pooled'
+    (last_ln at the argmax token id, CLIP's EOS, times text_projection)."""
+
+    def __init__(self, vocab_size: int = 49408, width: int = 1280, layers: int = 32, heads: int = 20,
+                 max_positions: int = 77, dtype: Optional[torch.dtype] = None, device: DeviceLike = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        self.dtype = dtype
+        self.token_embedding = Embed(vocab_size, width, device=device)
+        self.positional_embedding = nn.Parameter(torch.empty(max_positions, width, device=device))
+        self.transformer = _Transformer(width, layers, heads, dtype, device)
+        self.ln_final = LayerNorm32(width, device=device)
+        self.text_projection = nn.Parameter(torch.empty(width, width, device=device))
+        generator = generator if generator is not None else torch.Generator(device).manual_seed(0)
+        init_parameters(self, generator)
+        with torch.no_grad():
+            self.positional_embedding.normal_(0.0, 0.01, generator=generator)
+            self.text_projection.normal_(0.0, 0.01, generator=generator)
+
+    def forward(self, input_ids: torch.Tensor) -> dict:
+        b, s = input_ids.shape
+        x = self.token_embedding(input_ids) + self.positional_embedding[None, :s]
+        x = x.to(self.dtype or x.dtype)
+        penultimate = None
+        blocks = self.transformer.resblocks
+        for i, block in enumerate(blocks):
+            if i == len(blocks) - 1:
+                penultimate = x
+            x = block(x)
+        last_ln = self.ln_final(x)
+        eos = last_ln[torch.arange(b, device=x.device), input_ids.argmax(dim=-1)]
+        pooled = eos @ self.text_projection.to(last_ln.dtype)
+        return {"penultimate": penultimate, "last": x, "last_ln": last_ln, "pooled": pooled}
+
+
+def split_openclip_qkv(state_dict: dict) -> dict:
+    """open_clip's fused ``attn.in_proj_{weight,bias}`` (nn.MultiheadAttention,
+    [3·width, ...]) → the tower's separate ``attn.{q,k,v}_proj``; other
+    entries pass through. Values are torch tensors."""
+    out = {}
+    for key, val in state_dict.items():
+        if key.endswith(("attn.in_proj_weight", "attn.in_proj_bias")):
+            base, suffix = key.rsplit("attn.in_proj_", 1)
+            for name, part in zip("qkv", torch.chunk(val, 3, dim=0)):
+                out[f"{base}attn.{name}_proj.{suffix}"] = part
+        else:
+            out[key] = val
+    return out

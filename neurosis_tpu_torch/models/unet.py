@@ -4,8 +4,10 @@ Submodules carry the reference's torch dotted paths (``input_blocks.1.0``,
 ``in_layers.2``...), so a JAX parameter tree converted by
 ``checkpoint.convert.jax_params_to_state_dict`` loads with ``strict=True``.
 The UNet computes in ``dtype`` (bf16 under ``precision: bf16-mixed``) with
-fp32 parameters and fp32 norms. This slice covers the SD1.5 layout
-(``num_classes=None``); the ADM label embedding comes with SDXL.
+fp32 parameters and fp32 norms. It covers the SD1.5 layout
+(``num_classes=None``) and SDXL's (``num_classes="sequential"``: the ADM
+label embedding of the pooled text embedding and the size conditioning); the
+other label embeddings (a class count, ``continuous``, ``timestep``) raise.
 """
 
 from __future__ import annotations
@@ -125,18 +127,20 @@ def _heads(ch: int, num_heads: int, num_head_channels: int):
 class UNetModel(nn.Module):
     """SD denoising UNet; config surface of the reference's UNetModel.
 
-    ``forward(x, timesteps, context)`` takes NHWC latents, [B] timesteps and
-    [B, T, context_dim] cross-attention context. Builds on ``device`` (CUDA
-    unless told otherwise) and draws its initial weights from ``generator``.
+    ``forward(x, timesteps, context, y)`` takes NHWC latents, [B] timesteps,
+    [B, T, context_dim] cross-attention context and, iff ``num_classes`` is
+    set, the [B, adm_in_channels] vector conditioning. Builds on ``device``
+    (CUDA unless told otherwise) and draws its initial weights from
+    ``generator``.
     """
 
     def __init__(self, in_channels: int, model_channels: int, out_channels: int,
                  num_res_blocks: Union[int, Sequence[int]], attention_resolutions: Sequence[int],
-                 channel_mult: Sequence[int] = (1, 2, 4, 8), use_checkpoint: bool = False,
-                 num_heads: int = -1, num_head_channels: int = -1,
+                 channel_mult: Sequence[int] = (1, 2, 4, 8), num_classes: Optional[Union[int, str]] = None,
+                 use_checkpoint: bool = False, num_heads: int = -1, num_head_channels: int = -1,
                  transformer_depth: Union[int, Sequence[int]] = 1, context_dim: Optional[int] = None,
-                 use_linear_in_transformer: bool = False, dtype: Optional[torch.dtype] = None,
-                 device: DeviceLike = None, generator: Optional[torch.Generator] = None):
+                 use_linear_in_transformer: bool = False, adm_in_channels: Optional[int] = None,
+                 dtype: Optional[torch.dtype] = None, device: DeviceLike = None, generator: Optional[torch.Generator] = None):
         super().__init__()
         device = resolve_device(device)
         self.dtype = dtype
@@ -170,6 +174,18 @@ class UNetModel(nn.Module):
             nn.SiLU(),
             Dense(emb_dim, emb_dim, dtype=dtype, device=device),
         )
+        self.num_classes = num_classes
+        if num_classes == "sequential":
+            # SDXL: y is the concat of the pooled text embedding and the size embeddings
+            if adm_in_channels is None:
+                raise ValueError("num_classes='sequential' needs adm_in_channels")
+            self.label_emb = nn.Sequential(nn.Sequential(
+                Dense(adm_in_channels, emb_dim, dtype=dtype, device=device),
+                nn.SiLU(),
+                Dense(emb_dim, emb_dim, dtype=dtype, device=device),
+            ))
+        elif num_classes is not None:
+            raise NotImplementedError(f"num_classes={num_classes!r}: this port covers None and 'sequential'")
         self.input_blocks = nn.ModuleList(nn.ModuleList(make(s) for s in blk) for blk in layout_in)
         self.middle_block = nn.ModuleList(make(s) for s in layout_mid)
         self.output_blocks = nn.ModuleList(nn.ModuleList(make(s) for s in blk) for blk in layout_out)
@@ -188,9 +204,14 @@ class UNetModel(nn.Module):
             return layer(h, context)
         return layer(h)
 
-    def forward(self, x: torch.Tensor, timesteps: torch.Tensor, context: Optional[torch.Tensor] = None):
+    def forward(self, x: torch.Tensor, timesteps: torch.Tensor, context: Optional[torch.Tensor] = None,
+                y: Optional[torch.Tensor] = None):
+        if (y is not None) != (self.num_classes is not None):
+            raise ValueError("y must be provided iff num_classes is set")
         t_emb = timestep_embedding(timesteps, self.model_channels)
         emb = self.time_embed(t_emb.to(self.dtype or torch.float32))
+        if y is not None:
+            emb = emb + self.label_emb(y.to(self.dtype or torch.float32))
 
         hs = []
         h = x.to(self.dtype or x.dtype)

@@ -6,16 +6,16 @@ dtype before the kernel (ops/flash_attention.py:1226), scale = 1/√d of the
 true head dim, logits are base 2 and the per-row LSE (base 2) is the
 backward residual together with the pre-scaled q (:1244).
 
-Three kernels (``csrc/flash_attention.cu``) stand behind it:
+Four kernels (``csrc/flash_attention.cu``) stand behind it:
 ``flash_fwd`` (replaces the four Pallas forward families) and ``flash_bwd``
 (replaces the dq and dk/dv families) take bf16 at head dims 40, 64, 80, 160
-and 512; ``flash_fwd_f32`` is the fp32 forward at head dim 512, for the
-VAE's fp32 encode (the JAX kernel takes fp32 there, ops/flash_attention.py:1264).
-``flash_fwd`` hands fp32 inputs to it. Each wrapper runs its plain PyTorch
-version for CPU tensors and launches its kernel for CUDA tensors; a head dim
-or dtype its kernel does not take raises, and so does the backward of an
-fp32 forward on the card (no fp32 backward kernel yet). ``Di = rowsum(dO∘O)``
-is a plain reduction outside the kernel, as in the JAX backward (:1037).
+and 512; ``flash_fwd_f32`` and ``flash_bwd_f32`` are the fp32 forward and
+backward at head dim 512, for the VAE in fp32 (the JAX kernels take fp32
+there, ops/flash_attention.py:1221-1246). ``flash_fwd`` and ``flash_bwd``
+hand fp32 inputs to them. Each wrapper runs its plain PyTorch version for CPU
+tensors and launches its kernel for CUDA tensors; a head dim or dtype its
+kernel does not take raises. ``Di = rowsum(dO∘O)`` is a plain reduction
+outside the kernel, as in the JAX backward (:1037).
 """
 
 from __future__ import annotations
@@ -41,9 +41,9 @@ def _lib():
         lib.flash_fwd_bf16.argtypes = [_P] * 5 + [_I] * 14 + [_P]
         lib.flash_bwd_bf16.argtypes = [_P] * 9 + [_I] * 17 + [_P]
         lib.flash_fwd_f32.argtypes = [_P] * 5 + [_I] * 14 + [_P]
-        lib.flash_fwd_bf16.restype = ctypes.c_int
-        lib.flash_bwd_bf16.restype = ctypes.c_int
-        lib.flash_fwd_f32.restype = ctypes.c_int
+        lib.flash_bwd_f32.argtypes = [_P] * 9 + [_I] * 17 + [_P]
+        for fn in (lib.flash_fwd_bf16, lib.flash_bwd_bf16, lib.flash_fwd_f32, lib.flash_bwd_f32):
+            fn.restype = ctypes.c_int
         lib._argtypes_set = True
     return lib
 
@@ -154,12 +154,7 @@ def flash_bwd_plain(qs, k, v, do, lse, di, scale: float):
     return dq.to(qs.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_bwd(qs, k, v, do, lse, di, scale: float):
-    """Backward kernel wrapper: (dq, dk, dv) from the forward's residuals,
-    the output cotangent ``do`` and Di = rowsum(dO∘O) [B,H,Sq] fp32."""
-    if qs.device.type == "cpu":
-        return flash_bwd_plain(qs, k, v, do, lse, di, scale)
-    _check_cuda_inputs(qs, k, v, do)
+def _launch_bwd(entry: str, qs, k, v, do, lse, di, scale: float):
     qs, k, v, do = (_kernel_view(t) for t in (qs, k, v, do))
     lse, di = lse.float().contiguous(), di.float().contiguous()
     b, h, sq, d = qs.shape
@@ -167,18 +162,46 @@ def flash_bwd(qs, k, v, do, lse, di, scale: float):
     dq_acc = torch.zeros((b, h, sq, d), dtype=torch.float32, device=qs.device)
     dk = torch.empty((b, h, skv, d), dtype=k.dtype, device=k.device)
     dv = torch.empty((b, h, skv, d), dtype=v.dtype, device=v.device)
-    status = _lib().flash_bwd_bf16(
+    status = getattr(_lib(), entry)(
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), di.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         b, h, sq, skv, d, *_strides(qs), *_strides(k), *_strides(v), *_strides(do),
         torch.cuda.current_stream(qs.device).cuda_stream,
     )
-    _nvcc.check(status, "flash_bwd_bf16")
-    flash_bwd.launches += 1
+    _nvcc.check(status, entry)
     return (dq_acc * scale).to(qs.dtype), dk, dv
 
 
+def flash_bwd(qs, k, v, do, lse, di, scale: float):
+    """Backward kernel wrapper: (dq, dk, dv) from the forward's residuals,
+    the output cotangent ``do`` and Di = rowsum(dO∘O) [B,H,Sq] fp32. fp32
+    inputs go to ``flash_bwd_f32``."""
+    if qs.device.type == "cpu":
+        return flash_bwd_plain(qs, k, v, do, lse, di, scale)
+    if qs.dtype == torch.float32:
+        return flash_bwd_f32(qs, k, v, do, lse, di, scale)
+    _check_cuda_inputs(qs, k, v, do)
+    out = _launch_bwd("flash_bwd_bf16", qs, k, v, do, lse, di, scale)
+    flash_bwd.launches += 1
+    return out
+
+
 flash_bwd.launches = 0
+
+
+def flash_bwd_f32(qs, k, v, do, lse, di, scale: float):
+    """The fp32 backward kernel (head dim 512, FFMA): as ``flash_bwd``, with
+    fp32 grads; dq is summed with fp32 atomics, so its last bits vary from
+    run to run."""
+    if qs.device.type == "cpu":
+        return flash_bwd_plain(qs, k, v, do, lse, di, scale)
+    _check_cuda_inputs(qs, k, v, do, dtype=torch.float32, head_dims=F32_HEAD_DIMS)
+    out = _launch_bwd("flash_bwd_f32", qs, k, v, do, lse, di, scale)
+    flash_bwd_f32.launches += 1
+    return out
+
+
+flash_bwd_f32.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -199,7 +222,7 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         qs, k, v, o, lse = ctx.saved_tensors
-        di =(do.float() * o.float()).sum(dim=-1)
+        di = (do.float() * o.float()).sum(dim=-1)
         return flash_bwd(qs, k, v, do, lse, di, ctx.scale)
 
 

@@ -78,7 +78,7 @@ class DiffusionEngine:
         cond = self.conditioner(batch)
 
         def network_apply(x, c_noise, c):
-            return self.model(x, c_noise, c.get("crossattn"))
+            return self.model(x, c_noise, c.get("crossattn"), y=c.get("vector"))
 
         return self.loss_fn(network_apply, self.denoiser, cond, latents, generator, t=t, noise=noise).mean()
 

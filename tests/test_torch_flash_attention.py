@@ -63,6 +63,34 @@ def test_flash_matches_jax(interpreted_flash, shape):
         np.testing.assert_allclose(gt.numpy(), np.asarray(gj), atol=2e-5, rtol=1e-3)
 
 
+def test_fp32_backward_matches_jax(interpreted_flash):
+    """The fp32 backward entry (on the CPU: the plain version that the fp32
+    kernel is held against on the card) from the forward's own residuals
+    and a given cotangent, against the VJP of JAX's kernels at the VAE's head
+    dim, with the JAX suite's grad tolerance (2e-5 / 1e-3)."""
+    import math
+
+    from neurosis_tpu_torch.ops import flash_attention as tfa
+
+    fa = interpreted_flash
+    b, h, s, d = 1, 1, 256, 512
+    rng = np.random.RandomState(1)
+    q, k, v, do = (rng.randn(b, h, s, d).astype(np.float32) for _ in range(4))
+    run = lambda *a: fa.flash_attention(*a, block_q=128, block_k=128)
+    out_j, vjp = jax.vjp(run, *(jnp.asarray(a.copy()) for a in (q, k, v)))
+    g_j = vjp(jnp.asarray(do.copy()))
+
+    tq, tk, tv, tdo = (torch.tensor(a.copy()) for a in (q, k, v, do))
+    scale = 1.0 / math.sqrt(d)
+    qs = tq * (scale * tfa.LOG2_E)
+    o, lse = tfa.flash_fwd_f32(qs, tk, tv)
+    np.testing.assert_allclose(o.numpy(), np.asarray(out_j), atol=3e-6, rtol=1e-4)
+    grads = tfa.flash_bwd_f32(qs, tk, tv, tdo, lse, (tdo * o).sum(-1), scale)
+    for gt, gj in zip(grads, g_j):
+        assert gt.dtype == torch.float32
+        np.testing.assert_allclose(gt.numpy(), np.asarray(gj), atol=2e-5, rtol=1e-3)
+
+
 def test_plain_lse_is_base2():
     """The forward's residual is log2 Σ 2^s over the pre-scaled logits, the
     statistic the backward kernel rebuilds P from."""

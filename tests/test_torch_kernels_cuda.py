@@ -11,7 +11,10 @@ Tolerances are on max|kernel - plain| / max|plain|, bf16 inputs on both
 sides: 2e-2 for outputs (the kernels round P, dS or the activation to bf16
 where the plain versions keep fp32), 5e-2 for attention grads. The fp32
 flash forward computes in fp32 throughout, as its plain version does: 2e-5
-(the same fp32 sums in another order).
+(the same fp32 sums in another order); the fp32 backward likewise, with dq
+summed by atomics in an order that changes from run to run: 1e-4. The
+split2 and chunked forwards round P to bf16 as their plain version does, so
+only the output's bf16 rounding and the order of fp32 sums differ: 1e-2.
 """
 
 import math
@@ -37,6 +40,7 @@ def _rel(got, want):
 
 
 @pytest.mark.parametrize("shape", [(2, 3, 300, 77, 40), (1, 2, 256, 256, 80), (1, 2, 130, 200, 64),
+                                   (2, 5, 1024, 77, 64),  # SDXL cross-attention: d=64, masked kv=77 tail
                                    (1, 1, 64, 77, 160), (2, 1, 200, 300, 512), (1, 1, 1024, 1024, 512)])
 def test_flash_kernels(cuda, shape):
     from neurosis_tpu_torch.ops import flash_attention as fa
@@ -74,6 +78,91 @@ def test_flash_fwd_f32_kernel(cuda, shape):
     assert o.dtype == torch.float32 and fa.flash_fwd_f32.launches == n + 1
     assert _rel(o, o_ref) < 2e-5
     assert float((lse - lse_ref).abs().max()) < 2e-5
+
+
+@pytest.mark.parametrize("shape", [(2, 1, 100, 130, 512), (1, 1, 1024, 1024, 512)])
+def test_flash_bwd_f32_kernel(cuda, shape):
+    """dO is a non-contiguous view (the left half of a wider tensor's rows),
+    which the kernel reads in place through its row stride."""
+    from neurosis_tpu_torch.ops import flash_attention as fa
+
+    b, h, sq, skv, d = shape
+    q = torch.randn(b, h, sq, d, generator=cuda, device="cuda")
+    k, v = (torch.randn(b, h, skv, d, generator=cuda, device="cuda") for _ in range(2))
+    do = torch.randn(b, h, sq, 2 * d, generator=cuda, device="cuda")[..., :d]
+    assert not do.is_contiguous()
+    scale = 1.0 / math.sqrt(d)
+    qs = q * (scale * fa.LOG2_E)
+    o_ref, lse_ref = fa.flash_fwd_plain(qs, k, v)
+    di = (do * o_ref).sum(-1)
+    n, n_bf16 = fa.flash_bwd_f32.launches, fa.flash_bwd.launches
+    got = fa.flash_bwd(qs, k, v, do, lse_ref, di, scale)
+    want = fa.flash_bwd_plain(qs, k, v, do, lse_ref, di, scale)
+    torch.cuda.synchronize()
+    assert (fa.flash_bwd_f32.launches, fa.flash_bwd.launches) == (n + 1, n_bf16)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and _rel(g, w) < 1e-4
+
+
+def test_flash_f32_autograd_matches_plain(cuda):
+    """fp32 q/k/v through flash_attention on the card: the forward and the
+    backward kernels under autograd, with strided head-split views."""
+    from neurosis_tpu_torch.ops.attention import plain_attention
+    from neurosis_tpu_torch.ops.flash_attention import flash_attention
+
+    b, s, d = 2, 600, 512
+    x = [torch.randn(b, s, d, generator=cuda, device="cuda").requires_grad_() for _ in range(3)]
+    y = [t.detach().clone().requires_grad_() for t in x]
+    out = flash_attention(*(t.reshape(b, s, 1, d).transpose(1, 2) for t in x))
+    ref = plain_attention(*(t.reshape(b, s, 1, d).transpose(1, 2) for t in y))
+    assert _rel(out.detach(), ref.detach()) < 2e-5
+    w = torch.randn(out.shape, generator=cuda, device="cuda")
+    (out * w).sum().backward()
+    (ref * w).sum().backward()
+    for a, r in zip(x, y):
+        assert _rel(a.grad, r.grad) < 1e-4
+
+
+@pytest.mark.parametrize("n_chunks", [1, 2, 4, 8])
+@pytest.mark.parametrize("sq,skv", [(130, 256), (64, 1024), (100, 192)])
+def test_flash_overlap_kernels(cuda, sq, skv, n_chunks):
+    """Chunks of 24 to 1024 rows: chunks shorter than the kernel's 128-row stage
+    (masked; 192 / 8 = 24 is no multiple of 16 either), chunks longer than a
+    stage, and a ragged q tail. split2 is the 2-chunk entry."""
+    from neurosis_tpu_torch.ops import flash_attention as fa
+    from neurosis_tpu_torch.ops import flash_overlap as fo
+
+    b, h, d = 2, 3, 64
+    q = torch.randn(b, h, sq, d, generator=cuda, device="cuda").bfloat16()
+    k, v = (torch.randn(b, h, skv, d, generator=cuda, device="cuda").bfloat16() for _ in range(2))
+    qs = (q * (fa.LOG2_E / math.sqrt(d))).to(q.dtype)
+    n = fo.flash_fwd_chunked.launches
+    o = fo.flash_fwd_chunked(qs, k, v, n_chunks)
+    torch.cuda.synchronize()
+    assert fo.flash_fwd_chunked.launches == n + 1
+    assert _rel(o, fo.flash_fwd_chunked_plain(qs, k, v, n_chunks)) < 1e-2
+    assert _rel(o, fa.flash_fwd_plain(qs, k, v)[0]) < 2e-2
+    if n_chunks == 2:
+        n = fo.flash_fwd_split2.launches
+        o2 = fo.flash_fwd_split2(qs, k, v)
+        torch.cuda.synchronize()
+        assert fo.flash_fwd_split2.launches == n + 1
+        assert torch.equal(o2, o)
+
+
+def test_flash_overlap_refuses_ragged_chunks(cuda):
+    from neurosis_tpu_torch.ops import flash_overlap as fo
+
+    q = torch.zeros(1, 1, 64, 64, device="cuda", dtype=torch.bfloat16)
+    kv = torch.zeros(1, 1, 77, 64, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="no multiple"):
+        fo.flash_fwd_split2(q, kv, kv)
+    with pytest.raises(ValueError, match="no multiple"):
+        fo.flash_fwd_chunked(q, kv, kv, 4)
+    wide = torch.zeros(1, 1, 64, 80, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims"):
+        fo.flash_fwd_chunked(wide, wide, wide, 2)
+    assert fo.flash_fwd_chunked(q, kv, kv, 7).shape == q.shape  # 7 chunks of 11 rows
 
 
 def test_flash_autograd_through_strided_views(cuda):

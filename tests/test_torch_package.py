@@ -32,7 +32,7 @@ def test_imports_no_jax_in_a_fresh_process():
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 25  # every module of the package was imported
+    assert int(out.stdout.strip()) >= 45  # every module of the package was imported
 
 
 def test_sources_call_no_library_kernel():
@@ -76,8 +76,19 @@ def _entry_points():
     from neurosis_tpu_torch.models.autoencoder import AutoencoderKL
     from neurosis_tpu_torch.models.vae import Decoder, Encoder
 
+    from neurosis_tpu_torch.models.text_encoder.clip import OpenCLIPTextTower
+    from neurosis_tpu_torch.modules.encoders.embedding import FrozenCLIPEmbedder, FrozenOpenCLIPEmbedder2
+    from neurosis_tpu_torch.tools import overlap_bench
+
     dd = dict(ch=32, ch_mult=[1], num_res_blocks=1, z_channels=2)
+    tower = dict(width=32, layers=1, heads=2)
     return {
+        "OpenCLIPTextTower": (lambda **kw: OpenCLIPTextTower(**tower, **kw), lambda m: m.text_projection),
+        "FrozenCLIPEmbedder": (lambda **kw: FrozenCLIPEmbedder(layer="hidden", layer_idx=0, **tower, **kw),
+                               lambda m: next(m.parameters())),
+        "FrozenOpenCLIPEmbedder2": (lambda **kw: FrozenOpenCLIPEmbedder2(**tower, **kw),
+                                    lambda m: m.model.positional_embedding),
+        "overlap_bench.make_inputs": (lambda **kw: overlap_bench.make_inputs(64, 64, 1, 1, **kw), lambda qkv: qkv[2]),
         "DiscreteDenoiser": (lambda **kw: DiscreteDenoiser(EpsPreconditioning(), 10, LegacyDDPMDiscretization(), **kw),
                              lambda m: m.sigmas),
         "DiscreteSigmaGenerator": (lambda **kw: DiscreteSigmaGenerator(LegacyDDPMDiscretization(), 10, **kw),
@@ -96,7 +107,8 @@ def _entry_points():
 
 @pytest.mark.parametrize("name", ["DiscreteDenoiser", "DiscreteSigmaGenerator", "Encoder", "Decoder",
                                   "AutoencoderKL", "LPIPS", "NLayerDiscriminator", "AutoencoderLPIPSWithDiscr",
-                                  "AutoencoderPerceptual"])
+                                  "AutoencoderPerceptual", "OpenCLIPTextTower", "FrozenCLIPEmbedder",
+                                  "FrozenOpenCLIPEmbedder2", "overlap_bench.make_inputs"])
 def test_every_entry_point_resolves_its_device(monkeypatch, name):
     """Each constructor goes through resolve_device: CUDA unless asked, so
     without CUDA it raises instead of building on the CPU; device='cpu'
@@ -113,7 +125,8 @@ class _KernelReached(Exception):
     pass
 
 
-@pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd", "flash_fwd_f32", "conv3x3", "gn_silu_conv3x3"])
+@pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd", "flash_fwd_f32", "flash_bwd_f32", "flash_fwd_split2",
+                                  "flash_fwd_chunked", "conv3x3", "gn_silu_conv3x3"])
 def test_non_cpu_tensors_go_to_the_kernel(monkeypatch, name):
     """A wrapper runs its plain version only for CPU tensors: given tensors
     on another device (meta here) it heads for the kernel's library."""
@@ -127,6 +140,8 @@ def test_non_cpu_tensors_go_to_the_kernel(monkeypatch, name):
     x = torch.empty(1, 2, 64, 40, **meta)
     x32 = torch.empty(1, 1, 64, 512, device="meta")
     stat = torch.empty(1, 2, 64, device="meta")
+    stat32 = torch.empty(1, 1, 64, device="meta")
+    x64 = torch.empty(1, 2, 64, 64, **meta)
     img = torch.empty(1, 32, 32, 128, **meta)
     w = torch.empty(3, 3, 128, 128, **meta)
     ab = torch.empty(1, 128, device="meta")
@@ -134,6 +149,9 @@ def test_non_cpu_tensors_go_to_the_kernel(monkeypatch, name):
         "flash_fwd": (x, x, x),
         "flash_bwd": (x, x, x, x, stat, stat, 0.1),
         "flash_fwd_f32": (x32, x32, x32),
+        "flash_bwd_f32": (x32, x32, x32, x32, stat32, stat32, 0.1),
+        "flash_fwd_split2": (x64, x64, x64),
+        "flash_fwd_chunked": (x64, x64, x64, 4),
         "conv3x3": (img, w),
         "gn_silu_conv3x3": (img, ab, ab, w),
     }[name]
@@ -146,9 +164,11 @@ def test_non_cpu_tensors_go_to_the_kernel(monkeypatch, name):
 def test_kernel_refuses_what_it_cannot_take():
     """Off the CPU a shape or dtype the kernel does not take raises rather
     than falling back: bf16 head dims other than 40/64/80/160/512, fp32 at
-    any head dim but 512, mixed dtypes, a filter of the wrong size."""
+    any head dim but 512 (forward and backward), mixed dtypes, the overlap
+    kernels at any head dim but 64 or in fp32, a filter of the wrong size."""
     from neurosis_tpu_torch.ops.conv3x3 import conv3x3_nhwc
     from neurosis_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd
+    from neurosis_tpu_torch.ops.flash_overlap import flash_fwd_chunked, flash_fwd_split2
 
     odd_d = torch.empty(1, 1, 16, 96, device="meta", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dims"):
@@ -159,10 +179,15 @@ def test_kernel_refuses_what_it_cannot_take():
     bf16 = torch.empty(1, 1, 16, 512, device="meta", dtype=torch.bfloat16)
     with pytest.raises(TypeError, match="bf16"):
         flash_fwd(bf16, bf16.float(), bf16)
-    f32 = bf16.float()  # no fp32 backward kernel: the backward of the fp32 forward raises
     stat = torch.empty(1, 1, 16, device="meta")
-    with pytest.raises(TypeError, match="bf16"):
+    with pytest.raises(ValueError, match="fp32 kernel takes head dims"):  # the fp32 backward is d=512 only
         flash_bwd(f32, f32, f32, f32, stat, stat, 0.1)
+    with pytest.raises(TypeError, match="fp32"):  # an fp32 forward's bf16 cotangent
+        flash_bwd(bf16.float(), bf16.float(), bf16.float(), bf16, stat, stat, 0.1)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_fwd_split2(odd_d, odd_d, odd_d)
+    with pytest.raises(TypeError, match="bf16"):
+        flash_fwd_chunked(*(torch.empty(1, 1, 16, 64, device="meta"),) * 3, 2)
     img = torch.empty(1, 32, 32, 128, device="meta", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="bad shapes"):
         conv3x3_nhwc(img, torch.empty(3, 3, 64, 128, device="meta", dtype=torch.bfloat16))

@@ -161,6 +161,42 @@ def test_scheduled_g_and_d_steps_match_jax():
                                        rtol=1e-5, atol=1e-6, err_msg=(i, k))
 
 
+def test_fp32_pair_takes_the_fp32_flash_backward(monkeypatch):
+    """configs/vae/vae.example.yaml as written has no precision key: fp32
+    encoder and decoder. One generator and one discriminator step in fp32
+    against JAX, watching the attention entry: the mid attention (1024
+    tokens) of the encoder and of the decoder goes through the flash forward
+    in both steps and through the flash backward, with fp32 tensors, in the
+    generator step only. Logged losses within 1e-5 relative, as above."""
+    import neurosis_tpu_torch.ops.flash_attention as fa
+
+    calls = {"fwd": [], "bwd": []}
+    fwd, bwd = fa.flash_fwd, fa.flash_bwd
+    monkeypatch.setattr(fa, "flash_fwd", lambda qs, k, v: calls["fwd"].append(qs.dtype) or fwd(qs, k, v))
+    monkeypatch.setattr(fa, "flash_bwd", lambda qs, *a: calls["bwd"].append((qs.dtype, a[2].dtype)) or bwd(qs, *a))
+
+    rng = np.random.RandomState(3)
+    images = rng.randint(0, 256, size=(2, 64, 64, 3)).astype(np.uint8)
+    jbatch, tbatch = {"image": jnp.asarray(images.copy())}, {"image": torch.tensor(images.copy())}
+    jeng = _jax_engine()
+    jstate = jeng.init(jax.random.PRNGKey(0), jbatch)
+    jstate = dataclasses.replace(jstate, params=jax.tree_util.tree_map(jnp.asarray, perturb(jstate.params, 4, 0.01)))
+    teng = _torch_engine(to_np(jstate.params), jstate.batch_stats)
+    assert all(p.dtype == torch.float32 for p in teng.g_parameters())
+    tstate = teng.init(seed=0)
+
+    jstate, jlog = jax.jit(jeng.g_step)(jstate, jbatch)
+    tstate, tlog = teng.g_step(tstate, tbatch)
+    assert calls == {"fwd": [torch.float32] * 2, "bwd": [(torch.float32, torch.float32)] * 2}
+    for k, v in jlog.items():
+        np.testing.assert_allclose(float(tlog[k]), float(v), rtol=1e-5, atol=1e-6, err_msg=k)
+    jstate, jlog = jax.jit(jeng.d_step)(jstate, jbatch)
+    tstate, tlog = teng.d_step(tstate, tbatch)
+    assert len(calls["fwd"]) == 4 and len(calls["bwd"]) == 2  # the D step's reconstruction runs without grad
+    for k, v in jlog.items():
+        np.testing.assert_allclose(float(tlog[k]), float(v), rtol=1e-5, atol=1e-6, err_msg=k)
+
+
 def test_sampled_posterior_draws_from_the_state_generator():
     """With sample_posterior, the g step's z comes from the run's generator
     (one seed, one step), or from an explicit posterior_noise."""
