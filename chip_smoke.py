@@ -204,11 +204,15 @@ def check(name: str, rel: float, tol: float, log: list, abs_err: float | None = 
 
 
 def time_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
+    """Device ms of one ``fn()``, the mean of ``iters`` back to back. The card
+    first sleeps ~25 ms while the host queues the calls, so a small call is
+    timed on the card, not by how fast this host issues its launches."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)  # clock cycles
     start.record()
     for _ in range(iters):
         fn()

@@ -1,13 +1,15 @@
 """Sigma tables (port of neurosis_tpu/diffusion/discretization.py, LegacyDDPM).
 
 Tables are built on the host in numpy (float64 where the reference uses
-it) and handed out as float32 tensors on the caller's device.
+it) and handed out as float32 tensors on the caller's device (CUDA unless asked).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .._device import DeviceLike, resolve_device
 
 
 def generate_roughly_equally_spaced_steps(num_substeps: int, max_step: int) -> np.ndarray:
@@ -49,5 +51,5 @@ class LegacyDDPMDiscretization:
             sigmas = sigmas[::-1]
         return np.ascontiguousarray(sigmas).astype(np.float32)
 
-    def __call__(self, n: int, flip: bool = False, device=None) -> torch.Tensor:
-        return torch.as_tensor(self.table(n, flip=flip), device=device)
+    def __call__(self, n: int, flip: bool = False, device: DeviceLike = None) -> torch.Tensor:
+        return torch.as_tensor(self.table(n, flip=flip), device=resolve_device(device))

@@ -6,10 +6,10 @@ dtype before the kernel (ops/flash_attention.py:1226), scale = 1/√d of the
 true head dim, logits are base 2 and the per-row LSE (base 2) is the
 backward residual together with the pre-scaled q (:1244).
 
-Four kernels (``csrc/flash_attention.cu``) stand behind it:
+Four wrappers over the kernels of ``csrc/flash_attention.cu`` stand behind it:
 ``flash_fwd`` (replaces the four Pallas forward families) and ``flash_bwd``
 (replaces the dq and dk/dv families) take bf16 at head dims 40, 64, 80, 160
-and 512; ``flash_fwd_f32`` and ``flash_bwd_f32`` are the fp32 forward and
+(TMA and wgmma kernels) and 512; ``flash_fwd_f32`` and ``flash_bwd_f32`` are the fp32 forward and
 backward at head dim 512, for the VAE in fp32 (the JAX kernels take fp32
 there, ops/flash_attention.py:1221-1246). ``flash_fwd`` and ``flash_bwd``
 hand fp32 inputs to them. Each wrapper runs its plain PyTorch version for CPU
@@ -21,6 +21,7 @@ outside the kernel, as in the JAX backward (:1037).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -30,6 +31,9 @@ from .. import _nvcc
 LOG2_E = 1.4426950408889634
 KERNEL_HEAD_DIMS = (40, 64, 80, 160, 512)
 F32_HEAD_DIMS = (512,)
+# the bf16 backward at d <= 160: kv rows a block owns, q rows of one ring stage
+BWD_KV_ROWS = 128
+BWD_Q_ROWS = 64
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
@@ -39,7 +43,7 @@ def _lib():
     lib = _nvcc.load("flash_attention")
     if not getattr(lib, "_argtypes_set", False):
         lib.flash_fwd_bf16.argtypes = [_P] * 5 + [_I] * 14 + [_P]
-        lib.flash_bwd_bf16.argtypes = [_P] * 9 + [_I] * 17 + [_P]
+        lib.flash_bwd_bf16.argtypes = [_P] * 9 + [_I] * 17 + [_P, _P, _I, ctypes.c_double, _P]
         lib.flash_fwd_f32.argtypes = [_P] * 5 + [_I] * 14 + [_P]
         lib.flash_bwd_f32.argtypes = [_P] * 9 + [_I] * 17 + [_P]
         for fn in (lib.flash_fwd_bf16, lib.flash_bwd_bf16, lib.flash_fwd_f32, lib.flash_bwd_f32):
@@ -154,22 +158,66 @@ def flash_bwd_plain(qs, k, v, do, lse, di, scale: float):
     return dq.to(qs.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def bwd_q_splits(b: int, h: int, sq: int, skv: int, sms: int) -> int:
+    """Blocks that share one kv tile's walk over q in the bf16 backward (d <= 160).
+
+    One when the kv tiles alone fill the card. Otherwise (kv = 77 gives one kv
+    tile per head) the count that puts a block on every SM and, from there, costs
+    the fewest waves x (q tiles a block walks + 1, for loading K and V and writing
+    dK, dV), the smaller on a tie. The tiles are the same at every head dim."""
+    blocks = -(-skv // BWD_KV_ROWS) * b * h
+    q_tiles = -(-sq // BWD_Q_ROWS)
+    if blocks >= sms or q_tiles == 1:
+        return 1
+    cost = lambda n: -(-blocks * n // sms) * (-(-q_tiles // n) + 1)
+    return min(range(min(q_tiles, -(-sms // blocks)), q_tiles + 1), key=lambda n: (cost(n), n))
+
+
+def bwd_q_ranges(sq: int, splits: int) -> list[tuple[int, int]]:
+    """The q rows [start, stop) each of ``splits`` blocks walks, as the kernel
+    cuts them: q tile t of ceil(Sq/64) goes to block z with
+    z·tiles/splits <= t < (z+1)·tiles/splits (integer division)."""
+    q_tiles = -(-sq // BWD_Q_ROWS)
+    return [(z * q_tiles // splits * BWD_Q_ROWS, min((z + 1) * q_tiles // splits * BWD_Q_ROWS, sq))
+            for z in range(splits)]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _launch_bwd(entry: str, qs, k, v, do, lse, di, scale: float):
     qs, k, v, do = (_kernel_view(t) for t in (qs, k, v, do))
     lse, di = lse.float().contiguous(), di.float().contiguous()
     b, h, sq, d = qs.shape
     skv = k.shape[2]
-    dq_acc = torch.zeros((b, h, sq, d), dtype=torch.float32, device=qs.device)
-    dk = torch.empty((b, h, skv, d), dtype=k.dtype, device=k.device)
-    dv = torch.empty((b, h, skv, d), dtype=v.dtype, device=v.device)
-    status = getattr(_lib(), entry)(
-        qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), di.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, h, sq, skv, d, *_strides(qs), *_strides(k), *_strides(v), *_strides(do),
-        torch.cuda.current_stream(qs.device).cuda_stream,
-    )
-    _nvcc.check(status, entry)
-    return (dq_acc * scale).to(qs.dtype), dk, dv
+    fn = getattr(_lib(), entry)
+    stream = torch.cuda.current_stream(qs.device).cuda_stream
+    # the TMA kernels (bf16, d <= 160) scale dq themselves and may split the q range
+    tma = entry == "flash_bwd_bf16" and d != 512
+    splits = bwd_q_splits(b, h, sq, skv, _sm_count(qs.device.index)) if tma else 1
+    # one zeroed fp32 buffer for what the kernel sums with atomics: dq, and dk,
+    # dv when the q range is split; one cast to the grads' dtype at the end
+    n_q, n_kv = b * h * sq * d, b * h * skv * d
+    acc = torch.zeros(n_q + (2 * n_kv if splits > 1 else 0), dtype=torch.float32, device=qs.device)
+    dk = dv = None  # written in bf16 by the kernel unless split
+    if splits == 1:
+        dk, dv = (torch.empty((b, h, skv, d), dtype=k.dtype, device=k.device) for _ in range(2))
+    args = [qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), di.data_ptr(),
+            acc.data_ptr(), dk.data_ptr() if dk is not None else None, dv.data_ptr() if dv is not None else None,
+            b, h, sq, skv, d, *_strides(qs), *_strides(k), *_strides(v), *_strides(do)]
+    if entry == "flash_bwd_bf16":  # dk, dv partial sums; splits; the scale dq leaves with
+        ptrs = [acc[n_q:].data_ptr(), acc[n_q + n_kv:].data_ptr()] if splits > 1 else [None, None]
+        args += [*ptrs, splits, scale if tma else 1.0]
+    _nvcc.check(fn(*args, stream), entry)
+    if not tma:  # the fp32 and d=512 kernels leave dq unscaled
+        return (acc.view(b, h, sq, d) * scale).to(qs.dtype), dk, dv
+    out = acc.to(qs.dtype)
+    dq = out[:n_q].view(b, h, sq, d)
+    if splits > 1:
+        dk, dv = out[n_q:n_q + n_kv].view(b, h, skv, d), out[n_q + n_kv:].view(b, h, skv, d)
+    return dq, dk, dv
 
 
 def flash_bwd(qs, k, v, do, lse, di, scale: float):

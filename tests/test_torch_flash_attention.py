@@ -119,3 +119,35 @@ def test_dispatch_routes_long_rows_to_flash(monkeypatch):
     attn.dot_product_attention(long_bf16, kv, kv, mask=torch.ones(512, 77, dtype=torch.bool))
     assert len(calls) == 1
 
+
+@pytest.mark.parametrize("b,h,sq,skv", [(2, 10, 4096, 77), (2, 20, 1024, 77), (4, 8, 4096, 77), (4, 8, 1024, 77),
+                                        (2, 10, 4096, 4096), (2, 20, 1024, 1024), (4, 8, 1024, 1024),
+                                        (2, 3, 300, 77), (1, 2, 20, 77), (1, 1, 64, 77)])
+def test_bwd_q_split_geometry(b, h, sq, skv):
+    """The bf16 backward's split of the q range (a launch argument): one block
+    per kv tile when the kv tiles fill the 132 SMs of an H100; at kv = 77 enough
+    blocks for every SM (SDXL's 2x10x4096 and 2x20x1024 included); the ranges
+    cut [0, Sq) into consecutive non-empty pieces on 64-row stage boundaries."""
+    from neurosis_tpu_torch.ops.flash_attention import BWD_KV_ROWS, BWD_Q_ROWS, bwd_q_ranges, bwd_q_splits
+
+    n = bwd_q_splits(b, h, sq, skv, 132)
+    kv_blocks = -(-skv // BWD_KV_ROWS) * b * h
+    q_tiles = -(-sq // BWD_Q_ROWS)
+    assert 1 <= n <= q_tiles
+    if kv_blocks >= 132 or q_tiles == 1:
+        assert n == 1
+    else:
+        assert kv_blocks * n >= 132 or n == q_tiles
+    ranges = bwd_q_ranges(sq, n)
+    assert len(ranges) == n and ranges[0][0] == 0 and ranges[-1][1] == sq
+    assert all(start < stop and start % BWD_Q_ROWS == 0 for start, stop in ranges)
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+
+
+def test_bwd_q_splits_at_sdxl_cross_attention():
+    from neurosis_tpu_torch.ops.flash_attention import bwd_q_splits
+
+    assert bwd_q_splits(2, 10, 4096, 4096, 132) == 1
+    assert bwd_q_splits(2, 20, 1024, 1024, 132) == 1
+    assert 20 * bwd_q_splits(2, 10, 4096, 77, 132) >= 132
+    assert 40 * bwd_q_splits(2, 20, 1024, 77, 132) >= 132

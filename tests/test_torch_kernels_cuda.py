@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions on the card, at small
-shapes that reach every code path of each kernel: a ragged q tail, the
-masked kv=77 tail, each head dim the kernel takes (512 with ragged q and kv
-tails, in bf16 and in fp32), channel counts that take one and several tiles,
+shapes that reach every code path of each kernel: ragged q tails, q shorter
+than a block, the masked kv=77 tail and other kv tails, a backward whose q
+range is split over blocks, each head dim the kernel takes (512 with ragged q
+and kv tails, in bf16 and in fp32), channel counts that take one and several tiles,
 the GroupNorm prologue's zeroed halo.
 
 These need a CUDA card (a CUDA kernel has no interpreter) and skip without
@@ -39,13 +40,25 @@ def _rel(got, want):
     return float((got.float() - want.float()).abs().max()) / float(want.float().abs().max())
 
 
-@pytest.mark.parametrize("shape", [(2, 3, 300, 77, 40), (1, 2, 256, 256, 80), (1, 2, 130, 200, 64),
-                                   (2, 5, 1024, 77, 64),  # SDXL cross-attention: d=64, masked kv=77 tail
-                                   (1, 1, 64, 77, 160), (2, 1, 200, 300, 512), (1, 1, 1024, 1024, 512)])
+# (B, H, Sq, Skv, D) reaching every path of the bf16 kernels at d = 40, 64, 80,
+# 160: a ragged q tail (Sq = 300, 100, 130), Sq shorter than a forward block or
+# a backward stage (20, 50), the kv=77 tail and kv tails of 200 and 300 rows,
+# several kv tiles, a backward whose q range is split over blocks (kv = 77 with
+# few heads; SPLIT, and most small shapes on 132 SMs), one full-size SDXL
+# self-attention (one block per kv tile), and d = 512
+SPLIT = [(2, 3, 300, 77, 40), (2, 5, 1024, 77, 64), (1, 2, 1024, 77, 80), (1, 2, 512, 77, 160)]
+FLASH_SHAPES = SPLIT + [(1, 2, 256, 300, 40), (1, 2, 130, 200, 64), (1, 2, 20, 130, 64), (1, 2, 256, 256, 80),
+                        (1, 2, 100, 300, 80), (1, 1, 64, 77, 160), (2, 1, 300, 256, 160), (1, 1, 50, 200, 160),
+                        (2, 20, 1024, 1024, 64), (2, 1, 200, 300, 512), (1, 1, 1024, 1024, 512)]
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
 def test_flash_kernels(cuda, shape):
     from neurosis_tpu_torch.ops import flash_attention as fa
 
     b, h, sq, skv, d = shape
+    if shape in SPLIT:
+        assert fa.bwd_q_splits(b, h, sq, skv, torch.cuda.get_device_properties(0).multi_processor_count) > 1
     q, do = (torch.randn(b, h, sq, d, generator=cuda, device="cuda").bfloat16() for _ in range(2))
     k, v = (torch.randn(b, h, skv, d, generator=cuda, device="cuda").bfloat16() for _ in range(2))
     scale = 1.0 / math.sqrt(d)

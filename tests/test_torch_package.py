@@ -93,6 +93,7 @@ def _entry_points():
                              lambda m: m.sigmas),
         "DiscreteSigmaGenerator": (lambda **kw: DiscreteSigmaGenerator(LegacyDDPMDiscretization(), 10, **kw),
                                    lambda m: m.sigmas),
+        "LegacyDDPMDiscretization": (lambda **kw: LegacyDDPMDiscretization()(10, **kw), lambda sigmas: sigmas),
         "Encoder": (lambda **kw: Encoder(**dd, **kw), lambda m: next(m.parameters())),
         "Decoder": (lambda **kw: Decoder(out_ch=3, **dd, **kw), lambda m: next(m.parameters())),
         "AutoencoderKL": (lambda **kw: AutoencoderKL(dd, embed_dim=2, **kw), lambda m: m.quant_conv.weight),
@@ -105,7 +106,7 @@ def _entry_points():
     }
 
 
-@pytest.mark.parametrize("name", ["DiscreteDenoiser", "DiscreteSigmaGenerator", "Encoder", "Decoder",
+@pytest.mark.parametrize("name", ["DiscreteDenoiser", "DiscreteSigmaGenerator", "LegacyDDPMDiscretization", "Encoder", "Decoder",
                                   "AutoencoderKL", "LPIPS", "NLayerDiscriminator", "AutoencoderLPIPSWithDiscr",
                                   "AutoencoderPerceptual", "OpenCLIPTextTower", "FrozenCLIPEmbedder",
                                   "FrozenOpenCLIPEmbedder2", "overlap_bench.make_inputs"])
