@@ -930,7 +930,7 @@ def run_overlap(torch, rows: dict, log: list) -> dict:
 def kernel_kind(name: str) -> str:
     """Which layer a device kernel belongs to, by its name."""
     low = name.lower()
-    if "flash_" in low or "conv3x3_kernel" in low:
+    if "flash_" in low or "conv3x3_wgmma" in low:
         return "port kernels"
     if any(s in low for s in ("fprop", "dgrad", "wgrad", "conv", "cudnn")):
         return "library conv"

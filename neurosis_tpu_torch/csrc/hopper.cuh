@@ -1,5 +1,5 @@
-// Hopper (sm_90a) building blocks for the warp-specialised flash kernels:
-// mbarriers, TMA tile loads, wgmma shared-memory descriptors and fences, and,
+// Hopper (sm_90a) building blocks for the warp-specialised flash and conv kernels:
+// mbarriers, TMA tile loads, ldmatrix, wgmma shared-memory descriptors and fences, and,
 // on the host, the tensor maps the loads read.
 #pragma once
 
@@ -73,6 +73,25 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// one box of a rank-3 map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// four 8x8 b16 matrices from shared memory, lane l giving the address of row
+// l % 8 of matrix l / 8; register i holds matrix i in mma.sync's fragment order
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
 }
 
 // ---- wgmma ----------------------------------------------------------------

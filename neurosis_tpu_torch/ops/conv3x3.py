@@ -1,6 +1,6 @@
 """3×3 stride-1 SAME convolutions on NHWC tensors (port of neurosis_tpu/ops/conv3x3.py).
 
-Two kernels (``csrc/conv3x3.cu``):
+Two entry points of one kernel template (``csrc/conv3x3.cu``):
   - ``conv3x3_nhwc(x, w_k)``: implicit-GEMM conv, bf16 in, fp32 accumulate,
     bf16 out. Also the dgrad of both convs below, run on the spatially
     flipped, in/out-swapped filter (JAX ``_vjp_bwd``).
@@ -10,19 +10,22 @@ Two kernels (``csrc/conv3x3.cu``):
 
 ``w_k`` is the filter in the kernel's [3, 3, C, F] order; the public
 autograd entries ``conv3x3`` and ``gn_silu_conv3x3`` take the torch OIHW
-filter and reorder it. Each wrapper runs its plain PyTorch version for CPU
-tensors and launches its kernel for CUDA tensors. Weight gradients go to
+filter and reorder it. ``conv_tile`` picks each launch's tile (image rows,
+columns and output channels of a block). Each wrapper runs its plain
+PyTorch version for CPU tensors and launches its kernel for CUDA tensors. Weight gradients go to
 ``torch.nn.grad.conv2d_weight``, as the JAX package leaves wgrad to XLA.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from .. import _nvcc
+from .._device import sm_count
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
@@ -31,8 +34,8 @@ _I = ctypes.c_int64
 def _lib():
     lib = _nvcc.load("conv3x3")
     if not getattr(lib, "_argtypes_set", False):
-        lib.conv3x3_bf16.argtypes = [_P] * 3 + [_I] * 5 + [_P]
-        lib.gn_silu_conv3x3_bf16.argtypes = [_P] * 5 + [_I] * 5 + [_P]
+        lib.conv3x3_bf16.argtypes = [_P] * 3 + [_I] * 8 + [_P]
+        lib.gn_silu_conv3x3_bf16.argtypes = [_P] * 5 + [_I] * 8 + [_P]
         lib.conv3x3_bf16.restype = ctypes.c_int
         lib.gn_silu_conv3x3_bf16.restype = ctypes.c_int
         lib._argtypes_set = True
@@ -83,6 +86,71 @@ def gn_silu_conv3x3_plain(x, a, b, w_k):
 
 
 # ---------------------------------------------------------------------------
+# the tile
+# ---------------------------------------------------------------------------
+
+TILE_PIXELS = 128  # pixels of a block: two consumer warpgroups of 64
+MAX_SMEM = 232448  # bytes of shared memory a block may have on the H100
+FILTER_STAGES = {256: 4, 160: 5, 128: 6, 64: 10}  # the filter ring's stages at each block width
+
+
+def conv_smem_bytes(tr: int, cw: int, bn: int) -> int:
+    """Shared memory of one block, as the kernel lays it out: 1024 bytes of
+    alignment slack, three halo stages of (tr+2)·(cw+2) 128-byte pixel rows
+    (each rounded up to 1024 bytes; two where three do not fit), the filter
+    ring (FILTER_STAGES[bn] stages of bn·128 bytes) and the mbarriers."""
+    halo = -(-128 * (tr + 2) * (cw + 2) // 1024) * 1024
+    stages = FILTER_STAGES[bn]
+    rest = 1024 + stages * -(-bn // 64) * 8192 + 8 * (3 * 3 + 2 * stages)
+    return rest + (3 if rest + 3 * halo <= MAX_SMEM else 2) * halo
+
+
+def _pixel_tile(h: int, w: int) -> tuple[int, int]:
+    """(tr, cw): the fewest tiles of at most 128 pixels over an h × w image,
+    then the fewest halo pixels (tr+2)·(cw+2) a tile loads, the wider on a
+    tie. Columns split evenly into tiles of cw (ragged W works); rows as many
+    as fill 128 pixels, at most h, evened out over the image. Tiles narrower
+    than 8 columns are tried only for narrower images: there the 8 pixels an
+    ldmatrix reads at once span two tile rows, and their swizzled rows meet
+    in the same shared-memory banks."""
+    best = None
+    for n_col in range(-(-w // TILE_PIXELS), w + 1):
+        cw = -(-w // n_col)
+        if best is not None and cw < 8:
+            break
+        tr = max(1, min(TILE_PIXELS // cw, h))
+        tr = -(-h // -(-h // tr))
+        key = (-(-h // tr) * -(-w // cw), (tr + 2) * (cw + 2))
+        if best is None or key < best[0]:
+            best = (key, tr, cw)
+    return best[1], best[2]
+
+
+@functools.lru_cache(maxsize=None)
+def conv_tile(b: int, h: int, w: int, f: int, sms: int, prologue: bool = False) -> tuple[int, int, int]:
+    """(tr, cw, bn): a block computes tr image rows by cw columns by bn output
+    channels; block (n, t) covers channels n·bn.. and, for t = (img, i, j),
+    rows i·tr.. and columns j·cw.. of image img, the overhang masked.
+
+    The pixel tile is ``_pixel_tile``'s (8×16 at 64×64 and 32×32: 180 halo
+    pixels for 128, against 264 for 2×64). The width bn is 256, 160, 128 or
+    64, one that divides f and fits shared memory, whichever costs least as
+    waves of one block an SM on ``sms`` SMs times the time of a block, the
+    wider on a tie. A block's time, fitted to the H100's device times at the
+    SD, SDXL and VAE shapes: bn + 80 (the products, plus what a tap costs
+    whatever bn is); with the GroupNorm prologue at least 1.8 per halo pixel
+    (the prologue's share of the SM, the same at every bn, so fewer and wider
+    blocks win there). At 2×32×32 and 1280 channels 160 gives 128 blocks, one
+    wave; 128 gives 160, 1.2 waves."""
+    tr, cw = _pixel_tile(h, w)
+    tiles = b * -(-h // tr) * -(-w // cw)
+    floor = 1.8 * (tr + 2) * (cw + 2) if prologue else 0.0
+    cost = lambda bn: (-(-tiles * (f // bn) // sms) * max(bn + 80, floor), -bn)
+    fits = [n for n in (256, 160, 128, 64) if f % n == 0 and conv_smem_bytes(tr, cw, n) <= MAX_SMEM]
+    return tr, cw, min(fits, key=cost)
+
+
+# ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -98,7 +166,7 @@ def conv3x3_nhwc(x: torch.Tensor, w_k: torch.Tensor) -> torch.Tensor:
     out = torch.empty((bsz, h, wd, f), dtype=x.dtype, device=x.device)
     status = _lib().conv3x3_bf16(
         x.data_ptr(), w_k.data_ptr(), out.data_ptr(), bsz, h, wd, c, f,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        *conv_tile(bsz, h, wd, f, sm_count(x.device.index)), torch.cuda.current_stream(x.device).cuda_stream,
     )
     _nvcc.check(status, "conv3x3_bf16")
     conv3x3_nhwc.launches += 1
@@ -122,7 +190,8 @@ def gn_silu_conv3x3_nhwc(x, a, b, w_k):
     out = torch.empty((bsz, h, wd, f), dtype=x.dtype, device=x.device)
     status = _lib().gn_silu_conv3x3_bf16(
         x.data_ptr(), a.data_ptr(), b.data_ptr(), w_k.data_ptr(), out.data_ptr(),
-        bsz, h, wd, c, f, torch.cuda.current_stream(x.device).cuda_stream,
+        bsz, h, wd, c, f, *conv_tile(bsz, h, wd, f, sm_count(x.device.index), prologue=True),
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     _nvcc.check(status, "gn_silu_conv3x3_bf16")
     gn_silu_conv3x3_nhwc.launches += 1

@@ -21,12 +21,12 @@ outside the kernel, as in the JAX backward (:1037).
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import torch
 
 from .. import _nvcc
+from .._device import sm_count
 
 LOG2_E = 1.4426950408889634
 KERNEL_HEAD_DIMS = (40, 64, 80, 160, 512)
@@ -182,11 +182,6 @@ def bwd_q_ranges(sq: int, splits: int) -> list[tuple[int, int]]:
             for z in range(splits)]
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _launch_bwd(entry: str, qs, k, v, do, lse, di, scale: float):
     qs, k, v, do = (_kernel_view(t) for t in (qs, k, v, do))
     lse, di = lse.float().contiguous(), di.float().contiguous()
@@ -196,7 +191,7 @@ def _launch_bwd(entry: str, qs, k, v, do, lse, di, scale: float):
     stream = torch.cuda.current_stream(qs.device).cuda_stream
     # the TMA kernels (bf16, d <= 160) scale dq themselves and may split the q range
     tma = entry == "flash_bwd_bf16" and d != 512
-    splits = bwd_q_splits(b, h, sq, skv, _sm_count(qs.device.index)) if tma else 1
+    splits = bwd_q_splits(b, h, sq, skv, sm_count(qs.device.index)) if tma else 1
     # one zeroed fp32 buffer for what the kernel sums with atomics: dq, and dk,
     # dv when the q range is split; one cast to the grads' dtype at the end
     n_q, n_kv = b * h * sq * d, b * h * skv * d

@@ -141,3 +141,57 @@ def test_conv2d_dispatch(monkeypatch):
     assert calls == [(1, 32, 32, 128)] and y.dtype == torch.bfloat16
     conv(x[:, :16, :16])  # 256 pixels: below the gate
     assert len(calls) == 1
+
+
+def _picker_shapes():
+    """(B, H, W, C, F) of every launch chip_smoke.py's conv tables give the
+    kernel (forward, dgrad with C and F swapped, fused), and the card tests'."""
+    import chip_smoke as cs
+
+    shapes = set()
+    for table in (cs.CONV_SHAPES, cs.VAE_CONV_SHAPES, cs.SDXL_CONV_SHAPES):
+        for b, h, w, c, f in table:
+            shapes |= {(b, h, w, c, f), (b, h, w, f, c)}
+    for table in (cs.GN_CONV_SHAPES, cs.VAE_GN_CONV_SHAPES, cs.SDXL_GN_CONV_SHAPES):
+        shapes |= set(table)
+    shapes |= {(2, 32, 32, 128, 256), (1, 32, 32, 256, 128), (1, 64, 64, 64, 64), (2, 16, 48, 96, 192),
+               (1, 40, 28, 128, 128), (1, 7, 200, 64, 64), (2, 32, 32, 1280, 1280), (8, 64, 64, 512, 512),
+               (1, 9, 201, 1920, 192), (1, 32, 32, 32, 64), (2, 32, 32, 128, 64)}
+    return sorted(shapes)
+
+
+@pytest.mark.parametrize("prologue", [False, True])
+@pytest.mark.parametrize("shape", _picker_shapes())
+def test_conv_tile_covers_every_output_once(shape, prologue):
+    """The kernel's blocks, as the picked tile lays them out (block (n, img, i,
+    j): channels n·bn.., rows i·tr.., columns j·cw.., the overhang masked),
+    cover each output pixel and channel exactly once, and a block's shared
+    memory fits the H100's 232,448 bytes."""
+    from neurosis_tpu_torch.ops.conv3x3 import MAX_SMEM, TILE_PIXELS, conv_smem_bytes, conv_tile
+
+    b, h, w, _c, f = shape
+    tr, cw, bn = conv_tile(b, h, w, f, 132, prologue)
+    assert 1 <= tr <= h and 1 <= cw <= w and tr * cw <= TILE_PIXELS and bn in (64, 128, 160, 256) and f % bn == 0
+    assert conv_smem_bytes(tr, cw, bn) <= MAX_SMEM
+    hits = np.zeros((b, h, w, f), np.int32)
+    for n0 in range(0, f, bn):
+        for img in range(b):
+            for h0 in range(0, h, tr):
+                for w0 in range(0, w, cw):
+                    hits[img, h0:h0 + tr, w0:w0 + cw, n0:n0 + bn] += 1
+    assert (hits == 1).all()
+
+
+def test_conv_tile_at_the_main_shapes():
+    """8×16 pixel tiles at 64×64 and 32×32 (180 halo pixels for 128); at
+    2×32×32 and 1280 channels 160-channel blocks (128 blocks, one wave on
+    132 SMs) rather than 128 (160 blocks, 1.2 waves); the VAE's 512 channels
+    in two blocks of 256; with the prologue, whose cost a block pays at any
+    width, the widest block at 2×64×64×1280."""
+    from neurosis_tpu_torch.ops.conv3x3 import conv_tile
+
+    assert conv_tile(2, 32, 32, 1280, 132) == (8, 16, 160)
+    assert conv_tile(8, 64, 64, 512, 132) == (8, 16, 256)
+    assert conv_tile(2, 64, 64, 1280, 132) == (8, 16, 160)
+    assert conv_tile(2, 64, 64, 1280, 132, prologue=True) == (8, 16, 256)
+    assert conv_tile(1, 7, 200, 64, 132) == (7, 17, 64)  # twelve column tiles, the last ragged

@@ -194,11 +194,15 @@ def test_flash_autograd_through_strided_views(cuda):
     assert all(torch.isfinite(t.grad).all() for t in x)
 
 
-# (B, H, W, C, F): one and several channel tiles; W = 28 is a ragged tile
-# row (the 40x28 level of a 640x448 SD1.5 bucket); W = 200 takes two
-# column tiles, with a ragged last one
+# (B, H, W, C, F): one and several channel tiles, C = 96 a ragged 64-channel
+# stage, each block width (64, 128, 160, 256); W = 28 (the 40x28 level of a
+# 640x448 SD1.5 bucket) takes two column tiles of 14; W = 200 twelve of 17,
+# with a ragged last one; the SDXL step's 2x32x32x1280->1280 and the VAE's
+# 8x64x64x512->512 at full size; C = 1920 (an SDXL output block's input) over
+# W = 201, fifteen column tiles of 14, the last ragged
 @pytest.mark.parametrize("shape", [(2, 32, 32, 128, 256), (1, 32, 32, 256, 128), (1, 64, 64, 64, 64),
-                                   (2, 16, 48, 96, 192), (1, 40, 28, 128, 128), (1, 7, 200, 64, 64)])
+                                   (2, 16, 48, 96, 192), (1, 40, 28, 128, 128), (1, 7, 200, 64, 64),
+                                   (2, 32, 32, 1280, 1280), (8, 64, 64, 512, 512), (1, 9, 201, 1920, 192)])
 def test_conv_kernels(cuda, shape):
     from neurosis_tpu_torch.ops import conv3x3 as cv
 

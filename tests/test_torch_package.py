@@ -24,7 +24,7 @@ def test_imports_no_jax_in_a_fresh_process():
         "import neurosis_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, 'neurosis_tpu_torch.')]\n"
         "[importlib.import_module(m) for m in mods]\n"
-        "import chip_smoke\n"
+        "import chip_smoke, conv_tiles, conv_times, flash_times\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'neurosis_tpu',"
         " 'safetensors')]\n"
         "assert not bad, bad\n"
@@ -43,8 +43,9 @@ def test_sources_call_no_library_kernel():
         assert not _FORBIDDEN_IMPORT.search(text), path
         assert "scaled_dot_product_attention" not in text, path
         assert "torch.compile" not in text, path
-    # the smoke script may time SDPA as a yardstick, but imports nothing of JAX
-    assert not _FORBIDDEN_IMPORT.search((ROOT / "chip_smoke.py").read_text())
+    # the smoke and timing scripts may time SDPA or F.conv2d as a yardstick, but import nothing of JAX
+    for script in ("chip_smoke.py", "conv_tiles.py", "conv_times.py", "flash_times.py"):
+        assert not _FORBIDDEN_IMPORT.search((ROOT / script).read_text()), script
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
@@ -193,3 +194,19 @@ def test_kernel_refuses_what_it_cannot_take():
     with pytest.raises(ValueError, match="bad shapes"):
         conv3x3_nhwc(img, torch.empty(3, 3, 64, 128, device="meta", dtype=torch.bfloat16))
 
+
+
+@pytest.mark.parametrize("name,kind", [
+    ("void (anonymous namespace)::conv3x3_wgmma<true, 128>((anonymous namespace)::ConvTma)", "port kernels"),
+    ("void (anonymous namespace)::conv3x3_wgmma<false, 64>((anonymous namespace)::ConvTma)", "port kernels"),
+    ("void (anonymous namespace)::flash_fwd_wgmma<64>((anonymous namespace)::FwdTma)", "port kernels"),
+    ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc_tilesize128x128x64", "library conv"),
+    ("sm90_xmma_dgrad_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc", "library conv"),
+    ("nvjet_tst_128x256_64x4_1x2_h_bz_coopA_NTN", "library matmul"),
+])
+def test_profile_books_kernels_by_name(name, kind):
+    """chip_smoke's profiles book the port's conv and flash kernels as the
+    port's, and cuDNN's convs and cuBLAS's matmuls as the library's."""
+    import chip_smoke
+
+    assert chip_smoke.kernel_kind(name) == kind
