@@ -3,24 +3,29 @@
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
-Five paths run at full width: the SD1.5 train step from images (the frozen
-fp32 VAE encode in front of the UNet step), the VAE-GAN trainer (alternating
-generator and discriminator steps) with a bf16 and with an fp32 encoder and
-decoder, the SDXL train step from 1024 px images, and the flash-overlap tool.
+Six paths run at full width: the SD1.5 train step from images (the frozen
+fp32 VAE encode in front of the UNet step) with a bf16 UNet and with the fp32
+UNet of configs/sd15/sd15.example.yaml as written, the VAE-GAN trainer
+(alternating generator and discriminator steps) with a bf16 and with an fp32
+encoder and decoder, the SDXL train step from 1024 px images, and the
+flash-overlap tool.
 
 Phases, each fatal on failure:
   1. environment: Python, torch and CUDA versions, the card's name and power limit;
   2. build: nvcc compiles every source of neurosis_tpu_torch/csrc for sm_90a, one
      process per source, all at once;
   3. kernels: each kernel wrapper against its plain PyTorch version on the card,
-     on the same inputs at every shape a path gives it, with the kernel's
-     time, the plain version's, one library call's (a yardstick only: the port
-     never calls it) and the least time an H100 could take;
+     on the same inputs at every shape a path gives it (and, for the fp32
+     flash kernels, the rows of the fp32 SDXL UNet of sdxl.example.yaml and of
+     the smoke VAEs, which no path here drives), with the kernel's time, the
+     plain version's, one library call's (a yardstick only: the port never
+     calls it) and the least time an H100 could take;
   4. reference: small engines whose layers all take the kernels, on the card
      against the same computation on the CPU (plain versions throughout): one
      SD train step, one SDXL-layout train step (two text towers, size
      embedders, the label embedding), one VAE-GAN generator and discriminator
-     pair in bf16 and one in fp32, one fp32 frozen encode;
+     pair in bf16, one in fp32 and one in fp32 at configs/smoke/vae-tiny.yaml's
+     dims (the fp32 flash kernels at head dim 64), one fp32 frozen encode;
   5. slice: three DiffusionEngine.train_steps of SD1.5 at full width (batch 4 of
      uint8 512x512 images and 77 token ids; frozen fp32 VAE encode, bf16 UNet,
      fp32 CLIP-L, Adafactor, EMA), with every kernel's launch count read around
@@ -28,6 +33,10 @@ Phases, each fatal on failure:
   6. profile: a fourth step under torch.profiler, device time by kernel and by
      kind (the port's kernels, library matmuls and convs, the rest) and the
      device's busy share of a step; the frozen encode profiled on its own;
+  6b. SD1.5 in fp32: the same three steps, profiled step and encode for
+     configs/sd15/sd15.example.yaml as written (no precision key: fp32 UNet,
+     256 px, batch 1, no EMA); its kernels are the fp32 flash forward and
+     backward at head dim 40 (padded to 64) and the encode's at 512;
   7. VAE-GAN: one warm generator/discriminator pair, then three timed pairs of
      the VAE-GAN trainer at full width (batch 8 of uint8 256x256 images, bf16
      encoder and decoder, fp32 LPIPS alex and PatchGAN, AdamW), with the launch
@@ -83,6 +92,14 @@ CONV_SHAPES = {(4, 32, 32, 640, 640): (0, 6), (4, 32, 32, 1280, 640): (0, 1),
 GN_CONV_SHAPES = {(4, 32, 32, 640, 640): 6, (4, 32, 32, 1280, 640): 1, (4, 32, 32, 1920, 640): 1}
 # the SD1.5 step's frozen fp32 encode: the VAE's mid attention over 64x64 latents
 FLASH_F32_SHAPES = {(4, 1, 4096, 4096, 512): 1}
+# The SD1.5 step of configs/sd15/sd15.example.yaml as written: fp32 UNet, 256 px
+# (32x32 latents), batch 1. Level 0 (1024 tokens, 320 channels in 8 heads of 40)
+# is the only level past the flash gate: its 5 transformer blocks' self and cross
+# (kv = 77) attention, forward twice a step and backward once, in the fp32
+# kernels at head dim 40 (padded to 64); the frozen encode's mid attention over
+# 32x32 latents at 512. Every conv is fp32, so it goes to the library.
+SD15_F32_FLASH_SHAPES = {(1, 8, 1024, 1024, 40): (10, 5), (1, 8, 1024, 77, 40): (10, 5),
+                         (1, 1, 1024, 1024, 512): (1, 0)}
 
 # The VAE-GAN trainer (256 px, batch 8, bf16 encoder and decoder), launches per
 # generator + discriminator pair. The mid attention (1024 tokens, d=512) runs in
@@ -127,9 +144,20 @@ SDXL_CONV_SHAPES = {(2, 64, 64, 1280, 1280): (1, 1), (2, 64, 64, 640, 640): (0, 
                     (2, 32, 32, 640, 1280): (0, 1), (2, 32, 32, 1280, 1280): (0, 10)}
 # the SDXL step's frozen fp32 encode: the VAE's mid attention over 128x128 latents
 SDXL_FLASH_F32_SHAPES = {(2, 1, 16384, 16384, 512): 1}
+# fp32 rows no path here drives, checked and timed at kernel level: the SDXL
+# step's attention with the fp32 UNet of configs/sdxl/sdxl.example.yaml as
+# written (the shapes and counts of SDXL_FLASH_SHAPES, head dim 64), the frozen
+# encode of configs/smoke/sd15-tiny.yaml (ch 32 x [1, 2] at 64 px: 64 channels
+# over 32x32) and configs/smoke/vae-tiny.yaml's training (the same mid attention
+# at batch 2, forward in the encoder and decoder of both steps, backward in the
+# generator step)
+UNDRIVEN_F32_FLASH_SHAPES = {"sdxl_f32": SDXL_FLASH_SHAPES, "sd15_tiny": {(1, 1, 1024, 1024, 64): (1, 0)},
+                             "vae_tiny": {(2, 1, 1024, 1024, 64): (4, 2)}}
 
 # path -> (its key in the report, the unit its launch tables count)
-PATHS = {"sd15": ("slice", "SD1.5 train step"), "vae_gan": ("vae_gan", "VAE-GAN generator + discriminator pair, bf16"),
+PATHS = {"sd15": ("slice", "SD1.5 train step"),
+         "sd15_f32": ("sd15_f32", "SD1.5 train step, fp32 UNet (sd15.example.yaml as written, 256 px, batch 1)"),
+         "vae_gan": ("vae_gan", "VAE-GAN generator + discriminator pair, bf16"),
          "vae_gan_f32": ("vae_gan_f32", "VAE-GAN generator + discriminator pair, fp32"),
          "sdxl": ("sdxl", "SDXL train step"), "overlap": ("overlap", "one run of the flash-overlap tool")}
 
@@ -245,7 +273,8 @@ def overlap_launches() -> dict:
 def check_flash(torch, log: list) -> dict:
     """Each flash shape of every path in its dtype: forward and backward in
     bf16, and in fp32 (the frozen encodes run the forward only; fp32 plain
-    version with TF32 off, SDPA on the same inputs as the yardstick)."""
+    version with TF32 off, SDPA on the same inputs as the yardstick), and the
+    fp32 rows of UNDRIVEN_F32_FLASH_SHAPES."""
     import torch.nn.functional as F
 
     from neurosis_tpu_torch.ops import flash_attention as fa
@@ -257,8 +286,10 @@ def check_flash(torch, log: list) -> dict:
              [("sdxl", sh, n, bf16) for sh, n in SDXL_FLASH_SHAPES.items()] + \
              [("overlap", sh, (n, 0), bf16) for sh, n in overlap_launches()["flash_fwd"].items()] + \
              [("sd15", sh, (n, 0), f32) for sh, n in FLASH_F32_SHAPES.items()] + \
+             [("sd15_f32", sh, n, f32) for sh, n in SD15_F32_FLASH_SHAPES.items()] + \
              [("vae_gan_f32", sh, n, f32) for sh, n in VAE_F32_FLASH_SHAPES.items()] + \
-             [("sdxl", sh, (n, 0), f32) for sh, n in SDXL_FLASH_F32_SHAPES.items()]
+             [("sdxl", sh, (n, 0), f32) for sh, n in SDXL_FLASH_F32_SHAPES.items()] + \
+             [(path, sh, n, f32) for path, table in UNDRIVEN_F32_FLASH_SHAPES.items() for sh, n in table.items()]
     for path, shape, (n_fwd, n_bwd), dtype in tables:
         is_f32 = dtype == f32
         name, bwd_name = ("flash_fwd_f32", "flash_bwd_f32") if is_f32 else ("flash_fwd", "flash_bwd")
@@ -432,9 +463,10 @@ def check_conv(torch, log: list) -> dict:
 
 
 def make_engine(torch, device, seed: int, unet: dict, clip: dict, use_ema: bool = True, vae: dict = None,
-                bigg: dict = None, size_outdim: int = 256):
+                bigg: dict = None, size_outdim: int = 256, unet_fp32: bool = False):
     """DiffusionEngine with the SD configs' classes: bf16 UNet with fp32
-    parameters, fp32 frozen embedders, DiscreteDenoiser with
+    parameters (``unet_fp32``: computing in fp32, a config without a
+    precision key), fp32 frozen embedders, DiscreteDenoiser with
     EpsPreconditioning over LegacyDDPM, DiscreteSigmaGenerator, EpsWeighting,
     Adafactor(scale_parameter, relative_step, warmup_init); with ``vae`` (a
     ddconfig) a frozen fp32 AutoencoderKL encodes images in front, else the
@@ -460,7 +492,8 @@ def make_engine(torch, device, seed: int, unet: dict, clip: dict, use_ema: bool 
     from neurosis_tpu_torch.trainer.engine import DiffusionEngine
 
     g = torch.Generator(device).manual_seed(seed)
-    model = UNetModel(**unet, use_checkpoint=True, dtype=torch.bfloat16, device=device, generator=g)
+    model = UNetModel(**unet, use_checkpoint=True, dtype=None if unet_fp32 else torch.bfloat16, device=device,
+                      generator=g)
     if bigg is None:
         embedders = [FrozenCLIPEmbedder(**clip, device=device, generator=g)]
     else:
@@ -591,6 +624,11 @@ def reference_step(torch, log: list, sdxl: bool = False) -> dict:
 SMALL_VAE = dict(ch=128, ch_mult=[1, 4], num_res_blocks=1, attn_resolutions=[], resolution=64, z_channels=4,
                  dropout=0.0)
 SMALL_LOSS = dict(perceptual_weight=1.0, lpips_type="alex", disc_start=1, disc_weight=0.5, disc_n_layers=1)
+# configs/smoke/vae-tiny.yaml as written (fp32, 64 px, batch 2): the mid attention
+# over 1024 tokens at head dim 64
+TINY_VAE = dict(ch=32, ch_mult=[1, 2], num_res_blocks=1, attn_resolutions=[], resolution=64, z_channels=2,
+                dropout=0.0)
+TINY_LOSS = dict(perceptual_weight=0.1, disc_start=1, disc_n_layers=1)
 
 
 def make_vae_engine(torch, device, seed: int, dd: dict, loss_cfg: dict, lr: float = 4.5e-6, fp32: bool = False):
@@ -615,19 +653,22 @@ def make_vae_engine(torch, device, seed: int, dd: dict, loss_cfg: dict, lr: floa
                               disc_start=loss_cfg["disc_start"], device=device)
 
 
-def reference_vae_pair(torch, log: list, fp32: bool = False) -> dict:
+def reference_vae_pair(torch, log: list, fp32: bool = False, tiny: bool = False) -> dict:
     """One generator and one discriminator step of a small VAE-GAN on the
     card against the same steps on the CPU, from the same weights and
     posterior noise; the discriminator step runs with the gate open. In bf16
     every bf16 kernel case of the VAE takes part: flash at d=512 forward and
     backward, fused and plain 3x3 convs, their dgrads. With ``fp32`` the
     convs go to the library and the mid attention to the fp32 flash forward
-    (4 launches) and backward (2)."""
+    (4 launches) and backward (2), at head dim 512, or with ``tiny`` at
+    configs/smoke/vae-tiny.yaml's dims, at head dim 64."""
     from neurosis_tpu_torch import ops
 
     label = "small fp32 VAE-GAN" if fp32 else "small VAE-GAN"
-    engines = {dev: make_vae_engine(torch, dev, 3, SMALL_VAE, SMALL_LOSS, lr=1e-4, fp32=fp32)
-               for dev in ("cpu", "cuda")}
+    dd, loss_cfg = (TINY_VAE, TINY_LOSS) if tiny else (SMALL_VAE, SMALL_LOSS)
+    if tiny:
+        label += " at vae-tiny's dims"
+    engines = {dev: make_vae_engine(torch, dev, 3, dd, loss_cfg, lr=1e-4, fp32=fp32) for dev in ("cpu", "cuda")}
     g = torch.Generator("cpu").manual_seed(4)
     with torch.no_grad():
         for name in ("encoder", "decoder", "loss"):
@@ -636,7 +677,7 @@ def reference_vae_pair(torch, log: list, fp32: bool = False) -> dict:
                 p_cpu.add_(0.01 * torch.randn(p_cpu.shape, generator=g))
             dst.load_state_dict(src.state_dict())
     images = make_images(torch, "cpu", 2, 64, torch.Generator("cpu").manual_seed(5))
-    eps = torch.randn(2, 32, 32, 4, generator=torch.Generator("cpu").manual_seed(6))
+    eps = torch.randn(2, 32, 32, dd["z_channels"], generator=torch.Generator("cpu").manual_seed(6))
     metrics = {}
     counts_before = ops.launch_counts()
     for dev, eng in engines.items():
@@ -752,17 +793,21 @@ def check_launches(launches: dict, totals: dict, units: int, label: str) -> None
 
 def run_slice(torch, rows: dict, path: str = "sd15", steps: int = 3) -> dict:
     """A DiffusionEngine at full width from uint8 images: SD1.5 (512 px, batch
-    4, EMA) or SDXL (1024 px, batch 2, no EMA; one warm step first). ``steps``
-    timed steps with the counters read around them, a profiled step, the
-    frozen encode profiled alone and, for SDXL, each text tower too."""
+    4, EMA, bf16 UNet), SD1.5 as configs/sd15/sd15.example.yaml is written
+    (``sd15_f32``: 256 px, batch 1, no EMA, fp32 UNet) or SDXL (1024 px, batch
+    2, no EMA; one warm step first). ``steps`` timed steps with the counters
+    read around them, a profiled step, the frozen encode profiled alone and,
+    for SDXL, each text tower too."""
     from neurosis_tpu_torch import ops
 
     sdxl = path == "sdxl"
-    label = "SDXL" if sdxl else "SD1.5"
-    batch_size, side = (2, 1024) if sdxl else (4, 512)
+    label = {"sd15": "SD1.5", "sd15_f32": "SD1.5 fp32", "sdxl": "SDXL"}[path]
+    batch_size, side = {"sd15": (4, 512), "sd15_f32": (1, 256), "sdxl": (2, 1024)}[path]
     t0 = time.perf_counter()
     if sdxl:
         engine = make_engine(torch, "cuda", 0, SDXL_UNET, SD15_CLIP, use_ema=False, vae=SD15_VAE, bigg=SDXL_BIGG)
+    elif path == "sd15_f32":
+        engine = make_engine(torch, "cuda", 0, SD15_UNET, SD15_CLIP, use_ema=False, vae=SD15_VAE, unet_fp32=True)
     else:
         engine = make_engine(torch, "cuda", 0, SD15_UNET, SD15_CLIP, vae=SD15_VAE)
     n_unet = sum(p.numel() for p in engine.model.parameters())
@@ -1033,8 +1078,11 @@ def main() -> int:
         report["reference_sdxl"] = reference_step(torch, log, sdxl=True)
         report["reference_vae_gan"] = reference_vae_pair(torch, log)
         report["reference_vae_gan_f32"] = reference_vae_pair(torch, log, fp32=True)
+        report["reference_vae_tiny"] = reference_vae_pair(torch, log, fp32=True, tiny=True)
         report["reference_encode"] = reference_encode(torch, log)
         report["slice"] = run_slice(torch, rows)
+        torch.cuda.empty_cache()
+        report["sd15_f32"] = run_slice(torch, rows, "sd15_f32")
         torch.cuda.empty_cache()
         report["vae_gan"] = run_vae_gan(torch, rows)
         torch.cuda.empty_cache()
@@ -1054,7 +1102,8 @@ def main() -> int:
     _write(report, log)
     kernels = []
     for name, meta in KERNELS.items():
-        head = max(rows[name], key=lambda r: r["per_step"] * r["ms"])  # the shape that costs its path most
+        # the shape that costs its path most, among the paths driven here
+        head = max((r for r in rows[name] if r["path"] in PATHS), key=lambda r: r["per_step"] * r["ms"])
         by_path = {path: report[key]["launches"][name] for path, (key, _unit) in PATHS.items()}
         kernels.append(dict(name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
                             launches=sum(by_path.values()), launches_by_path=by_path,

@@ -1,5 +1,5 @@
 // Flash attention forward and backward for Hopper (sm_90a), bf16 in, fp32 accumulate,
-// and an fp32 forward and backward at head dim 512 for the VAE in fp32.
+// and an fp32 forward and backward (FFMA) for the models that run in fp32.
 //
 // Replaces the Pallas TPU kernels of neurosis_tpu/ops/flash_attention.py:
 //   forward  : _fwd_kernel (:297), _fwd_chunked_kernel (:366),
@@ -58,35 +58,47 @@
 //   next tile's q~K^T inside a warpgroup (the two warpgroups overlap each
 //   other only as the scheduler interleaves them).
 //
-// Head dim 512 (the VAE's single-head mid attention) has its own tiling:
-// the 128-row tiles above would need ~1 MB of shared memory at d = 512.
-//   forward  : 32 query rows, 8 warps; K and V take turns in one 64-row
-//              buffer (S is built from K before V is loaded over it), the
-//              fp32 O accumulator stays in shared memory (~176 KB in all).
+// Head dim 512, bf16 (the VAE's single-head mid attention). The 128-row tiles
+// above would need ~1 MB of shared memory at d = 512.
+//   forward  (flash_fwd512_wgmma): the pipeline above with O split by column.
+//              A block owns 64 q rows (8 x 1 x 1024 gives 128 blocks, one wave
+//              on 132 SMs) and holds q~, one K tile and one V tile of 64 rows
+//              by TMA (64 KB each), with their own full/empty barriers, so K of
+//              the next tile loads while the consumers run P V and V while they
+//              run the next q~ K^T. Each consumer warpgroup owns 256 of O's 512
+//              columns (128 fp32 registers a thread) and forms the whole S = q~
+//              K^T itself (SS wgmma, 32 k16 steps): both form the same products
+//              in the same order, so both hold the same S, max and sum, and no
+//              partial sums cross shared memory; 1.5x the tensor work of
+//              splitting S, which the card has to spare here (the kernel's
+//              bound is L2 traffic: every block reads all of K and V). P goes
+//              to P V as bf16 registers (RS wgmma, N = 256, V MN-major).
 //   backward : 16 kv rows per block, 8 warps, q walked in 64-row tiles. dK
 //              and dV live in WMMA accumulator registers (no rescaling is
 //              needed in the backward, so their opaque layout is fine): each
 //              warp owns 4 of the 32 16-wide column tiles of each. dQ goes
 //              to the fp32 buffer with vector (float4) atomics (~187 KB).
-//   fp32 fwd : the frozen VAE encode runs in fp32 and the JAX kernel takes
-//              fp32 there, so this kernel stays in fp32 end to end, with
-//              FFMA on the CUDA cores (not TF32 tensor cores: TF32 keeps 10
-//              mantissa bits and would change the fp32 island's numbers).
-//              32 query rows, 256 threads, 64-row kv tiles in shared memory;
+//
+// fp32, FFMA, at padded head dims DP = 64, 96, 160, 512 (the caller zero-pads
+// other d <= 512 to the next of them): the frozen VAE encode and the UNets of
+// the configs without a precision key run in fp32 and the JAX kernels take fp32
+// there, so these kernels stay in fp32 end to end, on the CUDA cores (not TF32
+// tensor cores: TF32 keeps 10 mantissa bits and would change the fp32 island's
+// numbers). Bound on the H100 by the FFMA rate (67 TFLOP/s). A lane owns DP / 32
+// columns of a row (F32Cols: four float4 groups at DP = 512).
+//   forward  : 32 query rows, 256 threads, 64-row kv tiles in shared memory;
 //              each warp owns 4 query rows for both the softmax and P.V, so
-//              O (4 rows x 512 per warp) stays in registers and is rescaled
-//              there. Bound on the H100 by the FFMA rate (67 TFLOP/s).
-//   fp32 bwd : fp32 VAE training (the JAX backward kernels take fp32 as they
-//              take bf16), FFMA for the same reason as the fp32 forward. An
-//              fp32 K tile plus V tile of 16 rows is 64 KB and there are no
-//              WMMA fragments to keep dK/dV in, so a block owns 16 kv rows,
-//              walks q in 32-row tiles (q~ and dO tiles, 129 KB) and keeps
+//              O (4 rows x DP per warp) stays in registers and is rescaled
+//              there.
+//   backward : an fp32 K tile plus V tile of 16 rows is 64 KB at DP = 512 and
+//              there are no WMMA fragments to keep dK/dV in, so a block owns
+//              16 kv rows, walks q in 32-row tiles (q~ and dO tiles) and keeps
 //              dK/dV in plain registers: warp w owns kv rows 2w, 2w+1, lane l
-//              the forward's 16 columns (64 registers a thread). Logits and
-//              dP are split between the two halves of the block; dQ of the
-//              warp's 4 query rows is formed in registers and added to the
-//              zeroed fp32 buffer with float4 atomics (~199 KB, one block
-//              per SM). Bound by the FFMA rate: 10 B H Sq Skv D operations.
+//              the forward's columns. Logits and dP are split between the two
+//              halves of the block; dQ of the warp's 4 query rows is formed in
+//              registers and added to the zeroed fp32 buffer with vector
+//              atomics (~199 KB at DP = 512, one block per SM). Bound by the
+//              FFMA rate: 10 B H Sq Skv D operations.
 
 #include <math.h>
 #include <mma.h>
@@ -548,15 +560,7 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_bwd_wgmma(const __grid_constan
   }
 }
 
-// arguments of the head-dim-512 bf16 kernels
-struct FwdArgs {
-  StridedRows q, k, v;   // base pointers of (b=0, h=0)
-  int64_t q_sb, q_sh, k_sb, k_sh, v_sb, v_sh;
-  bf16* o;               // [B, H, Sq, d] contiguous
-  float* lse;            // [B, H, Sq] contiguous
-  int heads, sq, skv, d;
-};
-
+// arguments of the head-dim-512 bf16 backward
 struct BwdArgs {
   StridedRows q, k, v, dout;  // q is the pre-scaled q
   int64_t q_sb, q_sh, k_sb, k_sh, v_sb, v_sh, do_sb, do_sh;
@@ -569,130 +573,191 @@ struct BwdArgs {
 };
 
 // ---------------------------------------------------------------------------
-// head dim 512, bf16
+// head dim 512, bf16 forward: TMA, wgmma, O split over the warpgroups by column
+// ---------------------------------------------------------------------------
+
+constexpr int F5Q = 64;  // query rows per block
+constexpr int F5K = 64;  // kv rows per tile
+
+struct Fwd512Cfg {
+  static constexpr int NB = 512 / 64;    // 64-column boxes across the head dim
+  static constexpr int KS = 512 / 16;    // k16 steps over the head dim
+  static constexpr int BOX = 64 * ROW;   // one box of 64 rows (q~, K and V alike)
+  static constexpr int TILE = NB * BOX;  // q~, K or V: 64 rows x 512 columns, 64 KB
+  static constexpr size_t SMEM = 1024 + 3 * TILE + 8 * 5;
+  static_assert(F5Q == 64 && F5K == 64, "boxes are 64 rows");
+  static_assert(SMEM <= 232448, "the block's shared memory exceeds the H100's 227 KB");
+};
+
+__global__ void __launch_bounds__(NT_WS, 1) flash_fwd512_wgmma(const __grid_constant__ FwdTma p) {
+  using C = Fwd512Cfg;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sQ = align1024(smem_raw);  // [box][64 q rows]
+  unsigned char* sK = sQ + C::TILE;         // [box][64 kv rows]
+  unsigned char* sV = sK + C::TILE;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + C::TILE);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* k_empty = q_full + 2;
+  uint64_t* v_full = q_full + 3;
+  uint64_t* v_empty = q_full + 4;
+
+  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
+  const int q0 = blockIdx.x * F5Q;
+  const int n_tiles = (p.skv + F5K - 1) / F5K;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(k_full, 1);
+    mbar_init(v_full, 1);
+    mbar_init(k_empty, NCW);
+    mbar_init(v_empty, NCW);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= NCW) {
+    // producer: q~ once, then K and V of each tile, each as soon as the
+    // consumers are done with the previous one (K while they run P V, V while
+    // they run the next q~ K^T)
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (warp == NCW && lane == 0) {
+      mbar_arrive_tx(q_full, C::TILE);
+      for (int j = 0; j < C::NB; ++j) tma_load_4d(sQ + j * C::BOX, &p.q, q_full, 64 * j, q0, h, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const uint32_t free_parity = (t & 1) ^ 1;
+        mbar_wait(k_empty, free_parity);
+        mbar_arrive_tx(k_full, C::TILE);
+        for (int j = 0; j < C::NB; ++j) tma_load_4d(sK + j * C::BOX, &p.k, k_full, 64 * j, t * F5K, h, b);
+        mbar_wait(v_empty, free_parity);
+        mbar_arrive_tx(v_full, C::TILE);
+        for (int j = 0; j < C::NB; ++j) tma_load_4d(sV + j * C::BOX, &p.v, v_full, 64 * j, t * F5K, h, b);
+      }
+    }
+  } else {
+    // consumers: both warpgroups own the block's 64 query rows; warpgroup wg
+    // owns O's columns 256 wg .. +255. Each forms the whole S = q~ K^T (the same
+    // products in the same order, so both hold the same S, max and sum), and
+    // this thread holds rows `row` and `row + 8`, columns 8 c + 2 qd + {0, 1}
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int wg = warp / 4, g = lane / 4, qd = lane % 4;
+    const int row = q0 + (warp % 4) * 16 + g;
+    float o[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) o[i] = 0.0f;
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
+    float s_acc[F5K / 2];
+    mbar_wait(q_full, 0);
+
+    for (int t = 0; t < n_tiles; ++t) {
+      const uint32_t parity = t & 1;
+      mbar_wait(k_full, parity);
+      // S = q~ K^T over the whole head dim, both K-major
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < C::KS; ++kk) {
+        Wgmma<F5K>::ss<0, 0>(s_acc, sw128_desc(sQ + kstep_offset(kk, C::BOX), 0),
+                                      sw128_desc(sK + kstep_offset(kk, C::BOX), 0), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(s_acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(k_empty);
+
+      const int valid = p.skv - t * F5K;  // the kv tail: TMA's zero rows become -inf
+      if (valid < F5K) {
+#pragma unroll
+        for (int c = 0; c < F5K / 8; ++c) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            if (8 * c + 2 * qd + j >= valid) s_acc[4 * c + j] = s_acc[4 * c + 2 + j] = -INFINITY;
+          }
+        }
+      }
+
+      // online softmax; every tile has a valid column, so the max is finite
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int c = 0; c < F5K / 8; ++c) {
+        mx0 = fmaxf(mx0, fmaxf(s_acc[4 * c], s_acc[4 * c + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s_acc[4 * c + 2], s_acc[4 * c + 3]));
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      const float a0 = exp2f(m0 - mx0), a1 = exp2f(m1 - mx1);
+      m0 = mx0;
+      m1 = mx1;
+      uint32_t pf[F5K / 16][4];  // P in bf16 as the A fragments of P V
+      float sum0 = 0.0f, sum1 = 0.0f;
+#pragma unroll
+      for (int c = 0; c < F5K / 8; ++c) {
+        const float p00 = exp2f(s_acc[4 * c] - mx0), p01 = exp2f(s_acc[4 * c + 1] - mx0);
+        const float p10 = exp2f(s_acc[4 * c + 2] - mx1), p11 = exp2f(s_acc[4 * c + 3] - mx1);
+        sum0 += p00 + p01;
+        sum1 += p10 + p11;
+        pf[c / 2][(c % 2) * 2] = pack_bf16(p00, p01);
+        pf[c / 2][(c % 2) * 2 + 1] = pack_bf16(p10, p11);
+      }
+      l0 = l0 * a0 + sum0;  // this thread's part of the row sum; the quad adds at the end
+      l1 = l1 * a1 + sum1;
+#pragma unroll
+      for (int c = 0; c < 32; ++c) {
+        o[4 * c] *= a0;
+        o[4 * c + 1] *= a0;
+        o[4 * c + 2] *= a1;
+        o[4 * c + 3] *= a1;
+      }
+
+      // O[:, 256 wg ..] += P V[:, 256 wg ..], V MN-major: kv rows 16 kc.., boxes BOX apart
+      mbar_wait(v_full, parity);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < F5K / 16; ++kc) {
+        Wgmma<256>::rs<1>(o, pf[kc], sw128_desc(sV + 4 * wg * C::BOX + kc * 16 * ROW, C::BOX), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(o);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(v_empty);
+    }
+
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
+    bf16* o_bh = p.o + (int64_t)bh * p.sq * 512 + 256 * wg;
+#pragma unroll
+    for (int c = 0; c < 32; ++c) {
+      const int col = 8 * c + 2 * qd;
+      if (row < p.sq) {
+        *reinterpret_cast<uint32_t*>(o_bh + (int64_t)row * 512 + col) = pack_bf16(o[4 * c] * inv0, o[4 * c + 1] * inv0);
+      }
+      if (row + 8 < p.sq) {
+        *reinterpret_cast<uint32_t*>(o_bh + (int64_t)(row + 8) * 512 + col) =
+            pack_bf16(o[4 * c + 2] * inv1, o[4 * c + 3] * inv1);
+      }
+    }
+    if (wg == 0 && qd == 0) {
+      float* lse = p.lse + (int64_t)bh * p.sq;
+      if (row < p.sq) lse[row] = m0 + log2f(l0);
+      if (row + 8 < p.sq) lse[row + 8] = m1 + log2f(l1);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// head dim 512, bf16 backward
 // ---------------------------------------------------------------------------
 
 constexpr int D5 = 512;
 constexpr int LDK5 = D5 + 8;      // bf16 row stride of a q/k/v/dO tile
-constexpr int LDO5 = D5 + 4;      // fp32 row stride of the O accumulator
 constexpr int NW5 = 8;
 constexpr int NT5 = NW5 * 32;
-constexpr int BQ5 = 32;           // forward: query rows per block
-constexpr int BK5 = 64;           // forward: kv rows per tile
-constexpr int LDS5 = BK5 + 4;
-constexpr int LDP5 = BK5 + 8;
-
-constexpr size_t fwd512_smem_bytes() {
-  return sizeof(bf16) * (size_t)(BQ5 + BK5) * LDK5   // q tile, shared k/v tile
-       + sizeof(float) * (size_t)BQ5 * LDS5          // logits
-       + sizeof(bf16) * (size_t)BQ5 * LDP5           // probabilities
-       + sizeof(float) * (size_t)BQ5 * LDO5          // output accumulator
-       + sizeof(float) * 2 * BQ5;                    // running max, sum
-}
-
-__global__ void __launch_bounds__(NT5) flash_fwd512_kernel(FwdArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sKV = sQ + BQ5 * LDK5;
-  float* sS = reinterpret_cast<float*>(sKV + BK5 * LDK5);
-  bf16* sP = reinterpret_cast<bf16*>(sS + BQ5 * LDS5);
-  float* sO = reinterpret_cast<float*>(sP + BQ5 * LDP5);
-  float* sM = sO + BQ5 * LDO5;
-  float* sL = sM + BQ5;
-
-  const int bh = blockIdx.y;
-  const int b = bh / a.heads, h = bh % a.heads;
-  const int q0 = blockIdx.x * BQ5;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  StridedRows q = {a.q.ptr + b * a.q_sb + h * a.q_sh, a.q.stride};
-  StridedRows k = {a.k.ptr + b * a.k_sb + h * a.k_sh, a.k.stride};
-  StridedRows v = {a.v.ptr + b * a.v_sb + h * a.v_sh, a.v.stride};
-
-  load_tile<BQ5, D5, LDK5, NT5>(sQ, q, q0, a.sq, a.d);
-  for (int i = threadIdx.x; i < BQ5 * LDO5; i += NT5) sO[i] = 0.0f;
-  for (int i = threadIdx.x; i < BQ5; i += NT5) {
-    sM[i] = -INFINITY;
-    sL[i] = 0.0f;
-  }
-
-  // S tile of this warp: rows (warp / 4) * 16, columns (warp % 4) * 16
-  const int s_row = (warp / 4) * 16, s_col = (warp % 4) * 16;
-  // P.V tiles of this warp: rows (warp % 2) * 16, columns (warp / 2) * 128 + 16 j
-  const int o_row = (warp % 2) * 16, o_col = (warp / 2) * 128;
-
-  for (int k0 = 0; k0 < a.skv; k0 += BK5) {
-    __syncthreads();  // the previous tile's readers of sKV/sP/sO are done
-    load_tile<BK5, D5, LDK5, NT5>(sKV, k, k0, a.skv, a.d);
-    __syncthreads();
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.0f);
-#pragma unroll 8
-      for (int kk = 0; kk < D5; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, sQ + s_row * LDK5 + kk, LDK5);
-        wmma::load_matrix_sync(fb, sKV + s_col * LDK5 + kk, LDK5);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(sS + s_row * LDS5 + s_col, acc, LDS5, wmma::mem_row_major);
-    }
-    __syncthreads();  // S is whole and K is no longer read
-    load_tile<BK5, D5, LDK5, NT5>(sKV, v, k0, a.skv, a.d);
-
-    // online softmax: each warp takes 4 rows, two columns per lane
-    const int kv_valid = min(BK5, a.skv - k0);
-    for (int r = warp * 4; r < warp * 4 + 4; ++r) {
-      const float s0 = lane < kv_valid ? sS[r * LDS5 + lane] : -INFINITY;
-      const float s1 = lane + 32 < kv_valid ? sS[r * LDS5 + lane + 32] : -INFINITY;
-      const float m_old = sM[r];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
-      const float p0 = exp2f(s0 - m_new);
-      const float p1 = exp2f(s1 - m_new);
-      const float sum = warp_sum(p0 + p1);
-      const float alpha = exp2f(m_old - m_new);
-      sP[r * LDP5 + lane] = __float2bfloat16(p0);
-      sP[r * LDP5 + lane + 32] = __float2bfloat16(p1);
-      for (int c = lane; c < D5; c += 32) sO[r * LDO5 + c] *= alpha;
-      __syncwarp();
-      if (lane == 0) {
-        sM[r] = m_new;
-        sL[r] = sL[r] * alpha + sum;
-      }
-    }
-    __syncthreads();  // V, P and the rescaled O are in place
-
-    // O[16 x 128] += P[16 x BK] . V[BK x 128] for this warp's tiles
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fp[BK5 / 16];
-#pragma unroll
-    for (int kk = 0; kk < BK5 / 16; ++kk) wmma::load_matrix_sync(fp[kk], sP + o_row * LDP5 + kk * 16, LDP5);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = o_col + j * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, sO + o_row * LDO5 + n, LDO5, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BK5 / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, sKV + kk * 16 * LDK5 + n, LDK5);
-        wmma::mma_sync(acc, fp[kk], fb, acc);
-      }
-      wmma::store_matrix_sync(sO + o_row * LDO5 + n, acc, LDO5, wmma::mem_row_major);
-    }
-  }
-  __syncthreads();
-
-  bf16* o = a.o + (int64_t)bh * a.sq * D5;
-  for (int i = threadIdx.x; i < BQ5 * D5; i += NT5) {
-    const int r = i / D5, c = i % D5;
-    if (q0 + r < a.sq) o[(int64_t)(q0 + r) * D5 + c] = __float2bfloat16(sO[r * LDO5 + c] / sL[r]);
-  }
-  for (int r = threadIdx.x; r < BQ5; r += NT5) {
-    if (q0 + r < a.sq) a.lse[(int64_t)bh * a.sq + q0 + r] = sM[r] + log2f(sL[r]);
-  }
-}
-
 constexpr int BKB5 = 16;          // backward: kv rows per block
 constexpr int BQB5 = 64;          // backward: query rows per tile
 constexpr int LDSB5 = BKB5 + 4;
@@ -848,12 +913,60 @@ __global__ void __launch_bounds__(NT5) flash_bwd512_kernel(BwdArgs a) {
 }
 
 // ---------------------------------------------------------------------------
-// head dim 512, fp32 forward (FFMA)
+// fp32 forward and backward (FFMA), templated over the padded head dim DP
 // ---------------------------------------------------------------------------
 
-constexpr int BQF = 32;           // query rows per block
-constexpr int BKF = 64;           // kv rows per tile
-constexpr int LDF = D5 + 4;       // fp32 row stride of the q and k/v tiles
+// Column layout of a DP-wide fp32 row over a warp: DP / 32 columns a lane, in
+// VEC-wide groups (the widest of 4, 2, 1 that DP / 32 divides into); lane l owns
+// columns VEC l + 32 VEC m + e, m < GROUPS, e < VEC, held at index VEC m + e. At
+// DP = 512 that is 4 l + 128 m, four float4 groups.
+template <int DP>
+struct F32Cols {
+  static_assert(DP % 32 == 0, "the fp32 kernels take head dims that are multiples of 32");
+  static constexpr int N = DP / 32;
+  static constexpr int VEC = N % 4 == 0 ? 4 : N % 2 == 0 ? 2 : 1;
+  static constexpr int GROUPS = N / VEC;
+  static constexpr int LD = DP + 4;  // fp32 row stride of a shared tile: rows 4 banks apart
+  static __device__ __forceinline__ int col(int lane, int m) { return VEC * lane + 32 * VEC * m; }
+};
+
+template <int VEC>
+__device__ __forceinline__ void ld_vec(const float* p, float* r) {
+  if constexpr (VEC == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    r[0] = t.x; r[1] = t.y; r[2] = t.z; r[3] = t.w;
+  } else if constexpr (VEC == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    r[0] = t.x; r[1] = t.y;
+  } else {
+    r[0] = *p;
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void st_vec(float* p, const float* r, float mul) {
+  if constexpr (VEC == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(r[0] * mul, r[1] * mul, r[2] * mul, r[3] * mul);
+  } else if constexpr (VEC == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(r[0] * mul, r[1] * mul);
+  } else {
+    *p = r[0] * mul;
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void atomic_add_vec(float* p, const float* r) {
+  if constexpr (VEC == 4) {
+    atomicAdd(reinterpret_cast<float4*>(p), make_float4(r[0], r[1], r[2], r[3]));
+  } else if constexpr (VEC == 2) {
+    atomicAdd(reinterpret_cast<float2*>(p), make_float2(r[0], r[1]));
+  } else {
+    atomicAdd(p, r[0]);
+  }
+}
+
+constexpr int BQF = 32;           // forward: query rows per block
+constexpr int BKF = 64;           // forward: kv rows per tile
 constexpr int LDSF = BKF + 4;     // fp32 row stride of the logits tile
 
 struct FwdArgsF32 {
@@ -861,16 +974,20 @@ struct FwdArgsF32 {
   const float* k;
   const float* v;
   int64_t q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
-  float* o;               // [B, H, Sq, 512] contiguous
+  float* o;               // [B, H, Sq, DP] contiguous
   float* lse;             // [B, H, Sq] contiguous
   int heads, sq, skv;
 };
 
+template <int DP>
 constexpr size_t fwdf32_smem_bytes() {
-  return sizeof(float) * ((size_t)(BQF + BKF) * LDF + (size_t)BQF * LDSF);
+  return sizeof(float) * ((size_t)(BQF + BKF) * F32Cols<DP>::LD + (size_t)BQF * LDSF);
 }
 
+template <int DP>
 __global__ void __launch_bounds__(NT5, 1) flash_fwd_f32_kernel(FwdArgsF32 a) {
+  using C = F32Cols<DP>;
+  constexpr int LDF = C::LD;
   extern __shared__ __align__(128) unsigned char smem[];
   float* sQ = reinterpret_cast<float*>(smem);
   float* sKV = sQ + BQF * LDF;
@@ -884,29 +1001,28 @@ __global__ void __launch_bounds__(NT5, 1) flash_fwd_f32_kernel(FwdArgsF32 a) {
   const Rows<float> k = {a.k + b * a.k_sb + h * a.k_sh, a.k_ss};
   const Rows<float> v = {a.v + b * a.v_sb + h * a.v_sh, a.v_ss};
 
-  load_tile<BQF, D5, LDF, NT5>(sQ, q, q0, a.sq, D5);
+  load_tile<BQF, DP, LDF, NT5>(sQ, q, q0, a.sq, DP);
 
   // logits: thread t owns rows 2 (t / 16) + {0, 1}, columns t % 16 + 16 j
   const int s_r = (threadIdx.x / 16) * 2, s_c = threadIdx.x % 16;
-  // softmax and P.V: warp w owns query rows 4 w .. 4 w + 3; lane l owns
-  // columns 4 l + 128 m + {0..3}, m < 4
-  float o[4][16];
+  // softmax and P.V: warp w owns query rows 4 w .. 4 w + 3, lane l the columns of F32Cols
+  float o[4][C::N];
   float m_run[4], l_run[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m_run[i] = -INFINITY;
     l_run[i] = 0.0f;
 #pragma unroll
-    for (int c = 0; c < 16; ++c) o[i][c] = 0.0f;
+    for (int c = 0; c < C::N; ++c) o[i][c] = 0.0f;
   }
 
   for (int k0 = 0; k0 < a.skv; k0 += BKF) {
     __syncthreads();  // the previous tile's readers of sKV/sS are done
-    load_tile<BKF, D5, LDF, NT5>(sKV, k, k0, a.skv, D5);
+    load_tile<BKF, DP, LDF, NT5>(sKV, k, k0, a.skv, DP);
     __syncthreads();
     {
       float acc[2][4] = {};
-      for (int kk = 0; kk < D5; kk += 4) {
+      for (int kk = 0; kk < DP; kk += 4) {
         float4 qv[2], kv[4];
 #pragma unroll
         for (int i = 0; i < 2; ++i) qv[i] = *reinterpret_cast<const float4*>(sQ + (s_r + i) * LDF + kk);
@@ -930,7 +1046,7 @@ __global__ void __launch_bounds__(NT5, 1) flash_fwd_f32_kernel(FwdArgsF32 a) {
       }
     }
     __syncthreads();  // S is whole and K is no longer read
-    load_tile<BKF, D5, LDF, NT5>(sKV, v, k0, a.skv, D5);
+    load_tile<BKF, DP, LDF, NT5>(sKV, v, k0, a.skv, DP);
 
     // online softmax of this warp's rows; P overwrites S, O is rescaled in registers
     const int kv_valid = min(BKF, a.skv - k0);
@@ -948,7 +1064,7 @@ __global__ void __launch_bounds__(NT5, 1) flash_fwd_f32_kernel(FwdArgsF32 a) {
       sS[r * LDSF + lane] = p0;
       sS[r * LDSF + lane + 32] = p1;
 #pragma unroll
-      for (int c = 0; c < 16; ++c) o[i][c] *= alpha;
+      for (int c = 0; c < C::N; ++c) o[i][c] *= alpha;
     }
     __syncthreads();  // V is in place (P of this warp's rows is its own)
 
@@ -957,41 +1073,34 @@ __global__ void __launch_bounds__(NT5, 1) flash_fwd_f32_kernel(FwdArgsF32 a) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) p[i] = sS[(warp * 4 + i) * LDSF + j];
 #pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        const float4 vv = *reinterpret_cast<const float4*>(sKV + j * LDF + lane * 4 + 128 * m);
+      for (int m = 0; m < C::GROUPS; ++m) {
+        float vv[C::VEC];
+        ld_vec<C::VEC>(sKV + j * LDF + C::col(lane, m), vv);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          o[i][4 * m + 0] = fmaf(p[i], vv.x, o[i][4 * m + 0]);
-          o[i][4 * m + 1] = fmaf(p[i], vv.y, o[i][4 * m + 1]);
-          o[i][4 * m + 2] = fmaf(p[i], vv.z, o[i][4 * m + 2]);
-          o[i][4 * m + 3] = fmaf(p[i], vv.w, o[i][4 * m + 3]);
+#pragma unroll
+          for (int e = 0; e < C::VEC; ++e) o[i][C::VEC * m + e] = fmaf(p[i], vv[e], o[i][C::VEC * m + e]);
         }
       }
     }
   }
 
-  float* out = a.o + (int64_t)bh * a.sq * D5;
+  float* out = a.o + (int64_t)bh * a.sq * DP;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + warp * 4 + i;
     if (row >= a.sq) continue;
     const float inv = 1.0f / l_run[i];
 #pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      const float4 val = make_float4(o[i][4 * m] * inv, o[i][4 * m + 1] * inv, o[i][4 * m + 2] * inv,
-                                     o[i][4 * m + 3] * inv);
-      *reinterpret_cast<float4*>(out + (int64_t)row * D5 + lane * 4 + 128 * m) = val;
+    for (int m = 0; m < C::GROUPS; ++m) {
+      st_vec<C::VEC>(out + (int64_t)row * DP + C::col(lane, m), &o[i][C::VEC * m], inv);
     }
     if (lane == 0) a.lse[(int64_t)bh * a.sq + row] = m_run[i] + log2f(l_run[i]);
   }
 }
 
-// ---------------------------------------------------------------------------
-// head dim 512, fp32 backward (FFMA)
-// ---------------------------------------------------------------------------
-
-constexpr int BKG = 16;           // kv rows per block
-constexpr int BQG = 32;           // query rows per tile
+constexpr int BKG = 16;           // backward: kv rows per block
+constexpr int BQG = 32;           // backward: query rows per tile
 constexpr int LDG = BKG + 4;      // fp32 row stride of the logits / dP tiles
 
 struct BwdArgsF32 {
@@ -1002,19 +1111,23 @@ struct BwdArgsF32 {
   int64_t q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, do_sb, do_sh, do_ss;
   const float* lse;       // [B, H, Sq]
   const float* di;        // [B, H, Sq] rowsum(dO * O)
-  float* dq;              // [B, H, Sq, 512], zeroed; receives dS . k
-  float* dk;              // [B, H, Skv, 512]
-  float* dv;              // [B, H, Skv, 512]
+  float* dq;              // [B, H, Sq, DP], zeroed; receives dS . k
+  float* dk;              // [B, H, Skv, DP]
+  float* dv;              // [B, H, Skv, DP]
   int heads, sq, skv;
 };
 
+template <int DP>
 constexpr size_t bwdf32_smem_bytes() {
-  return sizeof(float) * ((size_t)(2 * BKG + 2 * BQG) * LDF   // k, v, q, dO tiles
-                          + (size_t)2 * BQG * LDG              // logits -> P, dP -> dS
-                          + 2 * BQG);                          // lse, Di
+  return sizeof(float) * ((size_t)(2 * BKG + 2 * BQG) * F32Cols<DP>::LD   // k, v, q, dO tiles
+                          + (size_t)2 * BQG * LDG                         // logits -> P, dP -> dS
+                          + 2 * BQG);                                     // lse, Di
 }
 
+template <int DP>
 __global__ void __launch_bounds__(NT5, 1) flash_bwd_f32_kernel(BwdArgsF32 a) {
+  using C = F32Cols<DP>;
+  constexpr int LDF = C::LD;
   extern __shared__ __align__(128) unsigned char smem[];
   float* sK = reinterpret_cast<float*>(smem);
   float* sV = sK + BKG * LDF;
@@ -1036,18 +1149,17 @@ __global__ void __launch_bounds__(NT5, 1) flash_bwd_f32_kernel(BwdArgsF32 a) {
   const Rows<float> dout = {a.dout + b * a.do_sb + h * a.do_sh, a.do_ss};
   const float* lse = a.lse + (int64_t)bh * a.sq;
   const float* di = a.di + (int64_t)bh * a.sq;
-  float* dq = a.dq + (int64_t)bh * a.sq * D5;
+  float* dq = a.dq + (int64_t)bh * a.sq * DP;
 
-  load_tile<BKG, D5, LDF, NT5>(sK, k, k0, a.skv, D5);
-  load_tile<BKG, D5, LDF, NT5>(sV, v, k0, a.skv, D5);
+  load_tile<BKG, DP, LDF, NT5>(sK, k, k0, a.skv, DP);
+  load_tile<BKG, DP, LDF, NT5>(sV, v, k0, a.skv, DP);
 
-  // dK, dV: warp w owns kv rows 2 w + {0, 1}; lane l owns columns
-  // 4 l + 128 m + {0..3}, m < 4 (the forward's column layout)
-  float acc_k[2][16], acc_v[2][16];
+  // dK, dV: warp w owns kv rows 2 w + {0, 1}, lane l the forward's columns
+  float acc_k[2][C::N], acc_v[2][C::N];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
 #pragma unroll
-    for (int c = 0; c < 16; ++c) {
+    for (int c = 0; c < C::N; ++c) {
       acc_k[i][c] = 0.0f;
       acc_v[i][c] = 0.0f;
     }
@@ -1062,8 +1174,8 @@ __global__ void __launch_bounds__(NT5, 1) flash_bwd_f32_kernel(BwdArgsF32 a) {
 
   for (int q0 = 0; q0 < a.sq; q0 += BQG) {
     __syncthreads();  // the previous tile's readers of sQ/sdO/sP/sdS are done
-    load_tile<BQG, D5, LDF, NT5>(sQ, q, q0, a.sq, D5);
-    load_tile<BQG, D5, LDF, NT5>(sdO, dout, q0, a.sq, D5);
+    load_tile<BQG, DP, LDF, NT5>(sQ, q, q0, a.sq, DP);
+    load_tile<BQG, DP, LDF, NT5>(sdO, dout, q0, a.sq, DP);
     for (int r = threadIdx.x; r < BQG; r += NT5) {
       const bool in = q0 + r < a.sq;
       sLse[r] = in ? lse[q0 + r] : INFINITY;  // padded rows get P = 0
@@ -1073,7 +1185,7 @@ __global__ void __launch_bounds__(NT5, 1) flash_bwd_f32_kernel(BwdArgsF32 a) {
 
     {
       float acc[2][2] = {};
-      for (int kk = 0; kk < D5; kk += 4) {
+      for (int kk = 0; kk < DP; kk += 4) {
         float4 av[2], bv[2];
 #pragma unroll
         for (int i = 0; i < 2; ++i) av[i] = *reinterpret_cast<const float4*>(sd_a + (sd_r + i) * LDF + kk);
@@ -1110,48 +1222,40 @@ __global__ void __launch_bounds__(NT5, 1) flash_bwd_f32_kernel(BwdArgsF32 a) {
       const float2 p = *reinterpret_cast<const float2*>(sP + r * LDG + 2 * warp);
       const float2 ds = *reinterpret_cast<const float2*>(sdS + r * LDG + 2 * warp);
 #pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        const float4 dov = *reinterpret_cast<const float4*>(sdO + r * LDF + lane * 4 + 128 * m);
-        const float4 qv = *reinterpret_cast<const float4*>(sQ + r * LDF + lane * 4 + 128 * m);
-        acc_v[0][4 * m + 0] = fmaf(p.x, dov.x, acc_v[0][4 * m + 0]);
-        acc_v[0][4 * m + 1] = fmaf(p.x, dov.y, acc_v[0][4 * m + 1]);
-        acc_v[0][4 * m + 2] = fmaf(p.x, dov.z, acc_v[0][4 * m + 2]);
-        acc_v[0][4 * m + 3] = fmaf(p.x, dov.w, acc_v[0][4 * m + 3]);
-        acc_v[1][4 * m + 0] = fmaf(p.y, dov.x, acc_v[1][4 * m + 0]);
-        acc_v[1][4 * m + 1] = fmaf(p.y, dov.y, acc_v[1][4 * m + 1]);
-        acc_v[1][4 * m + 2] = fmaf(p.y, dov.z, acc_v[1][4 * m + 2]);
-        acc_v[1][4 * m + 3] = fmaf(p.y, dov.w, acc_v[1][4 * m + 3]);
-        acc_k[0][4 * m + 0] = fmaf(ds.x, qv.x, acc_k[0][4 * m + 0]);
-        acc_k[0][4 * m + 1] = fmaf(ds.x, qv.y, acc_k[0][4 * m + 1]);
-        acc_k[0][4 * m + 2] = fmaf(ds.x, qv.z, acc_k[0][4 * m + 2]);
-        acc_k[0][4 * m + 3] = fmaf(ds.x, qv.w, acc_k[0][4 * m + 3]);
-        acc_k[1][4 * m + 0] = fmaf(ds.y, qv.x, acc_k[1][4 * m + 0]);
-        acc_k[1][4 * m + 1] = fmaf(ds.y, qv.y, acc_k[1][4 * m + 1]);
-        acc_k[1][4 * m + 2] = fmaf(ds.y, qv.z, acc_k[1][4 * m + 2]);
-        acc_k[1][4 * m + 3] = fmaf(ds.y, qv.w, acc_k[1][4 * m + 3]);
+      for (int m = 0; m < C::GROUPS; ++m) {
+        float dov[C::VEC], qv[C::VEC];
+        ld_vec<C::VEC>(sdO + r * LDF + C::col(lane, m), dov);
+        ld_vec<C::VEC>(sQ + r * LDF + C::col(lane, m), qv);
+#pragma unroll
+        for (int e = 0; e < C::VEC; ++e) {
+          const int c = C::VEC * m + e;
+          acc_v[0][c] = fmaf(p.x, dov[e], acc_v[0][c]);
+          acc_v[1][c] = fmaf(p.y, dov[e], acc_v[1][c]);
+          acc_k[0][c] = fmaf(ds.x, qv[e], acc_k[0][c]);
+          acc_k[1][c] = fmaf(ds.y, qv[e], acc_k[1][c]);
+        }
       }
     }
 
-    // dQ[4 rows of this warp x 512] = dS . K, added into the fp32 buffer
-    float acc_q[4][16];
+    // dQ[4 rows of this warp x DP] = dS . K, added into the fp32 buffer
+    float acc_q[4][C::N];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
 #pragma unroll
-      for (int c = 0; c < 16; ++c) acc_q[i][c] = 0.0f;
+      for (int c = 0; c < C::N; ++c) acc_q[i][c] = 0.0f;
     }
     for (int j = 0; j < BKG; ++j) {
       float ds[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) ds[i] = sdS[(warp * 4 + i) * LDG + j];
 #pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        const float4 kv = *reinterpret_cast<const float4*>(sK + j * LDF + lane * 4 + 128 * m);
+      for (int m = 0; m < C::GROUPS; ++m) {
+        float kv[C::VEC];
+        ld_vec<C::VEC>(sK + j * LDF + C::col(lane, m), kv);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          acc_q[i][4 * m + 0] = fmaf(ds[i], kv.x, acc_q[i][4 * m + 0]);
-          acc_q[i][4 * m + 1] = fmaf(ds[i], kv.y, acc_q[i][4 * m + 1]);
-          acc_q[i][4 * m + 2] = fmaf(ds[i], kv.z, acc_q[i][4 * m + 2]);
-          acc_q[i][4 * m + 3] = fmaf(ds[i], kv.w, acc_q[i][4 * m + 3]);
+#pragma unroll
+          for (int e = 0; e < C::VEC; ++e) acc_q[i][C::VEC * m + e] = fmaf(ds[i], kv[e], acc_q[i][C::VEC * m + e]);
         }
       }
     }
@@ -1160,29 +1264,24 @@ __global__ void __launch_bounds__(NT5, 1) flash_bwd_f32_kernel(BwdArgsF32 a) {
       const int row = q0 + warp * 4 + i;
       if (row >= a.sq) continue;
 #pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        const float4 val = make_float4(acc_q[i][4 * m], acc_q[i][4 * m + 1], acc_q[i][4 * m + 2],
-                                       acc_q[i][4 * m + 3]);
-        atomicAdd(reinterpret_cast<float4*>(dq + (int64_t)row * D5 + lane * 4 + 128 * m), val);
+      for (int m = 0; m < C::GROUPS; ++m) {
+        atomic_add_vec<C::VEC>(dq + (int64_t)row * DP + C::col(lane, m), &acc_q[i][C::VEC * m]);
       }
     }
   }
 
   // dk = dS^T . q~ / log2(e), as in flash_bwd_wgmma
-  float* dk = a.dk + (int64_t)bh * a.skv * D5;
-  float* dv = a.dv + (int64_t)bh * a.skv * D5;
+  float* dk = a.dk + (int64_t)bh * a.skv * DP;
+  float* dv = a.dv + (int64_t)bh * a.skv * DP;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = k0 + 2 * warp + i;
     if (row >= a.skv) continue;
 #pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      const int col = lane * 4 + 128 * m;
-      *reinterpret_cast<float4*>(dk + (int64_t)row * D5 + col) =
-          make_float4(acc_k[i][4 * m] * INV_LOG2E, acc_k[i][4 * m + 1] * INV_LOG2E,
-                      acc_k[i][4 * m + 2] * INV_LOG2E, acc_k[i][4 * m + 3] * INV_LOG2E);
-      *reinterpret_cast<float4*>(dv + (int64_t)row * D5 + col) =
-          make_float4(acc_v[i][4 * m], acc_v[i][4 * m + 1], acc_v[i][4 * m + 2], acc_v[i][4 * m + 3]);
+    for (int m = 0; m < C::GROUPS; ++m) {
+      const int col = C::col(lane, m);
+      st_vec<C::VEC>(dk + (int64_t)row * DP + col, &acc_k[i][C::VEC * m], INV_LOG2E);
+      st_vec<C::VEC>(dv + (int64_t)row * DP + col, &acc_v[i][C::VEC * m], 1.0f);
     }
   }
 }
@@ -1243,12 +1342,21 @@ cudaError_t launch_bwd_wgmma(View q, View k, View v, View dout, const void* lse,
   return cudaGetLastError();
 }
 
-cudaError_t launch_fwd512(const FwdArgs& a, int batch, cudaStream_t stream) {
-  const size_t smem = fwd512_smem_bytes();
-  cudaError_t err = allow_smem(flash_fwd512_kernel, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((a.sq + BQ5 - 1) / BQ5, batch * a.heads);
-  flash_fwd512_kernel<<<grid, NT5, smem, stream>>>(a);
+cudaError_t launch_fwd512(View q, View k, View v, void* o, void* lse, int64_t batch, int64_t heads, int64_t sq,
+                          int64_t skv, cudaStream_t stream) {
+  FwdTma p;
+  if (!bf16_map(&p.q, q.ptr, batch, heads, sq, D5, q.sb, q.sh, q.ss, F5Q) ||
+      !bf16_map(&p.k, k.ptr, batch, heads, skv, D5, k.sb, k.sh, k.ss, F5K) ||
+      !bf16_map(&p.v, v.ptr, batch, heads, skv, D5, v.sb, v.sh, v.ss, F5K)) {
+    return cudaErrorInvalidValue;
+  }
+  p.o = static_cast<bf16*>(o);
+  p.lse = static_cast<float*>(lse);
+  p.heads = (int)heads; p.sq = (int)sq; p.skv = (int)skv;
+  static cudaError_t opted_in = allow_smem(flash_fwd512_wgmma, Fwd512Cfg::SMEM);
+  if (opted_in != cudaSuccess) return opted_in;
+  dim3 grid((unsigned)((sq + F5Q - 1) / F5Q), (unsigned)(batch * heads));
+  flash_fwd512_wgmma<<<grid, NT_WS, Fwd512Cfg::SMEM, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -1258,6 +1366,26 @@ cudaError_t launch_bwd512(const BwdArgs& a, int batch, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   dim3 grid((a.skv + BKB5 - 1) / BKB5, batch * a.heads);
   flash_bwd512_kernel<<<grid, NT5, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t launch_fwd_f32(const FwdArgsF32& a, int64_t batch, cudaStream_t stream) {
+  constexpr size_t smem = fwdf32_smem_bytes<DP>();
+  static cudaError_t opted_in = allow_smem(flash_fwd_f32_kernel<DP>, smem);  // once per head dim
+  if (opted_in != cudaSuccess) return opted_in;
+  dim3 grid((unsigned)((a.sq + BQF - 1) / BQF), (unsigned)(batch * a.heads));
+  flash_fwd_f32_kernel<DP><<<grid, NT5, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t launch_bwd_f32(const BwdArgsF32& a, int64_t batch, cudaStream_t stream) {
+  constexpr size_t smem = bwdf32_smem_bytes<DP>();
+  static cudaError_t opted_in = allow_smem(flash_bwd_f32_kernel<DP>, smem);  // once per head dim
+  if (opted_in != cudaSuccess) return opted_in;
+  dim3 grid((unsigned)((a.skv + BKG - 1) / BKG), (unsigned)(batch * a.heads));
+  flash_bwd_f32_kernel<DP><<<grid, NT5, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -1281,17 +1409,7 @@ int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o, void* l
     case 64: return launch_fwd_wgmma<64>(vq, vk, vv, o, lse, batch, heads, sq, skv, s);
     case 80: return launch_fwd_wgmma<80>(vq, vk, vv, o, lse, batch, heads, sq, skv, s);
     case 160: return launch_fwd_wgmma<160>(vq, vk, vv, o, lse, batch, heads, sq, skv, s);
-    case 512: {
-      FwdArgs a;
-      a.q = {static_cast<const bf16*>(q), q_ss};
-      a.k = {static_cast<const bf16*>(k), k_ss};
-      a.v = {static_cast<const bf16*>(v), v_ss};
-      a.q_sb = q_sb; a.q_sh = q_sh; a.k_sb = k_sb; a.k_sh = k_sh; a.v_sb = v_sb; a.v_sh = v_sh;
-      a.o = static_cast<bf16*>(o);
-      a.lse = static_cast<float*>(lse);
-      a.heads = (int)heads; a.sq = (int)sq; a.skv = (int)skv; a.d = (int)d;
-      return launch_fwd512(a, (int)batch, s);
-    }
+    case 512: return launch_fwd512(vq, vk, vv, o, lse, batch, heads, sq, skv, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1345,15 +1463,25 @@ int flash_bwd_bf16(const void* q, const void* k, const void* v, const void* dout
 #undef FLASH_BWD_WGMMA
 }
 
-// q (pre-scaled), k, v: fp32 [B, H, S, 512] strided as in flash_fwd_bf16.
-// Writes o fp32 [B, H, Sq, 512] and lse [B, H, Sq].
+// The fp32 kernels' padded head dims: the caller pads any other d <= 512 with
+// zero columns up to the next of them.
+#define FLASH_F32_DISPATCH(LAUNCH)                                   \
+  switch (d) {                                                       \
+    case 64: return LAUNCH<64>(a, batch, s);                         \
+    case 96: return LAUNCH<96>(a, batch, s);                         \
+    case 160: return LAUNCH<160>(a, batch, s);                       \
+    case 512: return LAUNCH<512>(a, batch, s);                       \
+    default: return cudaErrorInvalidValue;                           \
+  }
+
+// q (pre-scaled), k, v: fp32 [B, H, S, d] strided as in flash_fwd_bf16, d one of
+// 64, 96, 160, 512. Writes o fp32 [B, H, Sq, d] and lse [B, H, Sq].
 int flash_fwd_f32(const void* q, const void* k, const void* v, void* o, void* lse,
                   int64_t batch, int64_t heads, int64_t sq, int64_t skv, int64_t d,
                   int64_t q_sb, int64_t q_sh, int64_t q_ss,
                   int64_t k_sb, int64_t k_sh, int64_t k_ss,
                   int64_t v_sb, int64_t v_sh, int64_t v_ss,
                   void* stream) {
-  if (d != D5) return cudaErrorInvalidValue;
   FwdArgsF32 a;
   a.q = static_cast<const float*>(q);
   a.k = static_cast<const float*>(k);
@@ -1364,17 +1492,13 @@ int flash_fwd_f32(const void* q, const void* k, const void* v, void* o, void* ls
   a.o = static_cast<float*>(o);
   a.lse = static_cast<float*>(lse);
   a.heads = (int)heads; a.sq = (int)sq; a.skv = (int)skv;
-  const size_t smem = fwdf32_smem_bytes();
-  cudaError_t err = allow_smem(flash_fwd_f32_kernel, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((a.sq + BQF - 1) / BQF, (int)batch * a.heads);
-  flash_fwd_f32_kernel<<<grid, NT5, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  FLASH_F32_DISPATCH(launch_fwd_f32)
 }
 
-// q (pre-scaled), k, v, dout: fp32 [B, H, S, 512] strided as in flash_fwd_bf16;
-// lse, di: fp32 [B, H, Sq]. dq: zeroed fp32 [B, H, Sq, 512] receiving dS . k
-// (the caller multiplies by scale); dk, dv: fp32 [B, H, Skv, 512].
+// q (pre-scaled), k, v, dout: fp32 [B, H, S, d] strided as in flash_fwd_bf16, d
+// as in flash_fwd_f32; lse, di: fp32 [B, H, Sq]. dq: zeroed fp32 [B, H, Sq, d]
+// receiving dS . k (the caller multiplies by scale); dk, dv: fp32 [B, H, Skv, d].
 int flash_bwd_f32(const void* q, const void* k, const void* v, const void* dout,
                   const void* lse, const void* di, void* dq, void* dk, void* dv,
                   int64_t batch, int64_t heads, int64_t sq, int64_t skv, int64_t d,
@@ -1383,7 +1507,6 @@ int flash_bwd_f32(const void* q, const void* k, const void* v, const void* dout,
                   int64_t v_sb, int64_t v_sh, int64_t v_ss,
                   int64_t do_sb, int64_t do_sh, int64_t do_ss,
                   void* stream) {
-  if (d != D5) return cudaErrorInvalidValue;
   BwdArgsF32 a;
   a.q = static_cast<const float*>(q);
   a.k = static_cast<const float*>(k);
@@ -1399,12 +1522,10 @@ int flash_bwd_f32(const void* q, const void* k, const void* v, const void* dout,
   a.dk = static_cast<float*>(dk);
   a.dv = static_cast<float*>(dv);
   a.heads = (int)heads; a.sq = (int)sq; a.skv = (int)skv;
-  const size_t smem = bwdf32_smem_bytes();
-  cudaError_t err = allow_smem(flash_bwd_f32_kernel, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((a.skv + BKG - 1) / BKG, (int)batch * a.heads);
-  flash_bwd_f32_kernel<<<grid, NT5, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  FLASH_F32_DISPATCH(launch_bwd_f32)
 }
+
+#undef FLASH_F32_DISPATCH
 
 }  // extern "C"

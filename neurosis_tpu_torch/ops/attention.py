@@ -38,7 +38,9 @@ def plain_attention(
 
 def uses_flash(q: torch.Tensor, mask: Optional[torch.Tensor]) -> bool:
     """Unmasked rows of at least FLASH_MIN_SEQ queries go to the kernel (JAX
-    ops/attention.py:152); on the card it takes bf16 and raises otherwise."""
+    ops/attention.py:152), whatever their dtype and head dim; on the card
+    every bf16 or fp32 row with d <= 512 reaches one (padded to the head dim
+    it is built for), fp16 and d > 512 raise."""
     return mask is None and q.shape[-2] >= FLASH_MIN_SEQ
 
 

@@ -8,14 +8,18 @@ backward residual together with the pre-scaled q (:1244).
 
 Four wrappers over the kernels of ``csrc/flash_attention.cu`` stand behind it:
 ``flash_fwd`` (replaces the four Pallas forward families) and ``flash_bwd``
-(replaces the dq and dk/dv families) take bf16 at head dims 40, 64, 80, 160
-(TMA and wgmma kernels) and 512; ``flash_fwd_f32`` and ``flash_bwd_f32`` are the fp32 forward and
-backward at head dim 512, for the VAE in fp32 (the JAX kernels take fp32
-there, ops/flash_attention.py:1221-1246). ``flash_fwd`` and ``flash_bwd``
-hand fp32 inputs to them. Each wrapper runs its plain PyTorch version for CPU
-tensors and launches its kernel for CUDA tensors; a head dim or dtype its
-kernel does not take raises. ``Di = rowsum(dO∘O)`` is a plain reduction
-outside the kernel, as in the JAX backward (:1037).
+(replaces the dq and dk/dv families) take bf16 (TMA and wgmma kernels at head
+dims 40, 64, 80, 160 and 512); ``flash_fwd_f32`` and ``flash_bwd_f32`` are the
+fp32 forward and backward (FFMA, head dims 64, 96, 160, 512), for the VAE and
+the UNets that run in fp32 (the JAX kernels take fp32 as they take bf16,
+ops/flash_attention.py:1221-1246). ``flash_fwd`` and ``flash_bwd`` hand fp32
+inputs to them. As JAX pads D (:1257-1272), a head dim up to 512 that no
+kernel is built for is zero-padded to the next one (``kernel_head_dim``),
+after the pre-scaling, and the results are sliced back: zero columns add
+nothing to q̃·kᵀ, to Di or to the LSE. Each wrapper runs its plain PyTorch
+version for CPU tensors and launches its kernel for CUDA tensors; a dtype or
+head dim no kernel takes (fp16, d > 512) raises. ``Di = rowsum(dO∘O)`` is a
+plain reduction outside the kernel, as in the JAX backward (:1037).
 """
 
 from __future__ import annotations
@@ -24,13 +28,16 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 from .. import _nvcc
 from .._device import sm_count
 
 LOG2_E = 1.4426950408889634
+# the head dims each kernel family is built for; other head dims up to 512 are
+# zero-padded to the next one
 KERNEL_HEAD_DIMS = (40, 64, 80, 160, 512)
-F32_HEAD_DIMS = (512,)
+F32_HEAD_DIMS = (64, 96, 160, 512)
 # the bf16 backward at d <= 160: kv rows a block owns, q rows of one ring stage
 BWD_KV_ROWS = 128
 BWD_Q_ROWS = 64
@@ -64,16 +71,37 @@ def _kernel_view(t: torch.Tensor) -> torch.Tensor:
     return t if ok else t.contiguous()
 
 
-def _check_cuda_inputs(*ts: torch.Tensor, dtype=torch.bfloat16, head_dims=KERNEL_HEAD_DIMS) -> None:
-    d = ts[0].shape[-1]
+def kernel_head_dim(d: int, dtype: torch.dtype) -> int:
+    """The head dim a row of head dim ``d`` runs at in the kernel for ``dtype``:
+    the next one that family is built for (bf16: 40, 64, 80, 160, 512; fp32:
+    64, 96, 160, 512). fp16 and d > 512 raise: no config reaches either (the
+    JAX package's ``apply_precision`` maps every 16-bit precision to bf16; the
+    widest VAE mid block has 512 channels)."""
+    dims = {torch.bfloat16: KERNEL_HEAD_DIMS, torch.float32: F32_HEAD_DIMS}.get(dtype)
+    if dims is None:
+        raise TypeError(f"the flash kernels take bf16 or fp32, got {dtype}")
+    if not 1 <= d <= dims[-1]:
+        raise ValueError(f"the flash kernels take head dims 1 to {dims[-1]}, got {d}")
+    return next(dp for dp in dims if dp >= d)
+
+
+def _check_cuda_inputs(*ts: torch.Tensor, dtype=torch.bfloat16, head_dims=None) -> None:
+    """Every input in ``dtype`` on one device, and, given ``head_dims``, a head
+    dim among them (kernels that are not padded)."""
     name = "bf16" if dtype == torch.bfloat16 else "fp32"
-    if d not in head_dims:
-        raise ValueError(f"flash {name} kernel takes head dims {head_dims}, got {d}")
     for t in ts:
         if t.dtype != dtype:
             raise TypeError(f"flash {name} kernel takes {name}, got {t.dtype}")
         if t.device != ts[0].device:
             raise ValueError("flash kernel inputs must share one device")
+    d = ts[0].shape[-1]
+    if head_dims is not None and d not in head_dims:
+        raise ValueError(f"flash {name} kernel takes head dims {head_dims}, got {d}")
+
+
+def _pad_head(t: torch.Tensor, dp: int) -> torch.Tensor:
+    """t with its last dim zero-padded to ``dp`` (t itself when it is already)."""
+    return t if t.shape[-1] == dp else F.pad(t, (0, dp - t.shape[-1]))
 
 
 def _strides(t: torch.Tensor) -> tuple[int, int, int]:
@@ -97,7 +125,11 @@ def flash_fwd_plain(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
 
 
 def _launch_fwd(entry: str, qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    qs, k, v = (_kernel_view(t) for t in (qs, k, v))
+    """The forward kernel at the row's kernel head dim: q̃, k, v zero-padded to
+    it, o sliced back to the true one."""
+    d_true = qs.shape[-1]
+    dp = kernel_head_dim(d_true, qs.dtype)
+    qs, k, v = (_kernel_view(_pad_head(t, dp)) for t in (qs, k, v))
     b, h, sq, d = qs.shape
     skv = k.shape[2]
     o = torch.empty((b, h, sq, d), dtype=qs.dtype, device=qs.device)
@@ -108,7 +140,7 @@ def _launch_fwd(entry: str, qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
         torch.cuda.current_stream(qs.device).cuda_stream,
     )
     _nvcc.check(status, entry)
-    return o, lse
+    return o[..., :d_true], lse
 
 
 def flash_fwd(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -128,11 +160,10 @@ flash_fwd.launches = 0
 
 
 def flash_fwd_f32(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    """The fp32 forward kernel (head dim 512, FFMA): as ``flash_fwd``, with
-    o in fp32."""
+    """The fp32 forward kernel (FFMA): as ``flash_fwd``, with o in fp32."""
     if qs.device.type == "cpu":
         return flash_fwd_plain(qs, k, v)
-    _check_cuda_inputs(qs, k, v, dtype=torch.float32, head_dims=F32_HEAD_DIMS)
+    _check_cuda_inputs(qs, k, v, dtype=torch.float32)
     out = _launch_fwd("flash_fwd_f32", qs, k, v)
     flash_fwd_f32.launches += 1
     return out
@@ -183,7 +214,12 @@ def bwd_q_ranges(sq: int, splits: int) -> list[tuple[int, int]]:
 
 
 def _launch_bwd(entry: str, qs, k, v, do, lse, di, scale: float):
-    qs, k, v, do = (_kernel_view(t) for t in (qs, k, v, do))
+    """The backward kernel at the row's kernel head dim: q̃, k, v, dO
+    zero-padded to it (LSE and Di are unchanged by zero columns), the grads
+    sliced back to the true one; ``scale`` is the true head dim's."""
+    d_true = qs.shape[-1]
+    dp = kernel_head_dim(d_true, qs.dtype)
+    qs, k, v, do = (_kernel_view(_pad_head(t, dp)) for t in (qs, k, v, do))
     lse, di = lse.float().contiguous(), di.float().contiguous()
     b, h, sq, d = qs.shape
     skv = k.shape[2]
@@ -207,12 +243,13 @@ def _launch_bwd(entry: str, qs, k, v, do, lse, di, scale: float):
         args += [*ptrs, splits, scale if tma else 1.0]
     _nvcc.check(fn(*args, stream), entry)
     if not tma:  # the fp32 and d=512 kernels leave dq unscaled
-        return (acc.view(b, h, sq, d) * scale).to(qs.dtype), dk, dv
-    out = acc.to(qs.dtype)
-    dq = out[:n_q].view(b, h, sq, d)
-    if splits > 1:
-        dk, dv = out[n_q:n_q + n_kv].view(b, h, skv, d), out[n_q + n_kv:].view(b, h, skv, d)
-    return dq, dk, dv
+        dq = (acc.view(b, h, sq, d) * scale).to(qs.dtype)
+    else:
+        out = acc.to(qs.dtype)
+        dq = out[:n_q].view(b, h, sq, d)
+        if splits > 1:
+            dk, dv = out[n_q:n_q + n_kv].view(b, h, skv, d), out[n_q + n_kv:].view(b, h, skv, d)
+    return tuple(g[..., :d_true] for g in (dq, dk, dv))
 
 
 def flash_bwd(qs, k, v, do, lse, di, scale: float):
@@ -233,12 +270,11 @@ flash_bwd.launches = 0
 
 
 def flash_bwd_f32(qs, k, v, do, lse, di, scale: float):
-    """The fp32 backward kernel (head dim 512, FFMA): as ``flash_bwd``, with
-    fp32 grads; dq is summed with fp32 atomics, so its last bits vary from
-    run to run."""
+    """The fp32 backward kernel (FFMA): as ``flash_bwd``, with fp32 grads; dq
+    is summed with fp32 atomics, so its last bits vary from run to run."""
     if qs.device.type == "cpu":
         return flash_bwd_plain(qs, k, v, do, lse, di, scale)
-    _check_cuda_inputs(qs, k, v, do, dtype=torch.float32, head_dims=F32_HEAD_DIMS)
+    _check_cuda_inputs(qs, k, v, do, dtype=torch.float32)
     out = _launch_bwd("flash_bwd_f32", qs, k, v, do, lse, di, scale)
     flash_bwd_f32.launches += 1
     return out
@@ -255,7 +291,7 @@ flash_bwd_f32.launches = 0
 class _Flash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v):
-        scale = 1.0 / math.sqrt(q.shape[-1])  # true head dim, before any padding
+        scale = 1.0 / math.sqrt(q.shape[-1])  # the true head dim: the wrappers pad after this
         qs = (q * (scale * LOG2_E)).to(q.dtype)
         o, lse = flash_fwd(qs, k, v)
         ctx.save_for_backward(qs, k, v, o, lse)

@@ -37,6 +37,8 @@ def interpreted_flash(monkeypatch):
         (1, 2, 128, 77, 80),
         (1, 1, 256, 256, 512),  # the VAE's single-head mid attention
         (2, 1, 200, 128, 512),  # ragged q and kv at head dim 512
+        (1, 1, 1024, 1024, 64),  # the smoke VAEs' mid attention (ch 32 x 2), 1024 tokens
+        (1, 2, 200, 77, 48),  # a head dim no kernel is built for (padded to 64 on the card)
     ],
 )
 def test_flash_matches_jax(interpreted_flash, shape):
@@ -63,17 +65,19 @@ def test_flash_matches_jax(interpreted_flash, shape):
         np.testing.assert_allclose(gt.numpy(), np.asarray(gj), atol=2e-5, rtol=1e-3)
 
 
-def test_fp32_backward_matches_jax(interpreted_flash):
+@pytest.mark.parametrize("s,d", [(256, 512), (1024, 64), (200, 48)])
+def test_fp32_backward_matches_jax(interpreted_flash, s, d):
     """The fp32 backward entry (on the CPU: the plain version that the fp32
     kernel is held against on the card) from the forward's own residuals
     and a given cotangent, against the VJP of JAX's kernels at the VAE's head
-    dim, with the JAX suite's grad tolerance (2e-5 / 1e-3)."""
+    dim, the smoke VAEs' (64) and one no kernel is built for (48), with the
+    JAX suite's grad tolerance (2e-5 / 1e-3)."""
     import math
 
     from neurosis_tpu_torch.ops import flash_attention as tfa
 
     fa = interpreted_flash
-    b, h, s, d = 1, 1, 256, 512
+    b, h = 1, 1
     rng = np.random.RandomState(1)
     q, k, v, do = (rng.randn(b, h, s, d).astype(np.float32) for _ in range(4))
     run = lambda *a: fa.flash_attention(*a, block_q=128, block_k=128)
@@ -151,3 +155,52 @@ def test_bwd_q_splits_at_sdxl_cross_attention():
     assert bwd_q_splits(2, 20, 1024, 1024, 132) == 1
     assert 20 * bwd_q_splits(2, 10, 4096, 77, 132) >= 132
     assert 40 * bwd_q_splits(2, 20, 1024, 77, 132) >= 132
+
+
+@pytest.mark.parametrize("d,dp", [(40, 64), (48, 64), (80, 96), (33, 40), (200, 512)])
+def test_padding_the_head_dim_is_exact(d, dp):
+    """What the wrappers do on the card, in plain versions: q̃, k, v (and dO)
+    zero-padded to the kernel's head dim, with the scale of the true head dim,
+    give the true head dim's O, LSE and grads once sliced back."""
+    import math
+
+    import torch.nn.functional as F
+
+    from neurosis_tpu_torch.ops.flash_attention import LOG2_E, flash_bwd_plain, flash_fwd_plain
+
+    g = torch.Generator().manual_seed(d)
+    q, do = (torch.randn(2, 3, 70, d, generator=g) for _ in range(2))
+    k, v = (torch.randn(2, 3, 77, d, generator=g) for _ in range(2))
+    scale = 1.0 / math.sqrt(d)
+    qs = q * (scale * LOG2_E)
+    pad = lambda t: F.pad(t, (0, dp - d))
+    o, lse = flash_fwd_plain(qs, k, v)
+    o_p, lse_p = flash_fwd_plain(pad(qs), pad(k), pad(v))
+    torch.testing.assert_close(o_p[..., :d], o, atol=1e-6, rtol=1e-6)
+    assert bool((o_p[..., d:] == 0).all())
+    torch.testing.assert_close(lse_p, lse, atol=1e-6, rtol=1e-6)
+    di = (do * o).sum(-1)
+    di_p = (pad(do) * o_p).sum(-1)
+    torch.testing.assert_close(di_p, di, atol=1e-5, rtol=1e-6)
+    grads = flash_bwd_plain(qs, k, v, do, lse, di, scale)
+    grads_p = flash_bwd_plain(pad(qs), pad(k), pad(v), pad(do), lse_p, di_p, scale)
+    for got, want in zip(grads_p, grads):
+        torch.testing.assert_close(got[..., :d], want, atol=1e-5, rtol=1e-5)
+        assert bool((got[..., d:] == 0).all())
+
+
+def test_kernel_head_dim_over_every_head_dim():
+    """Each head dim 1..512 runs at the smallest kernel head dim that holds it:
+    bf16 at 40, 64, 80, 160 or 512, fp32 at 64, 96, 160 or 512; past 512 and in
+    fp16 nothing takes it."""
+    from neurosis_tpu_torch.ops.flash_attention import kernel_head_dim
+
+    for dtype, dims in ((torch.bfloat16, (40, 64, 80, 160, 512)), (torch.float32, (64, 96, 160, 512))):
+        got = [kernel_head_dim(d, dtype) for d in range(1, 513)]
+        assert got == [min(dp for dp in dims if dp >= d) for d in range(1, 513)]
+        assert set(got) == set(dims)
+        for bad in (0, 513, 1024):
+            with pytest.raises(ValueError, match="head dims"):
+                kernel_head_dim(bad, dtype)
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        kernel_head_dim(64, torch.float16)

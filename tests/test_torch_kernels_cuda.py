@@ -2,7 +2,8 @@
 shapes that reach every code path of each kernel: ragged q tails, q shorter
 than a block, the masked kv=77 tail and other kv tails, a backward whose q
 range is split over blocks, each head dim the kernel takes (512 with ragged q
-and kv tails, in bf16 and in fp32), channel counts that take one and several tiles,
+and kv tails, in bf16 and in fp32) and head dims padded to them, channel counts
+that take one and several tiles,
 the GroupNorm prologue's zeroed halo.
 
 These need a CUDA card (a CUDA kernel has no interpreter) and skip without
@@ -45,11 +46,14 @@ def _rel(got, want):
 # a backward stage (20, 50), the kv=77 tail and kv tails of 200 and 300 rows,
 # several kv tiles, a backward whose q range is split over blocks (kv = 77 with
 # few heads; SPLIT, and most small shapes on 132 SMs), one full-size SDXL
-# self-attention (one block per kv tile), and d = 512
+# self-attention (one block per kv tile), and d = 512 (the VAE-GAN pair's
+# 8x1x1024x1024 among them); head dims padded to the next kernel head dim:
+# 32 -> 40, 128 -> 160, 256 -> 512
 SPLIT = [(2, 3, 300, 77, 40), (2, 5, 1024, 77, 64), (1, 2, 1024, 77, 80), (1, 2, 512, 77, 160)]
 FLASH_SHAPES = SPLIT + [(1, 2, 256, 300, 40), (1, 2, 130, 200, 64), (1, 2, 20, 130, 64), (1, 2, 256, 256, 80),
                         (1, 2, 100, 300, 80), (1, 1, 64, 77, 160), (2, 1, 300, 256, 160), (1, 1, 50, 200, 160),
-                        (2, 20, 1024, 1024, 64), (2, 1, 200, 300, 512), (1, 1, 1024, 1024, 512)]
+                        (2, 20, 1024, 1024, 64), (2, 1, 200, 300, 512), (1, 1, 1024, 1024, 512),
+                        (8, 1, 1024, 1024, 512), (1, 2, 300, 77, 32), (1, 2, 130, 200, 128), (1, 1, 200, 300, 256)]
 
 
 @pytest.mark.parametrize("shape", FLASH_SHAPES)
@@ -74,6 +78,7 @@ def test_flash_kernels(cuda, shape):
         assert _rel(got, want) < 5e-2
     torch.cuda.synchronize()
     assert (fa.flash_fwd.launches, fa.flash_bwd.launches) == (n_fwd + 1, n_bwd + 1)
+    assert o.shape == q.shape
 
 
 @pytest.mark.parametrize("shape", [(2, 1, 100, 130, 512), (1, 1, 1024, 1024, 512)])
@@ -115,6 +120,40 @@ def test_flash_bwd_f32_kernel(cuda, shape):
     assert (fa.flash_bwd_f32.launches, fa.flash_bwd.launches) == (n + 1, n_bf16)
     for g, w in zip(got, want):
         assert g.dtype == torch.float32 and _rel(g, w) < 1e-4
+
+
+# fp32 at every kernel head dim family, as the fp32 UNets and the small VAEs
+# give it: d = 40 (SD1.5's UNet) and 48 run at 64, 80 at 96, 64 and 160 as
+# built; each with a ragged q tail over the kv = 77 tail, and self-attention
+# over 1024 tokens at d = 40 and 64
+F32_SHAPES = [(1, 2, 300, 77, 40), (1, 2, 300, 77, 48), (1, 2, 300, 77, 64), (1, 2, 300, 77, 80),
+              (1, 2, 300, 77, 160), (1, 8, 1024, 1024, 40), (2, 1, 1024, 1024, 64), (2, 1, 130, 200, 48)]
+
+
+@pytest.mark.parametrize("shape", F32_SHAPES)
+def test_flash_f32_kernels_at_every_head_dim(cuda, shape):
+    """Forward and backward through the padded fp32 kernels against the plain
+    version at the true head dim, with the true head dim's scale."""
+    from neurosis_tpu_torch.ops import flash_attention as fa
+
+    b, h, sq, skv, d = shape
+    q, do = (torch.randn(b, h, sq, d, generator=cuda, device="cuda") for _ in range(2))
+    k, v = (torch.randn(b, h, skv, d, generator=cuda, device="cuda") for _ in range(2))
+    scale = 1.0 / math.sqrt(d)
+    qs = q * (scale * fa.LOG2_E)
+    n_fwd, n_bwd = fa.flash_fwd_f32.launches, fa.flash_bwd_f32.launches
+    o, lse = fa.flash_fwd(qs, k, v)
+    o_ref, lse_ref = fa.flash_fwd_plain(qs, k, v)
+    di = (do * o_ref).sum(-1)
+    got = fa.flash_bwd(qs, k, v, do, lse_ref, di, scale)
+    want = fa.flash_bwd_plain(qs, k, v, do, lse_ref, di, scale)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd_f32.launches, fa.flash_bwd_f32.launches) == (n_fwd + 1, n_bwd + 1)
+    assert o.shape == q.shape and o.dtype == torch.float32
+    assert _rel(o, o_ref) < 2e-5
+    assert float((lse - lse_ref).abs().max()) < 2e-5
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and _rel(g, w) < 1e-4
 
 
 def test_flash_f32_autograd_matches_plain(cuda):

@@ -164,28 +164,32 @@ def test_non_cpu_tensors_go_to_the_kernel(monkeypatch, name):
 
 
 def test_kernel_refuses_what_it_cannot_take():
-    """Off the CPU a shape or dtype the kernel does not take raises rather
-    than falling back: bf16 head dims other than 40/64/80/160/512, fp32 at
-    any head dim but 512 (forward and backward), mixed dtypes, the overlap
-    kernels at any head dim but 64 or in fp32, a filter of the wrong size."""
+    """Off the CPU a dtype or shape no kernel takes raises rather than falling
+    back: fp16 (forward and backward), mixed dtypes, head dims past 512 in
+    bf16 and in fp32 (forward and backward), the overlap kernels at any head
+    dim but 64 or in fp32, a filter of the wrong size."""
     from neurosis_tpu_torch.ops.conv3x3 import conv3x3_nhwc
     from neurosis_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd
     from neurosis_tpu_torch.ops.flash_overlap import flash_fwd_chunked, flash_fwd_split2
 
-    odd_d = torch.empty(1, 1, 16, 96, device="meta", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dims"):
-        flash_fwd(odd_d, odd_d, odd_d)
-    f32 = torch.empty(1, 1, 16, 40, device="meta")
-    with pytest.raises(ValueError, match="fp32 kernel takes head dims"):
-        flash_fwd(f32, f32, f32)
+    stat = torch.empty(1, 1, 16, device="meta")
+    fp16 = torch.empty(1, 1, 16, 64, device="meta", dtype=torch.float16)
+    with pytest.raises(TypeError, match="bf16"):
+        flash_fwd(fp16, fp16, fp16)
+    with pytest.raises(TypeError, match="bf16"):
+        flash_bwd(fp16, fp16, fp16, fp16, stat, stat, 0.1)
+    for wide in (torch.empty(1, 1, 16, 576, device="meta", dtype=torch.bfloat16),
+                 torch.empty(1, 1, 16, 1024, device="meta")):
+        with pytest.raises(ValueError, match="head dims 1 to 512"):
+            flash_fwd(wide, wide, wide)
+        with pytest.raises(ValueError, match="head dims 1 to 512"):
+            flash_bwd(wide, wide, wide, wide, stat, stat, 0.1)
     bf16 = torch.empty(1, 1, 16, 512, device="meta", dtype=torch.bfloat16)
     with pytest.raises(TypeError, match="bf16"):
         flash_fwd(bf16, bf16.float(), bf16)
-    stat = torch.empty(1, 1, 16, device="meta")
-    with pytest.raises(ValueError, match="fp32 kernel takes head dims"):  # the fp32 backward is d=512 only
-        flash_bwd(f32, f32, f32, f32, stat, stat, 0.1)
     with pytest.raises(TypeError, match="fp32"):  # an fp32 forward's bf16 cotangent
         flash_bwd(bf16.float(), bf16.float(), bf16.float(), bf16, stat, stat, 0.1)
+    odd_d = torch.empty(1, 1, 16, 96, device="meta", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dims"):
         flash_fwd_split2(odd_d, odd_d, odd_d)
     with pytest.raises(TypeError, match="bf16"):
@@ -194,6 +198,155 @@ def test_kernel_refuses_what_it_cannot_take():
     with pytest.raises(ValueError, match="bad shapes"):
         conv3x3_nhwc(img, torch.empty(3, 3, 64, 128, device="meta", dtype=torch.bfloat16))
 
+
+@pytest.fixture()
+def kernel_stub(monkeypatch):
+    """The kernels' libraries replaced by a stub whose entry points succeed
+    and record (entry, head dim) for the flash kernels; the CUDA stream and
+    SM count the wrappers ask for are stand-ins, so meta tensors go through
+    every wrapper to its launch and on."""
+    import types
+
+    from neurosis_tpu_torch import _nvcc
+    from neurosis_tpu_torch.ops import conv3x3, flash_attention
+
+    calls = []
+
+    class Lib:
+        def __getattr__(self, entry):
+            def launch(*args):
+                if entry.startswith("flash_"):  # d follows the pointers and B, H, Sq, Skv
+                    calls.append((entry, args[9] if "_fwd_" in entry else args[13]))
+                return 0
+            return launch
+
+    monkeypatch.setattr(_nvcc, "load", lambda name: Lib())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    for mod in (flash_attention, conv3x3):
+        monkeypatch.setattr(mod, "sm_count", lambda index: 132)
+    return calls
+
+
+def _kernel_dims():
+    from neurosis_tpu_torch.ops.flash_attention import F32_HEAD_DIMS, KERNEL_HEAD_DIMS
+
+    return {"flash_fwd_bf16": KERNEL_HEAD_DIMS, "flash_bwd_bf16": KERNEL_HEAD_DIMS,
+            "flash_fwd_f32": F32_HEAD_DIMS, "flash_bwd_f32": F32_HEAD_DIMS}
+
+
+def test_head_dims_are_the_kernels():
+    """The head dims the wrappers pad to are those the C entry points dispatch
+    on: flash_fwd_bf16's switch (flash_bwd_bf16 has the same cases) and the
+    fp32 entries' FLASH_F32_DISPATCH."""
+    src = (PKG / "csrc" / "flash_attention.cu").read_text()
+    bf16 = src[src.index("int flash_fwd_bf16("):src.index("int flash_bwd_bf16(")]
+    bwd = src[src.index("int flash_bwd_bf16("):src.index("#define FLASH_F32_DISPATCH")]
+    f32 = src[src.index("#define FLASH_F32_DISPATCH"):src.index("int flash_fwd_f32(")]
+    cases = lambda text: tuple(int(c) for c in re.findall(r"case (\d+):", text))
+    dims = _kernel_dims()
+    assert cases(bf16) == cases(bwd) == dims["flash_fwd_bf16"]
+    assert cases(f32) == dims["flash_fwd_f32"]
+
+
+@pytest.mark.parametrize("dtype,d,dp", [
+    (torch.bfloat16, 32, 40), (torch.bfloat16, 40, 40), (torch.bfloat16, 48, 64), (torch.bfloat16, 128, 160),
+    (torch.bfloat16, 256, 512), (torch.float32, 40, 64), (torch.float32, 64, 64), (torch.float32, 80, 96),
+    (torch.float32, 128, 160), (torch.float32, 512, 512)])
+def test_padded_rows_reach_the_kernel(kernel_stub, dtype, d, dp):
+    """A row of any head dim up to 512 in bf16 or fp32 goes through
+    flash_attention, forward and backward, to the kernel at the padded head
+    dim, counted as that kernel's launch; o and the grads keep the true one."""
+    from neurosis_tpu_torch import ops
+    from neurosis_tpu_torch.ops.flash_attention import flash_attention
+
+    q = torch.empty(1, 2, 600, d, device="meta", dtype=dtype, requires_grad=True)
+    k, v = (torch.empty(1, 2, 77, d, device="meta", dtype=dtype, requires_grad=True) for _ in range(2))
+    before = ops.launch_counts()
+    out = flash_attention(q, k, v)
+    out.sum().backward()
+    assert out.shape == q.shape and all(t.grad.shape == t.shape for t in (q, k, v))
+    kind = "bf16" if dtype == torch.bfloat16 else "f32"
+    assert kernel_stub == [(f"flash_fwd_{kind}", dp), (f"flash_bwd_{kind}", dp)]
+    names = ("flash_fwd", "flash_bwd") if kind == "bf16" else ("flash_fwd_f32", "flash_bwd_f32")
+    assert {n: c - before[n] for n, c in ops.launch_counts().items() if c != before[n]} == dict.fromkeys(names, 1)
+
+
+# the model configs of the repository; the JAX package's apply_precision maps
+# these precisions to bf16 (the UNet, or the VAE trainer's encoder and decoder),
+# every other setting computes in fp32; the frozen first stage stays fp32
+CONFIGS = sorted(str(p.relative_to(ROOT)) for sub in ("sd15", "sdxl", "vae", "smoke")
+                 for p in (ROOT / "configs" / sub).glob("*.yaml"))
+_BF16_PRECISIONS = {"bf16", "bf16-mixed", "bf16-true", "16", "16-mixed", "16-true", 16}
+
+
+@pytest.mark.parametrize("config", CONFIGS)
+def test_every_flash_row_of_the_configs_reaches_a_kernel(kernel_stub, monkeypatch, config):
+    """The attention rows of each config, as the port's models make them at
+    the config's dtype, resolution and batch (SDXL's configs name aspect
+    buckets, not a resolution: the square bucket, 1024 px), on meta tensors:
+    every row the gate sends to flash reaches a kernel launch at a head dim
+    that kernel is built for, forward and backward, and none meets a refusal."""
+    import inspect
+
+    import yaml
+
+    from neurosis_tpu_torch.models import autoencoder, unet, vae
+    from neurosis_tpu_torch.modules import attention as attn_module
+    from neurosis_tpu_torch.ops import attention
+    from neurosis_tpu_torch.ops.flash_attention import flash_attention
+
+    for mod in (unet, vae, autoencoder):
+        monkeypatch.setattr(mod, "init_parameters", lambda module, generator: None)
+    rows = []
+
+    def watch(q, k, v, mask=None):
+        rows.append((tuple(q.shape), tuple(k.shape), q.dtype, attention.uses_flash(q, mask)))
+        return attention.dot_product_attention(q, k, v, mask)
+
+    monkeypatch.setattr(attn_module, "dot_product_attention", watch)
+    monkeypatch.setattr(vae, "dot_product_attention", watch)
+
+    cfg = yaml.safe_load((ROOT / config).read_text())
+    model, data = cfg["model"]["init_args"], cfg["data"]["init_args"]
+    res, batch = data.get("resolution", 1024), data.get("batch_size", 1)
+    dtype = torch.bfloat16 if cfg["trainer"].get("precision") in _BF16_PRECISIONS else None
+    meta = dict(device="meta", generator=torch.Generator())
+    image = torch.empty(batch, res, res, 3, device="meta")
+    with torch.no_grad():
+        if "ddconfig" in model:  # the VAE-GAN trainer: encoder and decoder in the trainer's dtype
+            dd = model["ddconfig"]
+            ae = autoencoder.AutoencoderKL(dd, embed_dim=dd["z_channels"], dtype=dtype, **meta)
+            side = res // 2 ** (len(dd["ch_mult"]) - 1)
+            ae.decode(ae.encode(image)[..., :dd["z_channels"]])
+            assert ae.decode(torch.empty(batch, side, side, dd["z_channels"], device="meta")).shape == image.shape
+        else:  # a diffusion engine: the frozen fp32 encode, then its UNet
+            fs = model["first_stage_model"]["init_args"]
+            autoencoder.AutoencoderKL(fs["ddconfig"], embed_dim=fs["embed_dim"], **meta).encode(image)
+            args = model["model"]["init_args"]
+            keep = inspect.signature(unet.UNetModel).parameters
+            net = unet.UNetModel(**{k: v for k, v in args.items() if k in keep}, dtype=dtype, **meta)
+            x = torch.empty(batch, res // 8, res // 8, args["in_channels"], device="meta")
+            y = torch.empty(batch, args["adm_in_channels"], device="meta") if args.get("num_classes") else None
+            net(x, torch.empty(batch, device="meta"), torch.empty(batch, 77, args["context_dim"], device="meta"), y=y)
+
+    flash_rows = [r for r in rows if r[3]]
+    assert flash_rows, f"{config}: no attention row reaches the flash gate"
+    dims = _kernel_dims()
+    fwd_calls = [c for c in kernel_stub if "_fwd_" in c[0]]
+    assert len(fwd_calls) == len(flash_rows) == len(kernel_stub)
+    for (entry, d), (q_shape, _, q_dtype, _) in zip(fwd_calls, flash_rows):
+        assert entry == ("flash_fwd_bf16" if q_dtype == torch.bfloat16 else "flash_fwd_f32")
+        assert d in dims[entry] and d >= q_shape[-1], (config, q_shape, q_dtype)
+    kernel_stub.clear()
+    distinct = sorted(set((q, kv, str(dt)) for q, kv, dt, _ in flash_rows))
+    for q_shape, kv_shape, dt in distinct:
+        dt = getattr(torch, dt.split(".")[-1])
+        q = torch.empty(q_shape, device="meta", dtype=dt, requires_grad=True)
+        kv = torch.empty(kv_shape, device="meta", dtype=dt, requires_grad=True)
+        flash_attention(q, kv, kv).sum().backward()
+    bwd_calls = [c for c in kernel_stub if "_bwd_" in c[0]]
+    assert len(bwd_calls) == len(distinct)
+    assert all(d in dims[entry] for entry, d in bwd_calls)
 
 
 @pytest.mark.parametrize("name,kind", [
