@@ -69,9 +69,12 @@ import sys
 import time
 from pathlib import Path
 
-# published H100 SXM peaks: dense bf16 tensor-core rate, fp32 FFMA rate on the
-# CUDA cores (the fp32 flash kernels' units) and HBM3 bandwidth
+# published H100 SXM peaks: dense bf16 and TF32 tensor-core rates, fp32 FFMA rate
+# on the CUDA cores (the fp32 flash backward's units) and HBM3 bandwidth. The fp32
+# flash forward forms each fp32 product as three TF32 products (split operands),
+# so its peak is a third of the TF32 rate.
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 494.7e12
 PEAK_FP32_FLOPS = 66.9e12
 PEAK_BYTES_PER_S = 3.35e12
 OUT_FILE = Path("chiprun_out") / "chip_smoke.json"
@@ -164,7 +167,7 @@ PATHS = {"sd15": ("slice", "SD1.5 train step"),
 # tolerances on max|kernel - plain| / max|plain|, same bf16 inputs on both sides
 TOL = {
     "flash_fwd": 2e-2,  # kernel rounds P to bf16 before P.V; both round O to bf16
-    "flash_fwd_f32": 2e-5,  # fp32 throughout on both sides (FFMA, no TF32), sums in another order
+    "flash_fwd_f32": 2e-5,  # fp32 accuracy on both sides: three TF32 products of split operands, sums in another order
     "flash_lse": 1e-3,  # fp32 both sides, absolute in log2 units
     "flash_bwd": 5e-2,  # kernel rounds P and dS to bf16 and sums dQ with fp32 atomics
     "flash_bwd_f32": 1e-4,  # fp32 throughout on both sides; dQ summed by atomics in a changing order
@@ -249,6 +252,23 @@ def time_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernels_ms(torch, fn) -> dict:
+    """Device ms of each kernel that one ``fn()`` launches, by name (the fp32
+    forward's split passes apart from its main kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
+            out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -295,7 +315,7 @@ def check_flash(torch, log: list) -> dict:
         name, bwd_name = ("flash_fwd_f32", "flash_bwd_f32") if is_f32 else ("flash_fwd", "flash_bwd")
         fwd = fa.flash_fwd_f32 if is_f32 else fa.flash_fwd
         bwd = fa.flash_bwd_f32 if is_f32 else fa.flash_bwd
-        peak = PEAK_FP32_FLOPS if is_f32 else PEAK_BF16_FLOPS  # fp32 FFMA or bf16 tensor cores
+        peak = PEAK_TF32_FLOPS / 3 if is_f32 else PEAK_BF16_FLOPS  # split TF32 or bf16 tensor cores
         b, h, sq, skv, d = shape
         g = torch.Generator("cuda").manual_seed(sum(shape) + is_f32)
         q, do = (torch.randn(b, h, sq, d, generator=g, device="cuda").to(dtype) for _ in range(2))
@@ -314,12 +334,17 @@ def check_flash(torch, log: list) -> dict:
         elem = q.element_size()
         bh_in = b * h * (sq + 2 * skv) * d * elem
         t, by = bound_ms(4.0 * b * h * sq * skv * d, bh_in + b * h * sq * (d * elem + 4), peak)
+        extra = {}
+        if is_f32:  # beside it, the bound of the same work on the CUDA cores (FFMA), and its kernels' parts
+            extra["ffma_bound_ms"] = bound_ms(4.0 * b * h * sq * skv * d, bh_in + b * h * sq * (d * elem + 4),
+                                              PEAK_FP32_FLOPS)[0]
+            extra["kernels_ms"] = kernels_ms(torch, lambda: fwd(qs, k, v))
         rows[name].append(dict(
             path=path, shape=tag, per_step=n_fwd, max_abs_err=err, rel_err=rel,
             ms=time_ms(torch, lambda: fwd(qs, k, v)),
             plain_ms=time_ms(torch, lambda: fa.flash_fwd_plain(qs, k, v), iters=3, warmup=1),
             library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v)),
-            bound_ms=t, bound_by=by))
+            bound_ms=t, bound_by=by, **extra))
         if not n_bwd:  # a forward-only shape: a frozen encode, the overlap tool's base cases
             del q, k, v, do, qs, o, o_ref
             torch.cuda.empty_cache()
@@ -337,7 +362,8 @@ def check_flash(torch, log: list) -> dict:
         lib_out = F.scaled_dot_product_attention(qg, kg, vg)
         # reads q~, k, v, dO and LSE, Di (fp32); writes dq, dk, dv
         t, by = bound_ms(10.0 * b * h * sq * skv * d,
-                         bh_in + b * h * sq * (d * elem + 8) + b * h * (sq + 2 * skv) * d * elem, peak)
+                         bh_in + b * h * sq * (d * elem + 8) + b * h * (sq + 2 * skv) * d * elem,
+                         PEAK_FP32_FLOPS if is_f32 else PEAK_BF16_FLOPS)  # the fp32 backward is FFMA
         rows[bwd_name].append(dict(
             path=path, shape=tag, per_step=n_bwd, max_abs_err=max(e for e, _ in errs), rel_err=max(r for _, r in errs),
             ms=time_ms(torch, lambda: bwd(qs, k, v, do, lse_ref, di, scale)),
@@ -767,12 +793,15 @@ SDXL_BIGG = dict(width=1280, layers=32, heads=20)
 
 def step_totals(rows: dict, path: str) -> dict:
     """Per kernel, from one path's shape tables and phase 3's times: launches
-    per step (or pair) of that path, their summed time and summed bound."""
+    per step (or pair) of that path, their summed time and summed bound (and
+    the fp32 forward's FFMA bound beside it)."""
     out = {}
     for name, rs in rows.items():
         rs = [r for r in rs if r["path"] == path]
         out[name] = dict(launches=sum(r["per_step"] for r in rs), ms=sum(r["per_step"] * r["ms"] for r in rs),
                          bound_ms=sum(r["per_step"] * r["bound_ms"] for r in rs))
+        if any("ffma_bound_ms" in r for r in rs):
+            out[name]["ffma_bound_ms"] = sum(r["per_step"] * r["ffma_bound_ms"] for r in rs)
     return out
 
 
@@ -784,8 +813,9 @@ def check_launches(launches: dict, totals: dict, units: int, label: str) -> None
     if missing:
         raise PhaseError(f"{label} never launched {missing}")
     for name, tot in totals.items():
+        ffma = f", FFMA bound {tot['ffma_bound_ms']:.3f} ms" if "ffma_bound_ms" in tot else ""
         print(f"{name} per {label} unit: {tot['launches']} launches, {tot['ms']:.3f} ms at the phase-3 times, "
-              f"bound {tot['bound_ms']:.3f} ms", flush=True)
+              f"bound {tot['bound_ms']:.3f} ms{ffma}", flush=True)
     unlisted = {k: n for k, n in launches.items() if n != units * totals[k]["launches"]}
     if unlisted:
         raise PhaseError(f"{label} launches {unlisted} differ from the shape tables' counts x {units}")
@@ -1071,8 +1101,11 @@ def main() -> int:
         for name, rs in rows.items():
             for r in rs:
                 lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.3f}"
+                ffma = f", FFMA bound {r['ffma_bound_ms']:.3f} ms" if "ffma_bound_ms" in r else ""
+                if "kernels_ms" in r:
+                    ffma += "; " + ", ".join(f"{k} {v:.3f}" for k, v in r["kernels_ms"].items())
                 print(f"{name} {r['shape']} ({r['path']}): {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
-                      f"library {lib} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']})", flush=True)
+                      f"library {lib} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']}){ffma}", flush=True)
 
         report["reference"] = reference_step(torch, log)
         report["reference_sdxl"] = reference_step(torch, log, sdxl=True)
@@ -1109,7 +1142,8 @@ def main() -> int:
                             launches=sum(by_path.values()), launches_by_path=by_path,
                             max_abs_err=head["max_abs_err"], ms=head["ms"], plain_ms=head["plain_ms"],
                             bound_ms=head["bound_ms"], bound_by=head["bound_by"], library_ms=head["library_ms"],
-                            shape=head["shape"], path=head["path"]))
+                            shape=head["shape"], path=head["path"],
+                            **({"ffma_bound_ms": head["ffma_bound_ms"]} if "ffma_bound_ms" in head else {})))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
 // Flash attention forward and backward for Hopper (sm_90a), bf16 in, fp32 accumulate,
-// and an fp32 forward and backward (FFMA) for the models that run in fp32.
+// and an fp32 forward (split-TF32 tensor cores) and backward (FFMA) for the models
+// that run in fp32.
 //
 // Replaces the Pallas TPU kernels of neurosis_tpu/ops/flash_attention.py:
 //   forward  : _fwd_kernel (:297), _fwd_chunked_kernel (:366),
@@ -79,26 +80,52 @@
 //              warp owns 4 of the 32 16-wide column tiles of each. dQ goes
 //              to the fp32 buffer with vector (float4) atomics (~187 KB).
 //
-// fp32, FFMA, at padded head dims DP = 64, 96, 160, 512 (the caller zero-pads
-// other d <= 512 to the next of them): the frozen VAE encode and the UNets of
-// the configs without a precision key run in fp32 and the JAX kernels take fp32
-// there, so these kernels stay in fp32 end to end, on the CUDA cores (not TF32
-// tensor cores: TF32 keeps 10 mantissa bits and would change the fp32 island's
-// numbers). Bound on the H100 by the FFMA rate (67 TFLOP/s). A lane owns DP / 32
-// columns of a row (F32Cols: four float4 groups at DP = 512).
-//   forward  : 32 query rows, 256 threads, 64-row kv tiles in shared memory;
-//              each warp owns 4 query rows for both the softmax and P.V, so
-//              O (4 rows x DP per warp) stays in registers and is rescaled
-//              there.
+// fp32 at padded head dims DP = 64, 96, 160, 512 (the caller zero-pads other
+// d <= 512 to the next of them): the frozen VAE encode and the UNets of the
+// configs without a precision key run in fp32, and the JAX kernels take fp32
+// there (feeding the MXU fp32 operands at its multi-pass fp32 rate, JAX's
+// ops/flash_attention.py:317-319), so these kernels keep fp32 accuracy.
+//   forward (flash_fwd_f32_wgmma): on the tensor cores by split TF32. One TF32
+//     product keeps 11 significant bits of each operand, which would change the
+//     fp32 island's numbers; three do not. Each operand x is written as x = hi +
+//     lo + e, hi the nearest tf32 to x, lo the nearest tf32 to x - hi (exact in
+//     fp32, |x - hi| <= 2^-11 |x|), |e| <= 2^-22 |x|, and a b = hi.hi + hi.lo +
+//     lo.hi (wgmma m64nNk8 .tf32, fp32 accumulate) up to the dropped lo.lo and
+//     the e terms, each about 2^-22 relative: fp32's own rounding, not TF32's.
+//     The hi parts have their low 13 bits clear, so what the tensor cores do
+//     with an operand's low bits never matters. Bound on the H100 by three
+//     times 4 B H Sq Skv D operations at the TF32 rate (494.7 TFLOP/s), and at
+//     d = 512 by L2: every block reads all of K and V.
+//     Design: three passes (flash_f32_split_rows for q~ and K, flash_f32_split_vt
+//     for V) write hi and lo of each operand to scratch, V transposed: TF32
+//     wgmma takes no transposed operand, so both operands of P V are K-major
+//     and V^T is stored keys-contiguous, as JAX's wrapper transposes to
+//     D-major outside its kernel (:1269-1272). Then the pipeline of the bf16
+//     kernels: a producer warpgroup moves 32-column boxes (128 bytes, the
+//     swizzle's row) by TMA through one ring; per kv tile of 64 keys it loads
+//     the head dim's chunks of q~ and K (hi, lo), then the V^T boxes. q~ is
+//     streamed with K, not held: at d = 512 its hi and lo (64 rows) would take
+//     256 KB. Two consumer warpgroups run the products with the accumulators
+//     in registers, each chunk's wgmmas in flight while the next is awaited,
+//     the online softmax in registers, and P = 2^(S - max) split into hi and lo
+//     in shared memory in the swizzle TMA writes (fence.proxy.async, a named
+//     barrier), from where P V reads it as the K-major A operand.
+//     DP <= 160: a block owns 128 query rows, each warpgroup 64 with its own S,
+//     P and O, so each K/V box read from L2 serves 128 rows.
+//     DP = 512: a block owns 64 rows (O is 256 fp32 registers a thread for one
+//     warpgroup): warpgroup w forms the logits of keys 32 w .. +31 of each
+//     tile and owns O's columns 256 w .. +255. The row maxima meet in shared
+//     memory behind a named barrier, each keeps its part of the row sum (added
+//     once at the end), and both read the tile's whole P from shared memory.
 //   backward : an fp32 K tile plus V tile of 16 rows is 64 KB at DP = 512 and
 //              there are no WMMA fragments to keep dK/dV in, so a block owns
 //              16 kv rows, walks q in 32-row tiles (q~ and dO tiles) and keeps
 //              dK/dV in plain registers: warp w owns kv rows 2w, 2w+1, lane l
-//              the forward's columns. Logits and dP are split between the two
+//              DP / 32 columns (F32Cols). Logits and dP are split between the two
 //              halves of the block; dQ of the warp's 4 query rows is formed in
 //              registers and added to the zeroed fp32 buffer with vector
 //              atomics (~199 KB at DP = 512, one block per SM). Bound by the
-//              FFMA rate: 10 B H Sq Skv D operations.
+//              FFMA rate (67 TFLOP/s): 10 B H Sq Skv D operations.
 
 #include <math.h>
 #include <mma.h>
@@ -913,10 +940,10 @@ __global__ void __launch_bounds__(NT5) flash_bwd512_kernel(BwdArgs a) {
 }
 
 // ---------------------------------------------------------------------------
-// fp32 forward and backward (FFMA), templated over the padded head dim DP
+// fp32 forward (split TF32) and backward (FFMA), templated over the padded head dim DP
 // ---------------------------------------------------------------------------
 
-// Column layout of a DP-wide fp32 row over a warp: DP / 32 columns a lane, in
+// The backward's column layout of a DP-wide fp32 row over a warp: DP / 32 columns a lane, in
 // VEC-wide groups (the widest of 4, 2, 1 that DP / 32 divides into); lane l owns
 // columns VEC l + 32 VEC m + e, m < GROUPS, e < VEC, held at index VEC m + e. At
 // DP = 512 that is 4 l + 128 m, four float4 groups.
@@ -965,139 +992,407 @@ __device__ __forceinline__ void atomic_add_vec(float* p, const float* r) {
   }
 }
 
-constexpr int BQF = 32;           // forward: query rows per block
-constexpr int BKF = 64;           // forward: kv rows per tile
-constexpr int LDSF = BKF + 4;     // fp32 row stride of the logits tile
+// ---- fp32 forward: split-TF32 wgmma ------------------------------------------
 
-struct FwdArgsF32 {
-  const float* q;
-  const float* k;
-  const float* v;
-  int64_t q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
-  float* o;               // [B, H, Sq, DP] contiguous
-  float* lse;             // [B, H, Sq] contiguous
-  int heads, sq, skv;
-};
+constexpr int FKT = 64;  // fp32 forward: kv rows (keys) per tile
+constexpr uint32_t TF32_MASK = 0xffffe000u;
 
-template <int DP>
-constexpr size_t fwdf32_smem_bytes() {
-  return sizeof(float) * ((size_t)(BQF + BKF) * F32Cols<DP>::LD + (size_t)BQF * LDSF);
+// x rounded to the nearest tf32 (ties away from zero), its low 13 bits clear
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return __uint_as_float(r & TF32_MASK);
+}
+
+// x = hi + lo + e: hi the nearest tf32 to x, lo the nearest tf32 to x - hi
+// (exact in fp32, |x - hi| <= 2^-11 |x|), so |e| <= 2^-22 |x|
+__device__ __forceinline__ void tf32_split(float x, float& hi, float& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - hi);
+}
+
+// hi and lo of a strided fp32 [B, H, S, DP] operand (unit stride on DP, rows
+// 16-byte aligned) into dst [2][B*H][S][DP], contiguous: four columns a thread
+__global__ void __launch_bounds__(256) flash_f32_split_rows(const float* src, int64_t sb, int64_t sh, int64_t ss,
+                                                            int heads, int rows, int dp, int64_t total4, float* dst) {
+  const int64_t plane = total4 * 4;  // elements of one of hi, lo
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < total4; i += (int64_t)gridDim.x * blockDim.x) {
+    const int64_t e = i * 4, r = e / dp, bh = r / rows;
+    const int col = (int)(e % dp), row = (int)(r % rows);
+    const float4 x = *reinterpret_cast<const float4*>(src + (bh / heads) * sb + (bh % heads) * sh + row * ss + col);
+    float4 hi, lo;
+    tf32_split(x.x, hi.x, lo.x);
+    tf32_split(x.y, hi.y, lo.y);
+    tf32_split(x.z, hi.z, lo.z);
+    tf32_split(x.w, hi.w, lo.w);
+    *reinterpret_cast<float4*>(dst + e) = hi;
+    *reinterpret_cast<float4*>(dst + plane + e) = lo;
+  }
+}
+
+// hi and lo of V^T: V strided fp32 [B, H, Skv, DP] (unit stride on DP) into
+// dst [2][B*H][DP][skv4], contiguous (skv4 = Skv rounded up to 4; keys past Skv
+// are zero), through 32 x 32 tiles so that reads and writes are both coalesced
+__global__ void __launch_bounds__(256) flash_f32_split_vt(const float* src, int64_t sb, int64_t sh, int64_t ss,
+                                                          int heads, int skv, int skv4, int dp, float* dst) {
+  __shared__ float tile[32][33];
+  const int bh = blockIdx.z, key0 = blockIdx.x * 32, col0 = blockIdx.y * 32;
+  const float* v = src + (bh / heads) * sb + (bh % heads) * sh;
+  for (int r = threadIdx.y; r < 32; r += 8) {
+    const int key = key0 + r;
+    tile[r][threadIdx.x] = key < skv ? v[(int64_t)key * ss + col0 + threadIdx.x] : 0.0f;
+  }
+  __syncthreads();
+  const int64_t plane = (int64_t)gridDim.z * dp * skv4;
+  const int key = key0 + threadIdx.x;
+  if (key >= skv4) return;
+  for (int r = threadIdx.y; r < 32; r += 8) {
+    float hi, lo;
+    tf32_split(tile[threadIdx.x][r], hi, lo);
+    const int64_t at = ((int64_t)bh * dp + col0 + r) * skv4 + key;
+    dst[at] = hi;
+    dst[plane + at] = lo;
+  }
 }
 
 template <int DP>
-__global__ void __launch_bounds__(NT5, 1) flash_fwd_f32_kernel(FwdArgsF32 a) {
-  using C = F32Cols<DP>;
-  constexpr int LDF = C::LD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* sQ = reinterpret_cast<float*>(smem);
-  float* sKV = sQ + BQF * LDF;
-  float* sS = sKV + BKF * LDF;
+struct FwdF32Cfg {
+  static constexpr bool WIDE = DP == 512;        // O split by column over the two warpgroups
+  static constexpr int QR = WIDE ? 64 : 128;     // query rows per block
+  static constexpr int NC = DP / 32;             // 32-column chunks of the head dim
+  static constexpr int SN = WIDE ? 32 : FKT;     // logits columns a warpgroup forms per tile
+  static constexpr int ON = WIDE ? 256 : DP;     // O columns a warpgroup owns
+  static constexpr int Q_BOX = QR * ROW;         // 32 columns of the block's q~ rows
+  static constexpr int K_BOX = FKT * ROW;        // 32 columns of a tile's keys
+  static constexpr int V_ROWS = WIDE ? 64 : DP;  // rows of V^T (O columns) in one box
+  static constexpr int V_BOX = V_ROWS * ROW;     // 32 keys of them
+  static constexpr int S_STAGE = 2 * Q_BOX + 2 * K_BOX;     // q~ and K chunks, hi and lo
+  static constexpr int PV_STAGE = (WIDE ? 4 : 2) * V_BOX;   // V^T hi and lo (of both warpgroups at 512)
+  static constexpr int PV_STAGES = WIDE ? 8 : 2;  // per tile: key halves (x 4 column blocks at 512)
+  static constexpr int SLOT = S_STAGE > PV_STAGE ? S_STAGE : PV_STAGE;
+  static constexpr int SLOTS = WIDE ? 5 : 3;
+  static constexpr int P_BOX = 64 * ROW;          // 32 keys of P for 64 rows
+  static constexpr int P_BYTES = 4 * P_BOX;       // hi and lo of a tile's 64 keys
+  static constexpr int N_P = WIDE ? 1 : 2;        // one P shared at 512, else one a warpgroup
+  static constexpr size_t SMEM = 1024 + (size_t)SLOTS * SLOT + N_P * P_BYTES + 2 * 64 * sizeof(float) +
+                                 8 * 2 * SLOTS;
+  static_assert(DP % 32 == 0 && (WIDE || DP <= 256), "V^T boxes hold at most 256 rows");
+  static_assert(SMEM <= 232448, "the block's shared memory exceeds the H100's 227 KB");
+};
+
+struct FwdF32Tma {
+  CUtensorMap q, k, vt;  // split operands [2 (hi, lo), B*H, rows, cols]: boxes of 32 columns
+  float* o;              // [B, H, Sq, DP] contiguous
+  float* lse;            // [B, H, Sq] contiguous
+  int sq, skv;
+};
+
+// d (+)= q~ K^T over one 32-column chunk of the head dim (four k8 steps), the
+// small products (hi.lo, lo.hi) first and hi.hi last, as in pv_tile_tf32
+template <int N>
+__device__ __forceinline__ void qk_chunk_tf32(float (&d)[N / 2], const unsigned char* qh, const unsigned char* ql,
+                                              const unsigned char* kh, const unsigned char* kl, int accumulate) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    WgmmaTf32<N>::ss(d, sw128_desc(qh + 32 * kk, 0), sw128_desc(kl + 32 * kk, 0), accumulate || kk > 0);
+    WgmmaTf32<N>::ss(d, sw128_desc(ql + 32 * kk, 0), sw128_desc(kh + 32 * kk, 0), 1);
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) WgmmaTf32<N>::ss(d, sw128_desc(qh + 32 * kk, 0), sw128_desc(kh + 32 * kk, 0), 1);
+}
+
+// d = P V over a tile's 64 keys (two V^T stages of 32 keys each), into a fresh
+// accumulator: P (64 rows) and V^T (N rows) both K-major, hi boxes at ph and
+// vh0 / vh1, lo boxes P_LO and v_lo bytes on. The tensor cores sum a wgmma's
+// products into the accumulator with an error of the order of its last bit, so
+// the small products (hi.lo, lo.hi) go first, while the sum is small, and hi.hi
+// last; the caller adds the tile into O in fp32, so the error does not grow
+// with the number of tiles.
+template <int N>
+__device__ __forceinline__ void pv_tile_tf32(float (&d)[N / 2], const unsigned char* ph, const unsigned char* vh0,
+                                             const unsigned char* vh1, int v_lo) {
+  constexpr int P_BOX = 64 * ROW, P_LO = 2 * P_BOX;
+#pragma unroll
+  for (int kh = 0; kh < 2; ++kh) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const unsigned char* pk = ph + kh * P_BOX + 32 * kk;
+      const unsigned char* vk = (kh ? vh1 : vh0) + 32 * kk;
+      WgmmaTf32<N>::ss(d, sw128_desc(pk, 0), sw128_desc(vk + v_lo, 0), kh > 0 || kk > 0);
+      WgmmaTf32<N>::ss(d, sw128_desc(pk + P_LO, 0), sw128_desc(vk, 0), 1);
+    }
+  }
+#pragma unroll
+  for (int kh = 0; kh < 2; ++kh) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      WgmmaTf32<N>::ss(d, sw128_desc(ph + kh * P_BOX + 32 * kk, 0), sw128_desc((kh ? vh1 : vh0) + 32 * kk, 0), 1);
+    }
+  }
+}
+
+__device__ __forceinline__ void release_slot(uint64_t* empty, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(empty);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(NT_WS, 1) flash_fwd_f32_wgmma(const __grid_constant__ FwdF32Tma p) {
+  using C = FwdF32Cfg<DP>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align1024(smem_raw);                       // [slot] stages
+  unsigned char* sP = ring + C::SLOTS * C::SLOT;                   // [buffer][hi, lo][key half]
+  float* red = reinterpret_cast<float*>(sP + C::N_P * C::P_BYTES);  // [warpgroup][64 rows]
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + 2 * 64);
+  uint64_t* empty = full + C::SLOTS;
 
   const int bh = blockIdx.y;
-  const int b = bh / a.heads, h = bh % a.heads;
-  const int q0 = blockIdx.x * BQF;
+  const int q0 = blockIdx.x * C::QR;
+  const int n_tiles = (p.skv + FKT - 1) / FKT;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const Rows<float> q = {a.q + b * a.q_sb + h * a.q_sh, a.q_ss};
-  const Rows<float> k = {a.k + b * a.k_sb + h * a.k_sh, a.k_ss};
-  const Rows<float> v = {a.v + b * a.v_sb + h * a.v_sh, a.v_ss};
 
-  load_tile<BQF, DP, LDF, NT5>(sQ, q, q0, a.sq, DP);
-
-  // logits: thread t owns rows 2 (t / 16) + {0, 1}, columns t % 16 + 16 j
-  const int s_r = (threadIdx.x / 16) * 2, s_c = threadIdx.x % 16;
-  // softmax and P.V: warp w owns query rows 4 w .. 4 w + 3, lane l the columns of F32Cols
-  float o[4][C::N];
-  float m_run[4], l_run[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_run[i] = -INFINITY;
-    l_run[i] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < C::N; ++c) o[i][c] = 0.0f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::SLOTS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NCW);
+    }
+    mbar_fence_init();
   }
+  __syncthreads();
 
-  for (int k0 = 0; k0 < a.skv; k0 += BKF) {
-    __syncthreads();  // the previous tile's readers of sKV/sS are done
-    load_tile<BKF, DP, LDF, NT5>(sKV, k, k0, a.skv, DP);
-    __syncthreads();
-    {
-      float acc[2][4] = {};
-      for (int kk = 0; kk < DP; kk += 4) {
-        float4 qv[2], kv[4];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) qv[i] = *reinterpret_cast<const float4*>(sQ + (s_r + i) * LDF + kk);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) kv[j] = *reinterpret_cast<const float4*>(sKV + (s_c + 16 * j) * LDF + kk);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            acc[i][j] = fmaf(qv[i].x, kv[j].x, acc[i][j]);
-            acc[i][j] = fmaf(qv[i].y, kv[j].y, acc[i][j]);
-            acc[i][j] = fmaf(qv[i].z, kv[j].z, acc[i][j]);
-            acc[i][j] = fmaf(qv[i].w, kv[j].w, acc[i][j]);
+  if (warp >= NCW) {
+    // producer: per kv tile, NC stages of (q~, K) chunks along the head dim,
+    // then PV_STAGES stages of V^T, all through one ring
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (warp == NCW && lane == 0) {
+      int n = 0;
+      for (int t = 0; t < n_tiles; ++t) {
+        for (int i = 0; i < C::NC + C::PV_STAGES; ++i, ++n) {
+          const int slot = n % C::SLOTS;
+          unsigned char* st = ring + slot * C::SLOT;
+          uint64_t* bar = &full[slot];
+          mbar_wait(&empty[slot], ((n / C::SLOTS) & 1) ^ 1);
+          if (i < C::NC) {
+            mbar_arrive_tx(bar, C::S_STAGE);
+            for (int part = 0; part < 2; ++part) {
+              tma_load_4d(st + part * C::Q_BOX, &p.q, bar, 32 * i, q0, bh, part);
+              tma_load_4d(st + 2 * C::Q_BOX + part * C::K_BOX, &p.k, bar, 32 * i, t * FKT, bh, part);
+            }
+          } else {
+            const int v = i - C::NC;
+            const int key = t * FKT + 32 * (v % 2);
+            mbar_arrive_tx(bar, C::PV_STAGE);
+            for (int part = 0; part < 2; ++part) {
+              if constexpr (C::WIDE) {  // column block v / 2 of each warpgroup's 256 columns
+                for (int w = 0; w < 2; ++w) {
+                  tma_load_4d(st + (2 * part + w) * C::V_BOX, &p.vt, bar, key, 256 * w + 64 * (v / 2), bh, part);
+                }
+              } else {
+                tma_load_4d(st + part * C::V_BOX, &p.vt, bar, key, 0, bh, part);
+              }
+            }
           }
         }
       }
+    }
+  } else {
+    // consumers. DP <= 160: warpgroup wg owns query rows wg * 64 .. +63 of the
+    // block, all of a tile's logits and all of O's columns. DP = 512: both own
+    // the block's 64 rows; warpgroup wg forms the logits of keys 32 wg .. +31 of
+    // each tile and owns O's columns 256 wg .. +255. This thread holds rows r and
+    // r + 8 of the warpgroup's 64, columns 8 c + 2 qd + {0, 1} of the accumulators
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int wg = warp / 4, g = lane / 4, qd = lane % 4;
+    const int r = (warp % 4) * 16 + g;
+    const int row = q0 + (C::WIDE ? 0 : wg * 64) + r;
+    const int key0 = C::WIDE ? 32 * wg : 0;  // this warpgroup's first key of a tile
+    unsigned char* pbuf = sP + (C::WIDE ? 0 : wg * C::P_BYTES);
+    float o[C::ON / 2];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < C::ON / 2; ++i) o[i] = 0.0f;
+    float o_tile[C::WIDE ? 32 : DP / 2];  // one tile's P V, added into O in fp32
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
+    float s_acc[C::SN / 2];
+    int n = 0;
+
+    for (int t = 0; t < n_tiles; ++t) {
+      // S = q~ K^T in 32-column chunks of the head dim, each chunk's products in
+      // flight while the next chunk is awaited. At 512 (128 k8 steps, 384
+      // wgmmas) each chunk goes to a fresh accumulator that is added into S in
+      // fp32, as O's tiles are (pv_tile_tf32); at DP <= 160 the chunks sum in place
+      if constexpr (C::WIDE) {
+        float s_part[2][C::SN / 2];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) sS[(s_r + i) * LDSF + s_c + 16 * j] = acc[i][j];
+        for (int c = 0; c < C::NC; ++c, ++n) {
+          const int slot = n % C::SLOTS;
+          mbar_wait(&full[slot], (n / C::SLOTS) & 1);
+          const unsigned char* st = ring + slot * C::SLOT;
+          const unsigned char* kh = st + 2 * C::Q_BOX + key0 * ROW;
+          wgmma_fence();
+          qk_chunk_tf32<C::SN>(s_part[c % 2], st, st + C::Q_BOX, kh, kh + C::K_BOX, 0);
+          wgmma_commit();
+          if (c > 0) {
+            wgmma_wait<1>();
+            reg_fence(s_part[(c - 1) % 2]);
+            release_slot(&empty[(n - 1) % C::SLOTS], lane);
+#pragma unroll
+            for (int i = 0; i < C::SN / 2; ++i) s_acc[i] = c == 1 ? s_part[0][i] : s_acc[i] + s_part[(c - 1) % 2][i];
+          }
+        }
+        wgmma_wait<0>();
+        reg_fence(s_part[(C::NC - 1) % 2]);
+#pragma unroll
+        for (int i = 0; i < C::SN / 2; ++i) s_acc[i] += s_part[(C::NC - 1) % 2][i];
+      } else {
+#pragma unroll 1
+        for (int c = 0; c < C::NC; ++c, ++n) {
+          const int slot = n % C::SLOTS;
+          mbar_wait(&full[slot], (n / C::SLOTS) & 1);
+          const unsigned char* st = ring + slot * C::SLOT;
+          const unsigned char* qh = st + wg * 64 * ROW;
+          const unsigned char* kh = st + 2 * C::Q_BOX;
+          wgmma_fence();
+          qk_chunk_tf32<C::SN>(s_acc, qh, qh + C::Q_BOX, kh, kh + C::K_BOX, c > 0);
+          wgmma_commit();
+          if (c > 0) {
+            wgmma_wait<1>();
+            release_slot(&empty[(n - 1) % C::SLOTS], lane);
+          }
+        }
+        wgmma_wait<0>();
+        reg_fence(s_acc);
       }
-    }
-    __syncthreads();  // S is whole and K is no longer read
-    load_tile<BKF, DP, LDF, NT5>(sKV, v, k0, a.skv, DP);
+      release_slot(&empty[(n - 1) % C::SLOTS], lane);
 
-    // online softmax of this warp's rows; P overwrites S, O is rescaled in registers
-    const int kv_valid = min(BKF, a.skv - k0);
+      const int valid = p.skv - t * FKT - key0;  // the kv tail: TMA's zero rows become -inf
+      if (valid < C::SN) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = warp * 4 + i;
-      const float s0 = lane < kv_valid ? sS[r * LDSF + lane] : -INFINITY;
-      const float s1 = lane + 32 < kv_valid ? sS[r * LDSF + lane + 32] : -INFINITY;
-      const float m_new = fmaxf(m_run[i], warp_max(fmaxf(s0, s1)));
-      const float p0 = exp2f(s0 - m_new);
-      const float p1 = exp2f(s1 - m_new);
-      const float alpha = exp2f(m_run[i] - m_new);
-      l_run[i] = l_run[i] * alpha + warp_sum(p0 + p1);
-      m_run[i] = m_new;
-      sS[r * LDSF + lane] = p0;
-      sS[r * LDSF + lane + 32] = p1;
+        for (int c = 0; c < C::SN / 8; ++c) {
 #pragma unroll
-      for (int c = 0; c < C::N; ++c) o[i][c] *= alpha;
-    }
-    __syncthreads();  // V is in place (P of this warp's rows is its own)
+          for (int j = 0; j < 2; ++j) {
+            if (8 * c + 2 * qd + j >= valid) s_acc[4 * c + j] = s_acc[4 * c + 2 + j] = -INFINITY;
+          }
+        }
+      }
 
-    for (int j = 0; j < BKF; ++j) {
-      float p[4];
+      // online softmax; at 512 the two warpgroups' row maxima meet in shared
+      // memory, and each keeps its own part of the row sum (added at the end)
+      float mx0 = m0, mx1 = m1;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = sS[(warp * 4 + i) * LDSF + j];
+      for (int c = 0; c < C::SN / 8; ++c) {
+        mx0 = fmaxf(mx0, fmaxf(s_acc[4 * c], s_acc[4 * c + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s_acc[4 * c + 2], s_acc[4 * c + 3]));
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      if constexpr (C::WIDE) {
+        if (qd == 0) {
+          red[wg * 64 + r] = mx0;
+          red[wg * 64 + r + 8] = mx1;
+        }
+        named_bar_sync(1, 2 * 128);
+        mx0 = fmaxf(mx0, red[(wg ^ 1) * 64 + r]);
+        mx1 = fmaxf(mx1, red[(wg ^ 1) * 64 + r + 8]);
+      }
+      const float a0 = exp2f(m0 - mx0), a1 = exp2f(m1 - mx1);
+      m0 = mx0;
+      m1 = mx1;
+      // P = 2^(S - max) as tf32 hi and lo into shared memory, K-major in the
+      // 128-byte swizzle that TMA writes: key j of row r at box j / 32, row r,
+      // 16-byte chunk (j % 32) / 4 XOR r % 8 (rows r and r + 8 share r % 8)
+      float sum0 = 0.0f, sum1 = 0.0f;
 #pragma unroll
-      for (int m = 0; m < C::GROUPS; ++m) {
-        float vv[C::VEC];
-        ld_vec<C::VEC>(sKV + j * LDF + C::col(lane, m), vv);
+      for (int c = 0; c < C::SN / 8; ++c) {
+        const float p00 = exp2f(s_acc[4 * c] - mx0), p01 = exp2f(s_acc[4 * c + 1] - mx0);
+        const float p10 = exp2f(s_acc[4 * c + 2] - mx1), p11 = exp2f(s_acc[4 * c + 3] - mx1);
+        sum0 += p00 + p01;
+        sum1 += p10 + p11;
+        const int j = key0 + 8 * c + 2 * qd;
+        unsigned char* at = pbuf + (j / 32) * C::P_BOX + r * ROW + ((((j % 32) / 4) ^ (r & 7)) * 16) + (j % 4) * 4;
+        float2 h0, l0v, h1, l1v;
+        tf32_split(p00, h0.x, l0v.x);
+        tf32_split(p01, h0.y, l0v.y);
+        tf32_split(p10, h1.x, l1v.x);
+        tf32_split(p11, h1.y, l1v.y);
+        *reinterpret_cast<float2*>(at) = h0;
+        *reinterpret_cast<float2*>(at + 8 * ROW) = h1;
+        *reinterpret_cast<float2*>(at + 2 * C::P_BOX) = l0v;
+        *reinterpret_cast<float2*>(at + 2 * C::P_BOX + 8 * ROW) = l1v;
+      }
+      l0 = l0 * a0 + sum0;  // this thread's part of the row sum; the quad adds at the end
+      l1 = l1 * a1 + sum1;
+      fence_proxy_async();  // P's stores -> the wgmma that reads them
+      if constexpr (C::WIDE) {
+        named_bar_sync(1, 2 * 128);
+      } else {
+        named_bar_sync(2 + wg, 128);
+      }
+
+      // O = O a + P V: each tile's P V in a fresh accumulator (pv_tile_tf32) over
+      // two V^T stages of 32 keys; at 512 in four blocks of 64 columns
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+      for (int j = 0; j < C::PV_STAGES / 2; ++j, n += 2) {
+        const int slot0 = n % C::SLOTS, slot1 = (n + 1) % C::SLOTS;
+        mbar_wait(&full[slot0], (n / C::SLOTS) & 1);
+        mbar_wait(&full[slot1], ((n + 1) / C::SLOTS) & 1);
+        const unsigned char* v0 = ring + slot0 * C::SLOT + (C::WIDE ? wg * C::V_BOX : 0);
+        const unsigned char* v1 = ring + slot1 * C::SLOT + (C::WIDE ? wg * C::V_BOX : 0);
+        constexpr int TN = C::WIDE ? 64 : DP;
+        float* oj = o + (TN / 2) * j;
+        wgmma_fence();
+        pv_tile_tf32<TN>(o_tile, pbuf, v0, v1, (C::WIDE ? 2 : 1) * C::V_BOX);
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(o_tile);
+        release_slot(&empty[slot0], lane);
+        release_slot(&empty[slot1], lane);
 #pragma unroll
-          for (int e = 0; e < C::VEC; ++e) o[i][C::VEC * m + e] = fmaf(p[i], vv[e], o[i][C::VEC * m + e]);
+        for (int c = 0; c < TN / 8; ++c) {
+          oj[4 * c] = fmaf(oj[4 * c], a0, o_tile[4 * c]);
+          oj[4 * c + 1] = fmaf(oj[4 * c + 1], a0, o_tile[4 * c + 1]);
+          oj[4 * c + 2] = fmaf(oj[4 * c + 2], a1, o_tile[4 * c + 2]);
+          oj[4 * c + 3] = fmaf(oj[4 * c + 3], a1, o_tile[4 * c + 3]);
         }
       }
     }
-  }
 
-  float* out = a.o + (int64_t)bh * a.sq * DP;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + warp * 4 + i;
-    if (row >= a.sq) continue;
-    const float inv = 1.0f / l_run[i];
-#pragma unroll
-    for (int m = 0; m < C::GROUPS; ++m) {
-      st_vec<C::VEC>(out + (int64_t)row * DP + C::col(lane, m), &o[i][C::VEC * m], inv);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    if constexpr (C::WIDE) {  // the other warpgroup's keys
+      if (qd == 0) {
+        red[wg * 64 + r] = l0;
+        red[wg * 64 + r + 8] = l1;
+      }
+      named_bar_sync(1, 2 * 128);
+      l0 += red[(wg ^ 1) * 64 + r];
+      l1 += red[(wg ^ 1) * 64 + r + 8];
     }
-    if (lane == 0) a.lse[(int64_t)bh * a.sq + row] = m_run[i] + log2f(l_run[i]);
+    const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
+    float* o_bh = p.o + (int64_t)bh * p.sq * DP + (C::WIDE ? 256 * wg : 0);
+#pragma unroll
+    for (int c = 0; c < C::ON / 8; ++c) {
+      const int col = 8 * c + 2 * qd;
+      if (row < p.sq) {
+        *reinterpret_cast<float2*>(o_bh + (int64_t)row * DP + col) = make_float2(o[4 * c] * inv0, o[4 * c + 1] * inv0);
+      }
+      if (row + 8 < p.sq) {
+        *reinterpret_cast<float2*>(o_bh + (int64_t)(row + 8) * DP + col) =
+            make_float2(o[4 * c + 2] * inv1, o[4 * c + 3] * inv1);
+      }
+    }
+    if ((!C::WIDE || wg == 0) && qd == 0) {
+      float* lse = p.lse + (int64_t)bh * p.sq;
+      if (row < p.sq) lse[row] = m0 + log2f(l0);
+      if (row + 8 < p.sq) lse[row + 8] = m1 + log2f(l1);
+    }
   }
 }
+
+// ---- fp32 backward (FFMA) ------------------------------------------------------
 
 constexpr int BKG = 16;           // backward: kv rows per block
 constexpr int BQG = 32;           // backward: query rows per tile
@@ -1369,13 +1664,54 @@ cudaError_t launch_bwd512(const BwdArgs& a, int batch, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// Map over a contiguous fp32 [2 (hi, lo), bh, rows, cols] split operand: boxes of
+// 32 columns (128 bytes, the swizzle's row) x box_rows rows of one (part, b*h),
+// 128-byte swizzle; rows and columns past the ends read as zero.
+bool f32_split_map(CUtensorMap* map, const float* base, int64_t bh, int64_t rows, int64_t cols, int box_rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)bh, 2};
+  const cuuint64_t strides[3] = {(cuuint64_t)cols * 4, (cuuint64_t)(rows * cols) * 4, (cuuint64_t)(bh * rows * cols) * 4};
+  const cuuint32_t box[4] = {32, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<float*>(base), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+void launch_split_rows(View x, int64_t bh, int64_t heads, int64_t rows, int dp, float* dst, cudaStream_t stream) {
+  const int64_t total4 = bh * rows * dp / 4;
+  const int64_t blocks = (total4 + 255) / 256;
+  flash_f32_split_rows<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0, stream>>>(
+      static_cast<const float*>(x.ptr), x.sb, x.sh, x.ss, (int)heads, (int)rows, dp, total4, dst);
+}
+
 template <int DP>
-cudaError_t launch_fwd_f32(const FwdArgsF32& a, int64_t batch, cudaStream_t stream) {
-  constexpr size_t smem = fwdf32_smem_bytes<DP>();
-  static cudaError_t opted_in = allow_smem(flash_fwd_f32_kernel<DP>, smem);  // once per head dim
+cudaError_t launch_fwd_f32(View q, View k, View v, float* o, float* lse, float* split_q, float* split_k,
+                           float* split_vt, int64_t batch, int64_t heads, int64_t sq, int64_t skv,
+                           cudaStream_t stream) {
+  using C = FwdF32Cfg<DP>;
+  const int64_t bh = batch * heads, skv4 = (skv + 3) / 4 * 4;
+  launch_split_rows(q, bh, heads, sq, DP, split_q, stream);
+  launch_split_rows(k, bh, heads, skv, DP, split_k, stream);
+  const dim3 vgrid((unsigned)((skv4 + 31) / 32), DP / 32, (unsigned)bh);
+  flash_f32_split_vt<<<vgrid, dim3(32, 8), 0, stream>>>(static_cast<const float*>(v.ptr), v.sb, v.sh, v.ss,
+                                                        (int)heads, (int)skv, (int)skv4, DP, split_vt);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  FwdF32Tma p;
+  if (!f32_split_map(&p.q, split_q, bh, sq, DP, C::QR) || !f32_split_map(&p.k, split_k, bh, skv, DP, FKT) ||
+      !f32_split_map(&p.vt, split_vt, bh, DP, skv4, C::V_ROWS)) {
+    return cudaErrorInvalidValue;
+  }
+  p.o = o;
+  p.lse = lse;
+  p.sq = (int)sq;
+  p.skv = (int)skv;
+  static cudaError_t opted_in = allow_smem(flash_fwd_f32_wgmma<DP>, C::SMEM);  // once per head dim
   if (opted_in != cudaSuccess) return opted_in;
-  dim3 grid((unsigned)((a.sq + BQF - 1) / BQF), (unsigned)(batch * a.heads));
-  flash_fwd_f32_kernel<DP><<<grid, NT5, smem, stream>>>(a);
+  dim3 grid((unsigned)((sq + C::QR - 1) / C::QR), (unsigned)bh);
+  flash_fwd_f32_wgmma<DP><<<grid, NT_WS, C::SMEM, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -1475,25 +1811,30 @@ int flash_bwd_bf16(const void* q, const void* k, const void* v, const void* dout
   }
 
 // q (pre-scaled), k, v: fp32 [B, H, S, d] strided as in flash_fwd_bf16, d one of
-// 64, 96, 160, 512. Writes o fp32 [B, H, Sq, d] and lse [B, H, Sq].
+// 64, 96, 160, 512. Writes o fp32 [B, H, Sq, d] and lse [B, H, Sq]. split_q,
+// split_k: scratch of 2 B H Sq d and 2 B H Skv d floats, split_vt of 2 B H d
+// Skv4 (Skv rounded up to 4), which receive the tf32 hi and lo parts of q~, k
+// and v^T.
 int flash_fwd_f32(const void* q, const void* k, const void* v, void* o, void* lse,
                   int64_t batch, int64_t heads, int64_t sq, int64_t skv, int64_t d,
                   int64_t q_sb, int64_t q_sh, int64_t q_ss,
                   int64_t k_sb, int64_t k_sh, int64_t k_ss,
                   int64_t v_sb, int64_t v_sh, int64_t v_ss,
-                  void* stream) {
-  FwdArgsF32 a;
-  a.q = static_cast<const float*>(q);
-  a.k = static_cast<const float*>(k);
-  a.v = static_cast<const float*>(v);
-  a.q_sb = q_sb; a.q_sh = q_sh; a.q_ss = q_ss;
-  a.k_sb = k_sb; a.k_sh = k_sh; a.k_ss = k_ss;
-  a.v_sb = v_sb; a.v_sh = v_sh; a.v_ss = v_ss;
-  a.o = static_cast<float*>(o);
-  a.lse = static_cast<float*>(lse);
-  a.heads = (int)heads; a.sq = (int)sq; a.skv = (int)skv;
+                  void* split_q, void* split_k, void* split_vt, void* stream) {
+  const View vq = {q, q_sb, q_sh, q_ss}, vk = {k, k_sb, k_sh, k_ss}, vv = {v, v_sb, v_sh, v_ss};
+  float* sq_ = static_cast<float*>(split_q);
+  float* sk_ = static_cast<float*>(split_k);
+  float* sv_ = static_cast<float*>(split_vt);
+  float* o_ = static_cast<float*>(o);
+  float* lse_ = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  FLASH_F32_DISPATCH(launch_fwd_f32)
+  switch (d) {
+    case 64: return launch_fwd_f32<64>(vq, vk, vv, o_, lse_, sq_, sk_, sv_, batch, heads, sq, skv, s);
+    case 96: return launch_fwd_f32<96>(vq, vk, vv, o_, lse_, sq_, sk_, sv_, batch, heads, sq, skv, s);
+    case 160: return launch_fwd_f32<160>(vq, vk, vv, o_, lse_, sq_, sk_, sv_, batch, heads, sq, skv, s);
+    case 512: return launch_fwd_f32<512>(vq, vk, vv, o_, lse_, sq_, sk_, sv_, batch, heads, sq, skv, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // q (pre-scaled), k, v, dout: fp32 [B, H, S, d] strided as in flash_fwd_bf16, d

@@ -10,8 +10,9 @@ Four wrappers over the kernels of ``csrc/flash_attention.cu`` stand behind it:
 ``flash_fwd`` (replaces the four Pallas forward families) and ``flash_bwd``
 (replaces the dq and dk/dv families) take bf16 (TMA and wgmma kernels at head
 dims 40, 64, 80, 160 and 512); ``flash_fwd_f32`` and ``flash_bwd_f32`` are the
-fp32 forward and backward (FFMA, head dims 64, 96, 160, 512), for the VAE and
-the UNets that run in fp32 (the JAX kernels take fp32 as they take bf16,
+fp32 forward (three TF32 tensor-core products a product, fp32 accuracy) and
+backward (FFMA), at head dims 64, 96, 160, 512, for the VAE and the UNets that
+run in fp32 (the JAX kernels take fp32 as they take bf16,
 ops/flash_attention.py:1221-1246). ``flash_fwd`` and ``flash_bwd`` hand fp32
 inputs to them. As JAX pads D (:1257-1272), a head dim up to 512 that no
 kernel is built for is zero-padded to the next one (``kernel_head_dim``),
@@ -51,7 +52,7 @@ def _lib():
     if not getattr(lib, "_argtypes_set", False):
         lib.flash_fwd_bf16.argtypes = [_P] * 5 + [_I] * 14 + [_P]
         lib.flash_bwd_bf16.argtypes = [_P] * 9 + [_I] * 17 + [_P, _P, _I, ctypes.c_double, _P]
-        lib.flash_fwd_f32.argtypes = [_P] * 5 + [_I] * 14 + [_P]
+        lib.flash_fwd_f32.argtypes = [_P] * 5 + [_I] * 14 + [_P] * 4
         lib.flash_bwd_f32.argtypes = [_P] * 9 + [_I] * 17 + [_P]
         for fn in (lib.flash_fwd_bf16, lib.flash_bwd_bf16, lib.flash_fwd_f32, lib.flash_bwd_f32):
             fn.restype = ctypes.c_int
@@ -134,10 +135,16 @@ def _launch_fwd(entry: str, qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     skv = k.shape[2]
     o = torch.empty((b, h, sq, d), dtype=qs.dtype, device=qs.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=qs.device)
+    scratch = []
+    if entry == "flash_fwd_f32":  # the tf32 hi and lo parts of q̃, k and vᵀ, written by the kernel's split passes
+        # vᵀ's rows hold Skv rounded up to 4 keys, 16-byte aligned for TMA
+        n_q, n_k, n_vt = (2 * b * h * n * d for n in (sq, skv, -(-skv // 4) * 4))
+        buf = torch.empty(n_q + n_k + n_vt, dtype=torch.float32, device=qs.device)
+        scratch = [buf.data_ptr(), buf[n_q:].data_ptr(), buf[n_q + n_k:].data_ptr()]
     status = getattr(_lib(), entry)(
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         b, h, sq, skv, d, *_strides(qs), *_strides(k), *_strides(v),
-        torch.cuda.current_stream(qs.device).cuda_stream,
+        *scratch, torch.cuda.current_stream(qs.device).cuda_stream,
     )
     _nvcc.check(status, entry)
     return o[..., :d_true], lse
@@ -160,7 +167,8 @@ flash_fwd.launches = 0
 
 
 def flash_fwd_f32(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    """The fp32 forward kernel (FFMA): as ``flash_fwd``, with o in fp32."""
+    """The fp32 forward kernel (split-TF32 wgmma, fp32 accuracy): as
+    ``flash_fwd``, with o in fp32."""
     if qs.device.type == "cpu":
         return flash_fwd_plain(qs, k, v)
     _check_cuda_inputs(qs, k, v, dtype=torch.float32)

@@ -1,7 +1,8 @@
 """neurosis_tpu_torch flash attention (plain version, CPU) against the JAX
 Pallas flash attention in interpret mode: forward and grads, with the
 tolerances of tests/test_flash_attention.py (fp32: 3e-6/1e-4 forward,
-2e-5/1e-3 grads)."""
+2e-5/1e-3 grads); and a plain-torch model of the fp32 forward kernel's
+split-TF32 arithmetic against the same JAX forward."""
 
 import numpy as np
 import pytest
@@ -93,6 +94,93 @@ def test_fp32_backward_matches_jax(interpreted_flash, s, d):
     for gt, gj in zip(grads, g_j):
         assert gt.dtype == torch.float32
         np.testing.assert_allclose(gt.numpy(), np.asarray(gj), atol=2e-5, rtol=1e-3)
+
+
+def _tf32_rna(x: "torch.Tensor") -> "torch.Tensor":
+    """x rounded to the nearest tf32 (ties away from zero) with its low 13 bits
+    clear, as the kernel's cvt.rna.tf32.f32 and mask give it."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_split(x):
+    hi = _tf32_rna(x)
+    return hi, _tf32_rna(x - hi)
+
+
+def _split_tf32_flash(qs, k, v, passes: int, block_k: int = 64):
+    """A plain-torch model of the fp32 forward kernel's arithmetic: every
+    product a·bᵀ as hi·hiᵀ + hi·loᵀ + lo·hiᵀ of the operands' tf32 splits (or,
+    with ``passes=1``, hi·hiᵀ alone, one TF32 product), P split the same way
+    for P·V, and the online softmax over kv tiles of ``block_k`` keys."""
+
+    def mm(a, b):
+        ah, al = _tf32_split(a)
+        bh, bl = _tf32_split(b)
+        out = ah @ bh.transpose(-1, -2)
+        if passes == 3:
+            out = out + ah @ bl.transpose(-1, -2) + al @ bh.transpose(-1, -2)
+        return out
+
+    vt = v.transpose(-1, -2)
+    m = torch.full(qs.shape[:-1], -torch.inf)
+    l = torch.zeros(qs.shape[:-1])
+    o = torch.zeros(qs.shape[:-1] + (v.shape[-1],))
+    for t0 in range(0, k.shape[-2], block_k):
+        s = mm(qs, k[..., t0:t0 + block_k, :])
+        mx = torch.maximum(m, s.amax(-1))
+        a = torch.exp2(m - mx)
+        p = torch.exp2(s - mx[..., None])
+        l = l * a + p.sum(-1)
+        o = o * a[..., None] + mm(p, vt[..., t0:t0 + block_k])
+        m = mx
+    return o / l[..., None], m + torch.log2(l)
+
+
+@pytest.mark.parametrize("passes", [3, 1])
+@pytest.mark.parametrize("shape", [(1, 2, 256, 256, 64), (1, 1, 256, 256, 512), (1, 2, 200, 77, 48)])
+def test_split_tf32_arithmetic_matches_jax(interpreted_flash, shape, passes):
+    """The card's fp32 forward computes every product with three TF32 tensor-core
+    products of split operands. Its arithmetic, modelled in plain torch at the
+    kernel head dim (48 padded to 64, a kv = 77 tail), against JAX's fp32 flash
+    attention interpreted, at the fp32 parity tolerance (3e-6 / 1e-4): three
+    passes meet it, and one pass (plain TF32) does not."""
+    import math
+
+    import torch.nn.functional as F
+
+    from neurosis_tpu_torch.ops.flash_attention import LOG2_E, kernel_head_dim
+
+    fa = interpreted_flash
+    b, h, sq, skv, d = shape
+    rng = np.random.RandomState(2)
+    q, k, v = (rng.randn(b, h, n, d).astype(np.float32) for n in (sq, skv, skv))
+    out_j = np.asarray(fa.flash_attention(*(jnp.asarray(a.copy()) for a in (q, k, v)), block_q=128, block_k=128))
+
+    dp = kernel_head_dim(d, torch.float32)
+    pad = lambda a: F.pad(torch.tensor(a.copy()), (0, dp - d))
+    qs = pad(q) * (LOG2_E / math.sqrt(d))
+    o, lse = _split_tf32_flash(qs, pad(k), pad(v), passes)
+    assert bool((o[..., d:] == 0).all())
+    o = o[..., :d].numpy()
+    if passes == 3:
+        np.testing.assert_allclose(o, out_j, atol=3e-6, rtol=1e-4)
+        s = torch.tensor(q.copy()) @ torch.tensor(k.copy()).transpose(-1, -2) * (LOG2_E / math.sqrt(d))
+        torch.testing.assert_close(lse, torch.logsumexp(s * math.log(2.0), -1) / math.log(2.0), atol=2e-5, rtol=0)
+    else:
+        assert not np.allclose(o, out_j, atol=3e-6, rtol=1e-4)
+
+
+def test_tf32_split_is_exact_to_fp32():
+    """hi + lo recovers x to 2^-22 relative, hi and lo are tf32 (low 13 bits
+    clear), and |lo| <= 2^-11 |x|: the split the kernel's passes write."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(100_000, generator=g) * torch.exp2(torch.randint(-20, 20, (100_000,), generator=g).float())
+    hi, lo = _tf32_split(x)
+    for part in (hi, lo):
+        assert bool((part.view(torch.int32) & 0x1FFF == 0).all())
+    assert bool(((x - hi).abs() <= x.abs() * 2.0**-11).all())
+    assert bool(((x - hi - lo).abs() <= x.abs() * 2.0**-22).all())
+    assert bool(((x - hi).abs() > x.abs() * 2.0**-14).any())  # lo carries real bits
 
 
 def test_plain_lse_is_base2():

@@ -12,9 +12,12 @@ one. On the card, where JAX is absent (tests/conftest.py imports it):
 Tolerances are on max|kernel - plain| / max|plain|, bf16 inputs on both
 sides: 2e-2 for outputs (the kernels round P, dS or the activation to bf16
 where the plain versions keep fp32), 5e-2 for attention grads. The fp32
-flash forward computes in fp32 throughout, as its plain version does: 2e-5
-(the same fp32 sums in another order); the fp32 backward likewise, with dq
-summed by atomics in an order that changes from run to run: 1e-4. The
+flash forward keeps fp32 accuracy: each product is three TF32 tensor-core
+products of split operands (hi.hi + hi.lo + lo.hi, each part a tf32), whose
+dropped terms are about 2^-22 relative, fp32's own rounding: 2e-5 on O and on
+the LSE, as for fp32 sums in another order; the fp32 backward runs on FFMA
+in fp32, with dq summed by atomics in an order that changes from run to run:
+1e-4. The
 split2 and chunked forwards round P to bf16 as their plain version does, so
 only the output's bf16 rounding and the order of fp32 sums differ: 1e-2.
 """
@@ -81,7 +84,19 @@ def test_flash_kernels(cuda, shape):
     assert o.shape == q.shape
 
 
-@pytest.mark.parametrize("shape", [(2, 1, 100, 130, 512), (1, 1, 1024, 1024, 512)])
+# (B, H, Sq, Skv, D) reaching every path of the fp32 forward at each kernel head
+# dim: blocks of 128 query rows at 64, 96 (d = 80 padded), 160 and of 64 at 512;
+# ragged q tails (300, 100, 130), Sq shorter than a block (20, 50), the kv = 77
+# tail and kv tails of 130, 200, 300 keys (tiles of 64), kv shorter than a
+# tile, and at 512 tails that leave the second warpgroup's 32 keys of the last
+# tile all masked (77 = 64 + 13, 33, 5); the VAE-GAN pair's 2x1x1024x1024x512
+F32_FWD_SHAPES = [(2, 1, 100, 130, 512), (1, 1, 1024, 1024, 512), (2, 1, 1024, 1024, 512), (1, 1, 20, 77, 512),
+                  (1, 2, 130, 33, 512), (1, 1, 64, 5, 512), (1, 2, 300, 77, 64), (1, 2, 20, 130, 64),
+                  (2, 3, 130, 300, 64), (1, 2, 300, 200, 96), (1, 1, 50, 77, 80), (1, 2, 130, 77, 160),
+                  (1, 1, 20, 300, 160), (2, 1, 300, 64, 160)]
+
+
+@pytest.mark.parametrize("shape", F32_FWD_SHAPES)
 def test_flash_fwd_f32_kernel(cuda, shape):
     from neurosis_tpu_torch.ops import flash_attention as fa
 
@@ -167,6 +182,33 @@ def test_flash_f32_autograd_matches_plain(cuda):
     y = [t.detach().clone().requires_grad_() for t in x]
     out = flash_attention(*(t.reshape(b, s, 1, d).transpose(1, 2) for t in x))
     ref = plain_attention(*(t.reshape(b, s, 1, d).transpose(1, 2) for t in y))
+    assert _rel(out.detach(), ref.detach()) < 2e-5
+    w = torch.randn(out.shape, generator=cuda, device="cuda")
+    (out * w).sum().backward()
+    (ref * w).sum().backward()
+    for a, r in zip(x, y):
+        assert _rel(a.grad, r.grad) < 1e-4
+
+
+@pytest.mark.parametrize("heads,d", [(8, 40), (2, 80), (2, 160), (2, 512)])
+def test_flash_f32_autograd_head_split_views(cuda, heads, d):
+    """fp32 q/k/v as the attention layer hands them over, head-split views of a
+    [B, S, H·D] projection, through flash_attention at each kernel head dim
+    (40 and 80 padded), with a ragged q tail and the kv = 77 tail of
+    cross-attention."""
+    from neurosis_tpu_torch.ops.attention import plain_attention
+    from neurosis_tpu_torch.ops.flash_attention import flash_attention
+
+    b, s, skv = 2, 600, 77
+    xq = torch.randn(b, s, heads * d, generator=cuda, device="cuda").requires_grad_()
+    xk, xv = (torch.randn(b, skv, heads * d, generator=cuda, device="cuda").requires_grad_() for _ in range(2))
+    x = [xq, xk, xv]
+    y = [t.detach().clone().requires_grad_() for t in x]
+    split = lambda t: t.reshape(b, t.shape[1], heads, d).transpose(1, 2)
+    q = split(xq)
+    assert not q.is_contiguous()
+    out = flash_attention(q, split(xk), split(xv))
+    ref = plain_attention(*(split(t) for t in y))
     assert _rel(out.detach(), ref.detach()) < 2e-5
     w = torch.randn(out.shape, generator=cuda, device="cuda")
     (out * w).sum().backward()

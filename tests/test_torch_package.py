@@ -353,6 +353,12 @@ def test_every_flash_row_of_the_configs_reaches_a_kernel(kernel_stub, monkeypatc
     ("void (anonymous namespace)::conv3x3_wgmma<true, 128>((anonymous namespace)::ConvTma)", "port kernels"),
     ("void (anonymous namespace)::conv3x3_wgmma<false, 64>((anonymous namespace)::ConvTma)", "port kernels"),
     ("void (anonymous namespace)::flash_fwd_wgmma<64>((anonymous namespace)::FwdTma)", "port kernels"),
+    ("void (anonymous namespace)::flash_fwd_f32_wgmma<512>((anonymous namespace)::FwdF32Tma)", "port kernels"),
+    ("void (anonymous namespace)::flash_fwd_f32_wgmma<64>((anonymous namespace)::FwdF32Tma)", "port kernels"),
+    ("(anonymous namespace)::flash_f32_split_rows(const float *, long, long, long, int, int, int, long, float *)",
+     "port kernels"),
+    ("(anonymous namespace)::flash_f32_split_vt(const float *, long, long, long, int, int, int, int, float *)",
+     "port kernels"),
     ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc_tilesize128x128x64", "library conv"),
     ("sm90_xmma_dgrad_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc", "library conv"),
     ("nvjet_tst_128x256_64x4_1x2_h_bz_coopA_NTN", "library matmul"),
