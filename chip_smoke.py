@@ -70,9 +70,10 @@ import time
 from pathlib import Path
 
 # published H100 SXM peaks: dense bf16 and TF32 tensor-core rates, fp32 FFMA rate
-# on the CUDA cores (the fp32 flash backward's units) and HBM3 bandwidth. The fp32
-# flash forward forms each fp32 product as three TF32 products (split operands),
-# so its peak is a third of the TF32 rate.
+# on the CUDA cores (each fp32 flash row's second bound, the same work without
+# the tensor cores) and HBM3 bandwidth. The fp32 flash kernels form each fp32
+# product as three TF32 products (split operands), so their peak is a third of
+# the TF32 rate.
 PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 494.7e12
 PEAK_FP32_FLOPS = 66.9e12
@@ -170,7 +171,7 @@ TOL = {
     "flash_fwd_f32": 2e-5,  # fp32 accuracy on both sides: three TF32 products of split operands, sums in another order
     "flash_lse": 1e-3,  # fp32 both sides, absolute in log2 units
     "flash_bwd": 5e-2,  # kernel rounds P and dS to bf16 and sums dQ with fp32 atomics
-    "flash_bwd_f32": 1e-4,  # fp32 throughout on both sides; dQ summed by atomics in a changing order
+    "flash_bwd_f32": 1e-4,  # three TF32 products of split operands a product, as the fp32 forward, over chains of up to 4096 keys (dQ) or queries (dK, dV); dK, dV summed by atomics where the q range is split
     "flash_overlap": 1e-2,  # P rounded to bf16 on both sides; bf16 output rounding, sums in another order
     "conv3x3": 1e-2,  # fp32 accumulation in another order, bf16 output rounding
     "gn_silu_conv3x3": 1e-2,
@@ -185,7 +186,7 @@ KERNELS = {
     "flash_fwd_f32": dict(source="neurosis_tpu_torch/csrc/flash_attention.cu",
                           replaces="neurosis_tpu/ops/flash_attention.py:297"),
     "flash_bwd_f32": dict(source="neurosis_tpu_torch/csrc/flash_attention.cu",
-                          replaces="neurosis_tpu/ops/flash_attention.py:751"),
+                          replaces="neurosis_tpu/ops/flash_attention.py:751 (dQ), :952 (dK, dV)"),
     "flash_fwd_split2": dict(source="neurosis_tpu_torch/csrc/flash_overlap.cu",
                              replaces="tools/overlap_bench.py:37"),
     "flash_fwd_chunked": dict(source="neurosis_tpu_torch/csrc/flash_overlap.cu",
@@ -254,7 +255,7 @@ def time_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
 
 def kernels_ms(torch, fn) -> dict:
     """Device ms of each kernel that one ``fn()`` launches, by name (the fp32
-    forward's split passes apart from its main kernel)."""
+    kernels' split passes apart from their main kernels)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -361,9 +362,13 @@ def check_flash(torch, log: list) -> dict:
         qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
         lib_out = F.scaled_dot_product_attention(qg, kg, vg)
         # reads q~, k, v, dO and LSE, Di (fp32); writes dq, dk, dv
-        t, by = bound_ms(10.0 * b * h * sq * skv * d,
-                         bh_in + b * h * sq * (d * elem + 8) + b * h * (sq + 2 * skv) * d * elem,
-                         PEAK_FP32_FLOPS if is_f32 else PEAK_BF16_FLOPS)  # the fp32 backward is FFMA
+        flops = 10.0 * b * h * sq * skv * d
+        nbytes = bh_in + b * h * sq * (d * elem + 8) + b * h * (sq + 2 * skv) * d * elem
+        t, by = bound_ms(flops, nbytes, peak)
+        extra = {}
+        if is_f32:  # the FFMA bound beside it, and the split passes, the dQ and the dK/dV kernel apart
+            extra["ffma_bound_ms"] = bound_ms(flops, nbytes, PEAK_FP32_FLOPS)[0]
+            extra["kernels_ms"] = kernels_ms(torch, lambda: bwd(qs, k, v, do, lse_ref, di, scale))
         rows[bwd_name].append(dict(
             path=path, shape=tag, per_step=n_bwd, max_abs_err=max(e for e, _ in errs), rel_err=max(r for _, r in errs),
             ms=time_ms(torch, lambda: bwd(qs, k, v, do, lse_ref, di, scale)),
@@ -371,7 +376,7 @@ def check_flash(torch, log: list) -> dict:
                              iters=3, warmup=1),
             library_ms=time_ms(torch, lambda: torch.autograd.grad(lib_out, (qg, kg, vg), do,
                                                                   retain_graph=True)),
-            bound_ms=t, bound_by=by))
+            bound_ms=t, bound_by=by, **extra))
         del q, k, v, do, qs, o, o_ref, grads, grads_ref, lib_out
         torch.cuda.empty_cache()
     return rows
@@ -794,7 +799,7 @@ SDXL_BIGG = dict(width=1280, layers=32, heads=20)
 def step_totals(rows: dict, path: str) -> dict:
     """Per kernel, from one path's shape tables and phase 3's times: launches
     per step (or pair) of that path, their summed time and summed bound (and
-    the fp32 forward's FFMA bound beside it)."""
+    the fp32 rows' FFMA bound beside it)."""
     out = {}
     for name, rs in rows.items():
         rs = [r for r in rs if r["path"] == path]

@@ -1,6 +1,6 @@
 // Flash attention forward and backward for Hopper (sm_90a), bf16 in, fp32 accumulate,
-// and an fp32 forward (split-TF32 tensor cores) and backward (FFMA) for the models
-// that run in fp32.
+// and an fp32 forward and backward (split-TF32 tensor cores) for the models that run
+// in fp32.
 //
 // Replaces the Pallas TPU kernels of neurosis_tpu/ops/flash_attention.py:
 //   forward  : _fwd_kernel (:297), _fwd_chunked_kernel (:366),
@@ -117,15 +117,33 @@
 //     tile and owns O's columns 256 w .. +255. The row maxima meet in shared
 //     memory behind a named barrier, each keeps its part of the row sum (added
 //     once at the end), and both read the tile's whole P from shared memory.
-//   backward : an fp32 K tile plus V tile of 16 rows is 64 KB at DP = 512 and
-//              there are no WMMA fragments to keep dK/dV in, so a block owns
-//              16 kv rows, walks q in 32-row tiles (q~ and dO tiles) and keeps
-//              dK/dV in plain registers: warp w owns kv rows 2w, 2w+1, lane l
-//              DP / 32 columns (F32Cols). Logits and dP are split between the two
-//              halves of the block; dQ of the warp's 4 query rows is formed in
-//              registers and added to the zeroed fp32 buffer with vector
-//              atomics (~199 KB at DP = 512, one block per SM). Bound by the
-//              FFMA rate (67 TFLOP/s): 10 B H Sq Skv D operations.
+//   backward: JAX's two passes (_bwd_dq_kernel, _bwd_dkv_kernel), each on the
+//     forward's pipeline, so that a consumer warpgroup holds one accumulator
+//     the size of the forward's O (dQ, dK or dV) and one fresh tile: dK, dV and
+//     dQ in one kv-stationary kernel, as the bf16 backward has them, would need
+//     about 300 registers a thread in fp32 with fresh tiles, and 256 KB of
+//     registers for 64 kv rows at 512. Seven split passes write hi and lo of
+//     q~, K, V, dO by rows and of K^T, q~^T, dO^T (TF32 wgmma takes K-major
+//     operands only). Bound on the H100 by three times 10 B H Sq Skv D
+//     operations at the TF32 rate; the two kernels form 7 products where the
+//     function needs 5 (9 at 512, where both halves of dK, dV form the logits).
+//     flash_bwd_dq_f32_wgmma (q-stationary; FwdF32Cfg's geometry): the forward
+//       with the saved LSE in place of the online softmax, one more product (dP
+//       = dO V^T, dO and V streamed as q~ and K are) and K^T in place of V^T:
+//       per kv tile S and dP (fresh chunk groups at 512), P = 2^(S - LSE), dS =
+//       P (dP - Di) as hi and lo into shared memory, dQ += dS K in a fresh
+//       accumulator. dQ is written once, times scale, with plain stores.
+//     flash_bwd_dkv_f32_wgmma (kv-stationary): 64 kv rows a block (at 512 one
+//       256-column half of dK and dV, two blocks a kv tile), q walked in tiles
+//       of 64. Warpgroup 0 forms S^T = K q~^T, P^T = 2^(S^T - LSE) into shared
+//       memory and dV += P^T dO; warpgroup 1 forms dP^T = V dO^T, reads P^T
+//       after a named barrier, writes dS^T = P^T (dP^T - Di) and forms dK +=
+//       dS^T q~. Each has its own ring (two slots) fed by its own producer
+//       warp. Where the kv tiles leave SMs idle (kv = 77) the q range is split
+//       over blocks and dK, dV are summed by fp32 atomics into zeroed buffers;
+//       otherwise every grad is written once, so two calls give the same bits.
+//     As in the forward, the loads and the per-tile waits, not the products,
+//     set their pace (neurosis_tpu_torch/tools/flash_f32_probes.py).
 
 #include <math.h>
 #include <mma.h>
@@ -940,57 +958,8 @@ __global__ void __launch_bounds__(NT5) flash_bwd512_kernel(BwdArgs a) {
 }
 
 // ---------------------------------------------------------------------------
-// fp32 forward (split TF32) and backward (FFMA), templated over the padded head dim DP
+// fp32 forward and backward (split TF32), templated over the padded head dim DP
 // ---------------------------------------------------------------------------
-
-// The backward's column layout of a DP-wide fp32 row over a warp: DP / 32 columns a lane, in
-// VEC-wide groups (the widest of 4, 2, 1 that DP / 32 divides into); lane l owns
-// columns VEC l + 32 VEC m + e, m < GROUPS, e < VEC, held at index VEC m + e. At
-// DP = 512 that is 4 l + 128 m, four float4 groups.
-template <int DP>
-struct F32Cols {
-  static_assert(DP % 32 == 0, "the fp32 kernels take head dims that are multiples of 32");
-  static constexpr int N = DP / 32;
-  static constexpr int VEC = N % 4 == 0 ? 4 : N % 2 == 0 ? 2 : 1;
-  static constexpr int GROUPS = N / VEC;
-  static constexpr int LD = DP + 4;  // fp32 row stride of a shared tile: rows 4 banks apart
-  static __device__ __forceinline__ int col(int lane, int m) { return VEC * lane + 32 * VEC * m; }
-};
-
-template <int VEC>
-__device__ __forceinline__ void ld_vec(const float* p, float* r) {
-  if constexpr (VEC == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    r[0] = t.x; r[1] = t.y; r[2] = t.z; r[3] = t.w;
-  } else if constexpr (VEC == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    r[0] = t.x; r[1] = t.y;
-  } else {
-    r[0] = *p;
-  }
-}
-
-template <int VEC>
-__device__ __forceinline__ void st_vec(float* p, const float* r, float mul) {
-  if constexpr (VEC == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(r[0] * mul, r[1] * mul, r[2] * mul, r[3] * mul);
-  } else if constexpr (VEC == 2) {
-    *reinterpret_cast<float2*>(p) = make_float2(r[0] * mul, r[1] * mul);
-  } else {
-    *p = r[0] * mul;
-  }
-}
-
-template <int VEC>
-__device__ __forceinline__ void atomic_add_vec(float* p, const float* r) {
-  if constexpr (VEC == 4) {
-    atomicAdd(reinterpret_cast<float4*>(p), make_float4(r[0], r[1], r[2], r[3]));
-  } else if constexpr (VEC == 2) {
-    atomicAdd(reinterpret_cast<float2*>(p), make_float2(r[0], r[1]));
-  } else {
-    atomicAdd(p, r[0]);
-  }
-}
 
 // ---- fp32 forward: split-TF32 wgmma ------------------------------------------
 
@@ -1030,9 +999,10 @@ __global__ void __launch_bounds__(256) flash_f32_split_rows(const float* src, in
   }
 }
 
-// hi and lo of V^T: V strided fp32 [B, H, Skv, DP] (unit stride on DP) into
-// dst [2][B*H][DP][skv4], contiguous (skv4 = Skv rounded up to 4; keys past Skv
-// are zero), through 32 x 32 tiles so that reads and writes are both coalesced
+// hi and lo of X^T (V^T in the forward; K^T, q~^T, dO^T in the backward): X
+// strided fp32 [B, H, S, DP] (unit stride on DP) into dst [2][B*H][DP][skv4],
+// contiguous (skv4 = S rounded up to 4; rows past S are zero), through 32 x 32
+// tiles so that reads and writes are both coalesced
 __global__ void __launch_bounds__(256) flash_f32_split_vt(const float* src, int64_t sb, int64_t sh, int64_t ss,
                                                           int heads, int skv, int skv4, int dp, float* dst) {
   __shared__ float tile[32][33];
@@ -1134,6 +1104,32 @@ __device__ __forceinline__ void pv_tile_tf32(float (&d)[N / 2], const unsigned c
 __device__ __forceinline__ void release_slot(uint64_t* empty, int lane) {
   __syncwarp();
   if (lane == 0) mbar_arrive(empty);
+}
+
+// acc = A B^T over G 32-column chunks of the head dim, one ring stage each (A's hi
+// at a_off, its lo a_lo bytes on; B's at b_off, b_lo), summed in place in a fresh
+// accumulator; each chunk's products in flight while the next chunk is awaited,
+// and every slot released once its products are done
+template <int N, int G>
+__device__ __forceinline__ void chunks_tf32(float (&acc)[N / 2], const unsigned char* ring, int slot_bytes,
+                                            int slots, uint64_t* full, uint64_t* empty, int& n, int a_off, int a_lo,
+                                            int b_off, int b_lo, int lane) {
+#pragma unroll 1
+  for (int c = 0; c < G; ++c, ++n) {
+    const int slot = n % slots;
+    mbar_wait(&full[slot], (n / slots) & 1);
+    const unsigned char* st = ring + slot * slot_bytes;
+    wgmma_fence();
+    qk_chunk_tf32<N>(acc, st + a_off, st + a_off + a_lo, st + b_off, st + b_off + b_lo, c > 0);
+    wgmma_commit();
+    if (c > 0) {
+      wgmma_wait<1>();
+      release_slot(&empty[(n - 1) % slots], lane);
+    }
+  }
+  wgmma_wait<0>();
+  reg_fence(acc);
+  release_slot(&empty[(n - 1) % slots], lane);
 }
 
 template <int DP>
@@ -1241,28 +1237,13 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_fwd_f32_wgmma(const __grid_con
         }
         wgmma_wait<0>();
         reg_fence(s_part[(C::NC - 1) % 2]);
+        release_slot(&empty[(n - 1) % C::SLOTS], lane);
 #pragma unroll
         for (int i = 0; i < C::SN / 2; ++i) s_acc[i] += s_part[(C::NC - 1) % 2][i];
       } else {
-#pragma unroll 1
-        for (int c = 0; c < C::NC; ++c, ++n) {
-          const int slot = n % C::SLOTS;
-          mbar_wait(&full[slot], (n / C::SLOTS) & 1);
-          const unsigned char* st = ring + slot * C::SLOT;
-          const unsigned char* qh = st + wg * 64 * ROW;
-          const unsigned char* kh = st + 2 * C::Q_BOX;
-          wgmma_fence();
-          qk_chunk_tf32<C::SN>(s_acc, qh, qh + C::Q_BOX, kh, kh + C::K_BOX, c > 0);
-          wgmma_commit();
-          if (c > 0) {
-            wgmma_wait<1>();
-            release_slot(&empty[(n - 1) % C::SLOTS], lane);
-          }
-        }
-        wgmma_wait<0>();
-        reg_fence(s_acc);
+        chunks_tf32<C::SN, C::NC>(s_acc, ring, C::SLOT, C::SLOTS, full, empty, n, wg * 64 * ROW, C::Q_BOX,
+                                  2 * C::Q_BOX, C::K_BOX, lane);
       }
-      release_slot(&empty[(n - 1) % C::SLOTS], lane);
 
       const int valid = p.skv - t * FKT - key0;  // the kv tail: TMA's zero rows become -inf
       if (valid < C::SN) {
@@ -1392,191 +1373,411 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_fwd_f32_wgmma(const __grid_con
   }
 }
 
-// ---- fp32 backward (FFMA) ------------------------------------------------------
+// ---- fp32 backward: split-TF32 wgmma, a dQ pass and a dK/dV pass ---------------
 
-constexpr int BKG = 16;           // backward: kv rows per block
-constexpr int BQG = 32;           // backward: query rows per tile
-constexpr int LDG = BKG + 4;      // fp32 row stride of the logits / dP tiles
-
-struct BwdArgsF32 {
-  const float* q;         // pre-scaled q
-  const float* k;
-  const float* v;
-  const float* dout;
-  int64_t q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, do_sb, do_sh, do_ss;
-  const float* lse;       // [B, H, Sq]
-  const float* di;        // [B, H, Sq] rowsum(dO * O)
-  float* dq;              // [B, H, Sq, DP], zeroed; receives dS . k
-  float* dk;              // [B, H, Skv, DP]
-  float* dv;              // [B, H, Skv, DP]
-  int heads, sq, skv;
-};
-
-template <int DP>
-constexpr size_t bwdf32_smem_bytes() {
-  return sizeof(float) * ((size_t)(2 * BKG + 2 * BQG) * F32Cols<DP>::LD   // k, v, q, dO tiles
-                          + (size_t)2 * BQG * LDG                         // logits -> P, dP -> dS
-                          + 2 * BQG);                                     // lse, Di
-}
-
-template <int DP>
-__global__ void __launch_bounds__(NT5, 1) flash_bwd_f32_kernel(BwdArgsF32 a) {
-  using C = F32Cols<DP>;
-  constexpr int LDF = C::LD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* sK = reinterpret_cast<float*>(smem);
-  float* sV = sK + BKG * LDF;
-  float* sQ = sV + BKG * LDF;
-  float* sdO = sQ + BQG * LDF;
-  float* sP = sdO + BQG * LDF;     // logits, then P
-  float* sdS = sP + BQG * LDG;     // dP, then dS
-  float* sLse = sdS + BQG * LDG;
-  float* sDi = sLse + BQG;
-
-  const int bh = blockIdx.y;
-  const int b = bh / a.heads, h = bh % a.heads;
-  const int k0 = blockIdx.x * BKG;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int kv_valid = min(BKG, a.skv - k0);
-  const Rows<float> q = {a.q + b * a.q_sb + h * a.q_sh, a.q_ss};
-  const Rows<float> k = {a.k + b * a.k_sb + h * a.k_sh, a.k_ss};
-  const Rows<float> v = {a.v + b * a.v_sb + h * a.v_sh, a.v_ss};
-  const Rows<float> dout = {a.dout + b * a.do_sb + h * a.do_sh, a.do_ss};
-  const float* lse = a.lse + (int64_t)bh * a.sq;
-  const float* di = a.di + (int64_t)bh * a.sq;
-  float* dq = a.dq + (int64_t)bh * a.sq * DP;
-
-  load_tile<BKG, DP, LDF, NT5>(sK, k, k0, a.skv, DP);
-  load_tile<BKG, DP, LDF, NT5>(sV, v, k0, a.skv, DP);
-
-  // dK, dV: warp w owns kv rows 2 w + {0, 1}, lane l the forward's columns
-  float acc_k[2][C::N], acc_v[2][C::N];
+// d = A B^T over the head dim's NC chunks: at NC = G in place (DP <= 160, at most
+// 60 wgmmas, as the forward's logits), else in groups of G chunks, each group in a
+// fresh accumulator added into d in fp32 (at 512, 192 wgmmas in one chain would
+// carry the tensor cores' accumulation error, as the forward found)
+template <int N, int NC, int G>
+__device__ __forceinline__ void logits_tf32(float (&d)[N / 2], const unsigned char* ring, int slot_bytes, int slots,
+                                            uint64_t* full, uint64_t* empty, int& n, int a_off, int a_lo, int b_off,
+                                            int b_lo, int lane) {
+  if constexpr (G == NC) {
+    chunks_tf32<N, G>(d, ring, slot_bytes, slots, full, empty, n, a_off, a_lo, b_off, b_lo, lane);
+  } else {
+    float part[N / 2];
+#pragma unroll 1
+    for (int gi = 0; gi < NC / G; ++gi) {
+      chunks_tf32<N, G>(part, ring, slot_bytes, slots, full, empty, n, a_off, a_lo, b_off, b_lo, lane);
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int c = 0; c < C::N; ++c) {
-      acc_k[i][c] = 0.0f;
-      acc_v[i][c] = 0.0f;
+      for (int i = 0; i < N / 2; ++i) d[i] = gi == 0 ? part[i] : d[i] + part[i];
     }
   }
-  // logits (warps 0-3) or dP (warps 4-7): thread u of the 128 owns query rows
-  // 2 (u / 8) + {0, 1} and kv rows u % 8 + {0, 8}
-  const int u = threadIdx.x % 128;
-  const int sd_r = (u / 8) * 2, sd_c = u % 8;
-  const float* sd_a = warp < 4 ? sQ : sdO;
-  const float* sd_b = warp < 4 ? sK : sV;
-  float* sd_out = warp < 4 ? sP : sdS;
+}
 
-  for (int q0 = 0; q0 < a.sq; q0 += BQG) {
-    __syncthreads();  // the previous tile's readers of sQ/sdO/sP/sdS are done
-    load_tile<BQG, DP, LDF, NT5>(sQ, q, q0, a.sq, DP);
-    load_tile<BQG, DP, LDF, NT5>(sdO, dout, q0, a.sq, DP);
-    for (int r = threadIdx.x; r < BQG; r += NT5) {
-      const bool in = q0 + r < a.sq;
-      sLse[r] = in ? lse[q0 + r] : INFINITY;  // padded rows get P = 0
-      sDi[r] = in ? di[q0 + r] : 0.0f;
+// x as tf32 hi and lo into a 64-row operand of 32-column boxes in the 128-byte
+// swizzle TMA writes (the forward's P): column j of row r at box j / 32, 16-byte
+// chunk (j % 32) / 4 XOR r % 8; lo boxes 2 boxes on (two boxes hold 64 columns)
+__device__ __forceinline__ unsigned char* swz_at(unsigned char* base, int r, int j) {
+  return base + (j / 32) * (64 * ROW) + r * ROW + ((((j % 32) / 4) ^ (r & 7)) * 16) + (j % 4) * 4;
+}
+
+__device__ __forceinline__ void store_split2(unsigned char* at, float x0, float x1) {
+  float2 hi, lo;
+  tf32_split(x0, hi.x, lo.x);
+  tf32_split(x1, hi.y, lo.y);
+  *reinterpret_cast<float2*>(at) = hi;
+  *reinterpret_cast<float2*>(at + 2 * 64 * ROW) = lo;
+}
+
+struct BwdDqF32Tma {
+  CUtensorMap q, dout;  // split q~, dO by rows: boxes of 32 columns x QR rows
+  CUtensorMap k, v;     // split K, V by rows: boxes of 32 columns x 64 keys
+  CUtensorMap kt;       // split K^T: boxes of 32 keys x V_ROWS rows
+  const float* lse;     // [B, H, Sq]
+  const float* di;      // [B, H, Sq] rowsum(dO * O)
+  float* dq;            // [B, H, Sq, DP]: dS K scale
+  float scale;
+  int sq, skv;
+};
+
+// dQ = (P (dO V^T - Di)) K scale, q-stationary: the fp32 forward's geometry
+// (FwdF32Cfg) and pipeline. Per kv tile of 64 keys the producer moves NC stages
+// of (q~, K) chunks, NC of (dO, V) chunks (the same boxes), then PV_STAGES of K^T.
+template <int DP>
+__global__ void __launch_bounds__(NT_WS, 1) flash_bwd_dq_f32_wgmma(const __grid_constant__ BwdDqF32Tma p) {
+  using C = FwdF32Cfg<DP>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align1024(smem_raw);                          // [slot] stages
+  unsigned char* sP = ring + C::SLOTS * C::SLOT;                      // dS: [buffer][hi, lo][key half]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sP + C::N_P * C::P_BYTES);
+  uint64_t* empty = full + C::SLOTS;
+
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * C::QR;
+  const int n_tiles = (p.skv + FKT - 1) / FKT;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::SLOTS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NCW);
     }
-    __syncthreads();
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-    {
-      float acc[2][2] = {};
-      for (int kk = 0; kk < DP; kk += 4) {
-        float4 av[2], bv[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) av[i] = *reinterpret_cast<const float4*>(sd_a + (sd_r + i) * LDF + kk);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) bv[j] = *reinterpret_cast<const float4*>(sd_b + (sd_c + 8 * j) * LDF + kk);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            acc[i][j] = fmaf(av[i].x, bv[j].x, acc[i][j]);
-            acc[i][j] = fmaf(av[i].y, bv[j].y, acc[i][j]);
-            acc[i][j] = fmaf(av[i].z, bv[j].z, acc[i][j]);
-            acc[i][j] = fmaf(av[i].w, bv[j].w, acc[i][j]);
+  if (warp >= NCW) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (warp == NCW && lane == 0) {
+      int n = 0;
+      for (int t = 0; t < n_tiles; ++t) {
+        for (int i = 0; i < 2 * C::NC + C::PV_STAGES; ++i, ++n) {
+          const int slot = n % C::SLOTS;
+          unsigned char* st = ring + slot * C::SLOT;
+          uint64_t* bar = &full[slot];
+          mbar_wait(&empty[slot], ((n / C::SLOTS) & 1) ^ 1);
+          if (i < 2 * C::NC) {  // (q~, K) chunk i, then (dO, V) chunk i - NC
+            const bool dp = i >= C::NC;
+            const int c = dp ? i - C::NC : i;
+            mbar_arrive_tx(bar, C::S_STAGE);
+            for (int part = 0; part < 2; ++part) {
+              tma_load_4d(st + part * C::Q_BOX, dp ? &p.dout : &p.q, bar, 32 * c, q0, bh, part);
+              tma_load_4d(st + 2 * C::Q_BOX + part * C::K_BOX, dp ? &p.v : &p.k, bar, 32 * c, t * FKT, bh, part);
+            }
+          } else {
+            const int v = i - 2 * C::NC;
+            const int key = t * FKT + 32 * (v % 2);
+            mbar_arrive_tx(bar, C::PV_STAGE);
+            for (int part = 0; part < 2; ++part) {
+              if constexpr (C::WIDE) {  // column block v / 2 of each warpgroup's 256 columns
+                for (int w = 0; w < 2; ++w) {
+                  tma_load_4d(st + (2 * part + w) * C::V_BOX, &p.kt, bar, key, 256 * w + 64 * (v / 2), bh, part);
+                }
+              } else {
+                tma_load_4d(st + part * C::V_BOX, &p.kt, bar, key, 0, bh, part);
+              }
+            }
           }
         }
       }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) sd_out[(sd_r + i) * LDG + sd_c + 8 * j] = acc[i][j];
-      }
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < BQG * BKG; i += NT5) {
-      const int r = i / BKG, c = i % BKG;
-      const float p = c < kv_valid ? exp2f(sP[r * LDG + c] - sLse[r]) : 0.0f;
-      sdS[r * LDG + c] = p * (sdS[r * LDG + c] - sDi[r]);
-      sP[r * LDG + c] = p;
-    }
-    __syncthreads();
+  } else {
+    // consumers, as the forward's: DP <= 160, warpgroup wg owns query rows wg *
+    // 64 .. +63, all of a tile's keys and all of dQ's columns; DP = 512, both own
+    // the block's 64 rows, warpgroup wg forms S and dP for keys 32 wg .. +31 of
+    // each tile and owns dQ's columns 256 wg .. +255
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int wg = warp / 4, g = lane / 4, qd = lane % 4;
+    const int r = (warp % 4) * 16 + g;
+    const int row = q0 + (C::WIDE ? 0 : wg * 64) + r;
+    const int key0 = C::WIDE ? 32 * wg : 0;
+    unsigned char* pbuf = sP + (C::WIDE ? 0 : wg * C::P_BYTES);
+    const float* lse = p.lse + (int64_t)bh * p.sq;
+    const float* di = p.di + (int64_t)bh * p.sq;
+    const float L0 = row < p.sq ? lse[row] : 0.0f, L1 = row + 8 < p.sq ? lse[row + 8] : 0.0f;
+    const float D0 = row < p.sq ? di[row] : 0.0f, D1 = row + 8 < p.sq ? di[row + 8] : 0.0f;
+    const int a_off = C::WIDE ? 0 : wg * 64 * ROW;  // this warpgroup's q~ (dO) rows in a stage
+    const int b_off = 2 * C::Q_BOX + key0 * ROW;    // its keys of K (V)
+    constexpr int G = C::WIDE ? 4 : C::NC;
+    float dq[C::ON / 2];
+#pragma unroll
+    for (int i = 0; i < C::ON / 2; ++i) dq[i] = 0.0f;
+    float tile[C::WIDE ? 32 : DP / 2];  // one tile's dS K, added into dQ in fp32
+    float s_acc[C::SN / 2], dp_acc[C::SN / 2];
+    int n = 0;
 
-    // dV += P^T . dO ; dK += dS^T . q~  (this warp's two kv rows)
-    for (int r = 0; r < BQG; ++r) {
-      const float2 p = *reinterpret_cast<const float2*>(sP + r * LDG + 2 * warp);
-      const float2 ds = *reinterpret_cast<const float2*>(sdS + r * LDG + 2 * warp);
+    for (int t = 0; t < n_tiles; ++t) {
+      logits_tf32<C::SN, C::NC, G>(s_acc, ring, C::SLOT, C::SLOTS, full, empty, n, a_off, C::Q_BOX, b_off, C::K_BOX,
+                                   lane);
+      logits_tf32<C::SN, C::NC, G>(dp_acc, ring, C::SLOT, C::SLOTS, full, empty, n, a_off, C::Q_BOX, b_off, C::K_BOX,
+                                   lane);
+      // at 512 the two warpgroups share dS: both have finished the last tile's
+      // dS K (each waited for its own) before either writes this tile's
+      if constexpr (C::WIDE) named_bar_sync(1, 2 * 128);
+      // P = 2^(S - LSE), zero on keys past Skv (TMA's zero rows), dS = P (dP - Di)
+      const int valid = p.skv - t * FKT - key0;
 #pragma unroll
-      for (int m = 0; m < C::GROUPS; ++m) {
-        float dov[C::VEC], qv[C::VEC];
-        ld_vec<C::VEC>(sdO + r * LDF + C::col(lane, m), dov);
-        ld_vec<C::VEC>(sQ + r * LDF + C::col(lane, m), qv);
+      for (int c = 0; c < C::SN / 8; ++c) {
+        const int j = 8 * c + 2 * qd;
+        float ds[4];
 #pragma unroll
-        for (int e = 0; e < C::VEC; ++e) {
-          const int c = C::VEC * m + e;
-          acc_v[0][c] = fmaf(p.x, dov[e], acc_v[0][c]);
-          acc_v[1][c] = fmaf(p.y, dov[e], acc_v[1][c]);
-          acc_k[0][c] = fmaf(ds.x, qv[e], acc_k[0][c]);
-          acc_k[1][c] = fmaf(ds.y, qv[e], acc_k[1][c]);
+        for (int e = 0; e < 2; ++e) {
+          const bool ok = j + e < valid;
+          ds[e] = ok ? exp2f(s_acc[4 * c + e] - L0) * (dp_acc[4 * c + e] - D0) : 0.0f;
+          ds[2 + e] = ok ? exp2f(s_acc[4 * c + 2 + e] - L1) * (dp_acc[4 * c + 2 + e] - D1) : 0.0f;
         }
+        unsigned char* at = swz_at(pbuf, r, key0 + j);
+        store_split2(at, ds[0], ds[1]);
+        store_split2(at + 8 * ROW, ds[2], ds[3]);
+      }
+      fence_proxy_async();  // dS's stores -> the wgmma that reads them
+      if constexpr (C::WIDE) {
+        named_bar_sync(1, 2 * 128);
+      } else {
+        named_bar_sync(2 + wg, 128);
+      }
+
+      // dQ += dS K: each tile's product in a fresh accumulator (pv_tile_tf32) over
+      // two K^T stages of 32 keys; at 512 in four blocks of 64 columns
+#pragma unroll
+      for (int j = 0; j < C::PV_STAGES / 2; ++j, n += 2) {
+        const int slot0 = n % C::SLOTS, slot1 = (n + 1) % C::SLOTS;
+        mbar_wait(&full[slot0], (n / C::SLOTS) & 1);
+        mbar_wait(&full[slot1], ((n + 1) / C::SLOTS) & 1);
+        const unsigned char* k0 = ring + slot0 * C::SLOT + (C::WIDE ? wg * C::V_BOX : 0);
+        const unsigned char* k1 = ring + slot1 * C::SLOT + (C::WIDE ? wg * C::V_BOX : 0);
+        constexpr int TN = C::WIDE ? 64 : DP;
+        float* dqj = dq + (TN / 2) * j;
+        wgmma_fence();
+        pv_tile_tf32<TN>(tile, pbuf, k0, k1, (C::WIDE ? 2 : 1) * C::V_BOX);
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(tile);
+        release_slot(&empty[slot0], lane);
+        release_slot(&empty[slot1], lane);
+#pragma unroll
+        for (int i = 0; i < TN / 2; ++i) dqj[i] += tile[i];
       }
     }
 
-    // dQ[4 rows of this warp x DP] = dS . K, added into the fp32 buffer
-    float acc_q[4][C::N];
+    float* dq_bh = p.dq + (int64_t)bh * p.sq * DP + (C::WIDE ? 256 * wg : 0);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int c = 0; c < C::N; ++c) acc_q[i][c] = 0.0f;
-    }
-    for (int j = 0; j < BKG; ++j) {
-      float ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = sdS[(warp * 4 + i) * LDG + j];
-#pragma unroll
-      for (int m = 0; m < C::GROUPS; ++m) {
-        float kv[C::VEC];
-        ld_vec<C::VEC>(sK + j * LDF + C::col(lane, m), kv);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-#pragma unroll
-          for (int e = 0; e < C::VEC; ++e) acc_q[i][C::VEC * m + e] = fmaf(ds[i], kv[e], acc_q[i][C::VEC * m + e]);
-        }
+    for (int c = 0; c < C::ON / 8; ++c) {
+      const int col = 8 * c + 2 * qd;
+      if (row < p.sq) {
+        *reinterpret_cast<float2*>(dq_bh + (int64_t)row * DP + col) =
+            make_float2(dq[4 * c] * p.scale, dq[4 * c + 1] * p.scale);
       }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + warp * 4 + i;
-      if (row >= a.sq) continue;
-#pragma unroll
-      for (int m = 0; m < C::GROUPS; ++m) {
-        atomic_add_vec<C::VEC>(dq + (int64_t)row * DP + C::col(lane, m), &acc_q[i][C::VEC * m]);
+      if (row + 8 < p.sq) {
+        *reinterpret_cast<float2*>(dq_bh + (int64_t)(row + 8) * DP + col) =
+            make_float2(dq[4 * c + 2] * p.scale, dq[4 * c + 3] * p.scale);
       }
     }
   }
+}
 
-  // dk = dS^T . q~ / log2(e), as in flash_bwd_wgmma
-  float* dk = a.dk + (int64_t)bh * a.skv * DP;
-  float* dv = a.dv + (int64_t)bh * a.skv * DP;
+template <int DP>
+struct BwdKvF32Cfg {
+  static constexpr bool WIDE = DP == 512;         // a block owns one 256-column half of dK and dV
+  static constexpr int HALVES = WIDE ? 2 : 1;
+  static constexpr int NC = DP / 32;              // 32-column chunks of the head dim
+  static constexpr int G = WIDE ? 4 : NC;         // chunks of the logits summed in place
+  static constexpr int ON = WIDE ? 256 : DP;      // dK (dV) columns a block owns
+  static constexpr int TR = WIDE ? 64 : DP;       // rows of q~^T (dO^T) in one box: a column block
+  static constexpr int BOX = 64 * ROW;            // 32 columns of 64 rows
+  static constexpr int T_BOX = TR * ROW;          // 32 q of a column block of q~^T (dO^T)
+  static constexpr int S_STAGE = 4 * BOX;         // K (V) and q~ (dO) chunks, hi and lo
+  static constexpr int T_STAGE = 2 * T_BOX;       // hi and lo
+  static constexpr int T_STAGES = 2 * (ON / TR);  // per q tile: column blocks x q halves
+  static constexpr int SLOT = S_STAGE > T_STAGE ? S_STAGE : T_STAGE;
+  static constexpr int SLOTS = 2;                 // a ring per consumer warpgroup
+  static constexpr int P_BYTES = 4 * BOX;         // hi and lo of a 64 x 64 tile
+  static constexpr size_t SMEM = 1024 + (size_t)2 * SLOTS * SLOT + 2 * P_BYTES + 8 * 4 * SLOTS;
+  static_assert(SMEM <= 232448, "the block's shared memory exceeds the H100's 227 KB");
+};
+
+struct BwdKvF32Tma {
+  CUtensorMap k, q, dot;    // warpgroup 0's ring: split K, q~ (64-row boxes), dO^T (TR-row boxes)
+  CUtensorMap v, dout, qt;  // warpgroup 1's: split V, dO, q~^T
+  const float* lse;         // [B, H, Sq]
+  const float* di;          // [B, H, Sq]
+  float* dk;                // [B, H, Skv, DP]: dS^T q~ / log2(e); zeroed and summed into when splits > 1
+  float* dv;                // [B, H, Skv, DP]: P^T dO; the same
+  int sq, skv, splits;
+};
+
+// dK = dS^T q~ / log2(e), dV = P^T dO, kv-stationary: a block owns 64 kv rows (at
+// 512 one half of dK's and dV's columns) and walks its range of q tiles of 64.
+template <int DP>
+__global__ void __launch_bounds__(NT_WS, 1) flash_bwd_dkv_f32_wgmma(const __grid_constant__ BwdKvF32Tma p) {
+  using C = BwdKvF32Cfg<DP>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* rings = align1024(smem_raw);            // [warpgroup][slot]
+  unsigned char* sP = rings + 2 * C::SLOTS * C::SLOT;    // P^T: [hi, lo][q half]
+  unsigned char* sdS = sP + C::P_BYTES;                  // dS^T, the same
+  uint64_t* full = reinterpret_cast<uint64_t*>(sdS + C::P_BYTES);  // [warpgroup][slot]
+  uint64_t* empty = full + 2 * C::SLOTS;
+
+  const int bh = blockIdx.y, col0 = 256 * (blockIdx.x % C::HALVES);
+  const int k0 = (blockIdx.x / C::HALVES) * 64;
+  const int q_tiles = (p.sq + 63) / 64;
+  const int t0 = blockIdx.z * q_tiles / p.splits, t1 = (blockIdx.z + 1) * q_tiles / p.splits;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2 * C::SLOTS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);  // the warps of one warpgroup
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= NCW) {
+    // producer warp w feeds warpgroup w's ring: per q tile NC stages of (K, q~)
+    // chunks (w = 0) or (V, dO) chunks (w = 1), then T_STAGES of dO^T or q~^T
+    setmaxnreg_dec<PRODUCER_REGS>();
+    const int w = warp - NCW;
+    if (w < 2 && lane == 0) {
+      unsigned char* ring = rings + w * C::SLOTS * C::SLOT;
+      uint64_t* f = full + w * C::SLOTS;
+      uint64_t* e = empty + w * C::SLOTS;
+      const CUtensorMap* kv = w ? &p.v : &p.k;
+      const CUtensorMap* qrows = w ? &p.dout : &p.q;
+      const CUtensorMap* qcols = w ? &p.qt : &p.dot;
+      int n = 0;
+      for (int t = t0; t < t1; ++t) {
+        for (int i = 0; i < C::NC + C::T_STAGES; ++i, ++n) {
+          const int slot = n % C::SLOTS;
+          unsigned char* st = ring + slot * C::SLOT;
+          mbar_wait(&e[slot], ((n / C::SLOTS) & 1) ^ 1);
+          if (i < C::NC) {
+            mbar_arrive_tx(&f[slot], C::S_STAGE);
+            for (int part = 0; part < 2; ++part) {
+              tma_load_4d(st + part * C::BOX, kv, &f[slot], 32 * i, k0, bh, part);
+              tma_load_4d(st + (2 + part) * C::BOX, qrows, &f[slot], 32 * i, t * 64, bh, part);
+            }
+          } else {  // column block v / 2, q half v % 2
+            const int v = i - C::NC;
+            mbar_arrive_tx(&f[slot], C::T_STAGE);
+            for (int part = 0; part < 2; ++part) {
+              tma_load_4d(st + part * C::T_BOX, qcols, &f[slot], t * 64 + 32 * (v % 2), col0 + C::TR * (v / 2), bh,
+                          part);
+            }
+          }
+        }
+      }
+    }
+  } else {
+    // consumers: this thread holds kv rows r and r + 8 of the warpgroup's
+    // accumulators (S^T or dP^T; dV or dK), columns 8 c + 2 qd + {0, 1}
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int wg = warp / 4, g = lane / 4, qd = lane % 4;
+    const int r = (warp % 4) * 16 + g;
+    const unsigned char* ring = rings + wg * C::SLOTS * C::SLOT;
+    uint64_t* f = full + wg * C::SLOTS;
+    uint64_t* e = empty + wg * C::SLOTS;
+    const float* stat = (wg ? p.di : p.lse) + (int64_t)bh * p.sq;
+    const float stat_pad = wg ? 0.0f : INFINITY;  // q rows past Sq get P = 0
+    const bool ok0 = k0 + r < p.skv, ok1 = k0 + r + 8 < p.skv;
+    float acc[C::ON / 2];  // dV (warpgroup 0) or dK (1)
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = k0 + 2 * warp + i;
-    if (row >= a.skv) continue;
+    for (int i = 0; i < C::ON / 2; ++i) acc[i] = 0.0f;
+    float tile[C::TR / 2];  // one column block's product over a q tile
+    float s_acc[32];        // S^T (warpgroup 0) or dP^T (1): 64 kv rows x 64 q
+    int n = 0;
+
+    for (int t = t0; t < t1; ++t) {
+      // S^T = K q~^T or dP^T = V dO^T: A the kv rows' chunk, B the q rows'
+      logits_tf32<64, C::NC, C::G>(s_acc, ring, C::SLOT, C::SLOTS, f, e, n, 0, C::BOX, 2 * C::BOX, C::BOX, lane);
+      float x[16];  // LSE (warpgroup 0) or Di (1) of this thread's q columns
 #pragma unroll
-    for (int m = 0; m < C::GROUPS; ++m) {
-      const int col = C::col(lane, m);
-      st_vec<C::VEC>(dk + (int64_t)row * DP + col, &acc_k[i][C::VEC * m], INV_LOG2E);
-      st_vec<C::VEC>(dv + (int64_t)row * DP + col, &acc_v[i][C::VEC * m], 1.0f);
+      for (int c = 0; c < 8; ++c) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int q = t * 64 + 8 * c + 2 * qd + j;
+          x[2 * c + j] = q < p.sq ? stat[q] : stat_pad;
+        }
+      }
+
+      named_bar_sync(1, 2 * 128);  // warpgroup 1 has read the last tile's P^T
+      if (wg == 0) {
+        // P^T = 2^(S^T - LSE) as hi and lo into sP, zero on kv rows past Skv
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          float pt[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) pt[i] = (i < 2 ? ok0 : ok1) ? exp2f(s_acc[4 * c + i] - x[2 * c + i % 2]) : 0.0f;
+          unsigned char* at = swz_at(sP, r, 8 * c + 2 * qd);
+          store_split2(at, pt[0], pt[1]);
+          store_split2(at + 8 * ROW, pt[2], pt[3]);
+        }
+        fence_proxy_async();
+        named_bar_sync(2, 2 * 128);  // P^T is in sP
+      } else {
+        named_bar_sync(2, 2 * 128);
+        // dS^T = P^T (dP^T - Di), P^T read back as hi + lo, into sdS
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const int j = 8 * c + 2 * qd;
+          const unsigned char* pa = swz_at(sP, r, j);
+          float pt[4];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float2 hi = *reinterpret_cast<const float2*>(pa + h * 8 * ROW);
+            const float2 lo = *reinterpret_cast<const float2*>(pa + h * 8 * ROW + 2 * C::BOX);
+            pt[2 * h] = hi.x + lo.x;
+            pt[2 * h + 1] = hi.y + lo.y;
+          }
+          unsigned char* at = swz_at(sdS, r, j);
+          store_split2(at, pt[0] * (s_acc[4 * c] - x[2 * c]), pt[1] * (s_acc[4 * c + 1] - x[2 * c + 1]));
+          store_split2(at + 8 * ROW, pt[2] * (s_acc[4 * c + 2] - x[2 * c]),
+                       pt[3] * (s_acc[4 * c + 3] - x[2 * c + 1]));
+        }
+        fence_proxy_async();
+        named_bar_sync(3, 128);  // dS^T is in sdS
+      }
+
+      // dV += P^T dO (B = dO^T) or dK += dS^T q~ (B = q~^T): each column block's
+      // product over the tile's 64 q in a fresh accumulator, added in fp32
+      const unsigned char* a = wg ? sdS : sP;
+#pragma unroll
+      for (int j = 0; j < C::T_STAGES / 2; ++j, n += 2) {
+        const int slot0 = n % C::SLOTS, slot1 = (n + 1) % C::SLOTS;
+        mbar_wait(&f[slot0], (n / C::SLOTS) & 1);
+        mbar_wait(&f[slot1], ((n + 1) / C::SLOTS) & 1);
+        wgmma_fence();
+        pv_tile_tf32<C::TR>(tile, a, ring + slot0 * C::SLOT, ring + slot1 * C::SLOT, C::T_BOX);
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(tile);
+        release_slot(&e[slot0], lane);
+        release_slot(&e[slot1], lane);
+        float* accj = acc + (C::TR / 2) * j;
+#pragma unroll
+        for (int i = 0; i < C::TR / 2; ++i) accj[i] += tile[i];
+      }
+    }
+
+    // dk = dS^T q~ / log2(e): q~ = q * scale * log2(e), dk = dS^T q * scale
+    const float mul = wg ? INV_LOG2E : 1.0f;
+    float* out = (wg ? p.dk : p.dv) + (int64_t)bh * p.skv * DP + col0;
+#pragma unroll
+    for (int c = 0; c < C::ON / 8; ++c) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = k0 + r + 8 * h;
+        if (row >= p.skv) continue;
+        float2* at = reinterpret_cast<float2*>(out + (int64_t)row * DP + 8 * c + 2 * qd);
+        const float2 val = make_float2(acc[4 * c + 2 * h] * mul, acc[4 * c + 2 * h + 1] * mul);
+        if (p.splits == 1) {
+          *at = val;
+        } else {
+          atomicAdd(at, val);
+        }
+      }
     }
   }
 }
@@ -1686,6 +1887,14 @@ void launch_split_rows(View x, int64_t bh, int64_t heads, int64_t rows, int dp, 
       static_cast<const float*>(x.ptr), x.sb, x.sh, x.ss, (int)heads, (int)rows, dp, total4, dst);
 }
 
+// hi and lo of x^T: x strided fp32 [B, H, rows, DP] into dst [2][B*H][DP][rows4]
+void launch_split_t(View x, int64_t bh, int64_t heads, int64_t rows, int64_t rows4, int dp, float* dst,
+                    cudaStream_t stream) {
+  const dim3 grid((unsigned)((rows4 + 31) / 32), (unsigned)(dp / 32), (unsigned)bh);
+  flash_f32_split_vt<<<grid, dim3(32, 8), 0, stream>>>(static_cast<const float*>(x.ptr), x.sb, x.sh, x.ss,
+                                                       (int)heads, (int)rows, (int)rows4, dp, dst);
+}
+
 template <int DP>
 cudaError_t launch_fwd_f32(View q, View k, View v, float* o, float* lse, float* split_q, float* split_k,
                            float* split_vt, int64_t batch, int64_t heads, int64_t sq, int64_t skv,
@@ -1694,9 +1903,7 @@ cudaError_t launch_fwd_f32(View q, View k, View v, float* o, float* lse, float* 
   const int64_t bh = batch * heads, skv4 = (skv + 3) / 4 * 4;
   launch_split_rows(q, bh, heads, sq, DP, split_q, stream);
   launch_split_rows(k, bh, heads, skv, DP, split_k, stream);
-  const dim3 vgrid((unsigned)((skv4 + 31) / 32), DP / 32, (unsigned)bh);
-  flash_f32_split_vt<<<vgrid, dim3(32, 8), 0, stream>>>(static_cast<const float*>(v.ptr), v.sb, v.sh, v.ss,
-                                                        (int)heads, (int)skv, (int)skv4, DP, split_vt);
+  launch_split_t(v, bh, heads, skv, skv4, DP, split_vt, stream);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   FwdF32Tma p;
@@ -1715,13 +1922,69 @@ cudaError_t launch_fwd_f32(View q, View k, View v, float* o, float* lse, float* 
   return cudaGetLastError();
 }
 
+// The split passes into scratch (see flash_bwd_f32), then the dQ kernel and the
+// dK/dV kernel, one after the other on the stream.
 template <int DP>
-cudaError_t launch_bwd_f32(const BwdArgsF32& a, int64_t batch, cudaStream_t stream) {
-  constexpr size_t smem = bwdf32_smem_bytes<DP>();
-  static cudaError_t opted_in = allow_smem(flash_bwd_f32_kernel<DP>, smem);  // once per head dim
-  if (opted_in != cudaSuccess) return opted_in;
-  dim3 grid((unsigned)((a.skv + BKG - 1) / BKG), (unsigned)(batch * a.heads));
-  flash_bwd_f32_kernel<DP><<<grid, NT5, smem, stream>>>(a);
+cudaError_t launch_bwd_f32(View q, View k, View v, View dout, const float* lse, const float* di, float* dq,
+                           float* dk, float* dv, float* scratch, int64_t batch, int64_t heads, int64_t sq,
+                           int64_t skv, int64_t splits, double scale, cudaStream_t stream) {
+  using CQ = FwdF32Cfg<DP>;
+  using CK = BwdKvF32Cfg<DP>;
+  const int64_t bh = batch * heads, sq4 = (sq + 3) / 4 * 4, skv4 = (skv + 3) / 4 * 4;
+  if (splits < 1 || splits > (sq + 63) / 64) return cudaErrorInvalidValue;
+  float* s_q = scratch;
+  float* s_k = s_q + 2 * bh * sq * DP;
+  float* s_v = s_k + 2 * bh * skv * DP;
+  float* s_do = s_v + 2 * bh * skv * DP;
+  float* s_kt = s_do + 2 * bh * sq * DP;
+  float* s_qt = s_kt + 2 * bh * DP * skv4;
+  float* s_dot = s_qt + 2 * bh * DP * sq4;
+  launch_split_rows(q, bh, heads, sq, DP, s_q, stream);
+  launch_split_rows(k, bh, heads, skv, DP, s_k, stream);
+  launch_split_rows(v, bh, heads, skv, DP, s_v, stream);
+  launch_split_rows(dout, bh, heads, sq, DP, s_do, stream);
+  launch_split_t(k, bh, heads, skv, skv4, DP, s_kt, stream);
+  launch_split_t(q, bh, heads, sq, sq4, DP, s_qt, stream);
+  launch_split_t(dout, bh, heads, sq, sq4, DP, s_dot, stream);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  BwdDqF32Tma pq;
+  if (!f32_split_map(&pq.q, s_q, bh, sq, DP, CQ::QR) || !f32_split_map(&pq.dout, s_do, bh, sq, DP, CQ::QR) ||
+      !f32_split_map(&pq.k, s_k, bh, skv, DP, FKT) || !f32_split_map(&pq.v, s_v, bh, skv, DP, FKT) ||
+      !f32_split_map(&pq.kt, s_kt, bh, DP, skv4, CQ::V_ROWS)) {
+    return cudaErrorInvalidValue;
+  }
+  pq.lse = lse;
+  pq.di = di;
+  pq.dq = dq;
+  pq.scale = (float)scale;
+  pq.sq = (int)sq;
+  pq.skv = (int)skv;
+  static cudaError_t dq_opted_in = allow_smem(flash_bwd_dq_f32_wgmma<DP>, CQ::SMEM);  // once per head dim
+  if (dq_opted_in != cudaSuccess) return dq_opted_in;
+  flash_bwd_dq_f32_wgmma<DP><<<dim3((unsigned)((sq + CQ::QR - 1) / CQ::QR), (unsigned)bh), NT_WS, CQ::SMEM,
+                               stream>>>(pq);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  BwdKvF32Tma pk;
+  if (!f32_split_map(&pk.k, s_k, bh, skv, DP, 64) || !f32_split_map(&pk.q, s_q, bh, sq, DP, 64) ||
+      !f32_split_map(&pk.dot, s_dot, bh, DP, sq4, CK::TR) || !f32_split_map(&pk.v, s_v, bh, skv, DP, 64) ||
+      !f32_split_map(&pk.dout, s_do, bh, sq, DP, 64) || !f32_split_map(&pk.qt, s_qt, bh, DP, sq4, CK::TR)) {
+    return cudaErrorInvalidValue;
+  }
+  pk.lse = lse;
+  pk.di = di;
+  pk.dk = dk;
+  pk.dv = dv;
+  pk.sq = (int)sq;
+  pk.skv = (int)skv;
+  pk.splits = (int)splits;
+  static cudaError_t kv_opted_in = allow_smem(flash_bwd_dkv_f32_wgmma<DP>, CK::SMEM);
+  if (kv_opted_in != cudaSuccess) return kv_opted_in;
+  const dim3 grid((unsigned)((skv + 63) / 64 * CK::HALVES), (unsigned)bh, (unsigned)splits);
+  flash_bwd_dkv_f32_wgmma<DP><<<grid, NT_WS, CK::SMEM, stream>>>(pk);
   return cudaGetLastError();
 }
 
@@ -1803,10 +2066,10 @@ int flash_bwd_bf16(const void* q, const void* k, const void* v, const void* dout
 // zero columns up to the next of them.
 #define FLASH_F32_DISPATCH(LAUNCH)                                   \
   switch (d) {                                                       \
-    case 64: return LAUNCH<64>(a, batch, s);                         \
-    case 96: return LAUNCH<96>(a, batch, s);                         \
-    case 160: return LAUNCH<160>(a, batch, s);                       \
-    case 512: return LAUNCH<512>(a, batch, s);                       \
+    case 64: return LAUNCH(64);                                      \
+    case 96: return LAUNCH(96);                                      \
+    case 160: return LAUNCH(160);                                    \
+    case 512: return LAUNCH(512);                                    \
     default: return cudaErrorInvalidValue;                           \
   }
 
@@ -1828,18 +2091,18 @@ int flash_fwd_f32(const void* q, const void* k, const void* v, void* o, void* ls
   float* o_ = static_cast<float*>(o);
   float* lse_ = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 64: return launch_fwd_f32<64>(vq, vk, vv, o_, lse_, sq_, sk_, sv_, batch, heads, sq, skv, s);
-    case 96: return launch_fwd_f32<96>(vq, vk, vv, o_, lse_, sq_, sk_, sv_, batch, heads, sq, skv, s);
-    case 160: return launch_fwd_f32<160>(vq, vk, vv, o_, lse_, sq_, sk_, sv_, batch, heads, sq, skv, s);
-    case 512: return launch_fwd_f32<512>(vq, vk, vv, o_, lse_, sq_, sk_, sv_, batch, heads, sq, skv, s);
-    default: return cudaErrorInvalidValue;
-  }
+#define FLASH_FWD_F32(DP) launch_fwd_f32<DP>(vq, vk, vv, o_, lse_, sq_, sk_, sv_, batch, heads, sq, skv, s)
+  FLASH_F32_DISPATCH(FLASH_FWD_F32)
+#undef FLASH_FWD_F32
 }
 
 // q (pre-scaled), k, v, dout: fp32 [B, H, S, d] strided as in flash_fwd_bf16, d
-// as in flash_fwd_f32; lse, di: fp32 [B, H, Sq]. dq: zeroed fp32 [B, H, Sq, d]
-// receiving dS . k (the caller multiplies by scale); dk, dv: fp32 [B, H, Skv, d].
+// as in flash_fwd_f32; lse, di: fp32 [B, H, Sq]. Writes dq = dS k scale (fp32
+// [B, H, Sq, d]), and dk = dS^T q~ / log2(e), dv = P^T dO (fp32 [B, H, Skv, d]);
+// with splits > 1 (the q range split over that many blocks a kv tile, at most
+// ceil(Sq / 64)) dk and dv must be zeroed and are summed into. scratch: 2 B H d
+// (2 Sq + 2 Skv + Skv4 + 2 Sq4) floats (S4: S rounded up to 4), which receive the
+// tf32 hi and lo parts of q~, k, v, dO, then k^T, q~^T, dO^T.
 int flash_bwd_f32(const void* q, const void* k, const void* v, const void* dout,
                   const void* lse, const void* di, void* dq, void* dk, void* dv,
                   int64_t batch, int64_t heads, int64_t sq, int64_t skv, int64_t d,
@@ -1847,24 +2110,20 @@ int flash_bwd_f32(const void* q, const void* k, const void* v, const void* dout,
                   int64_t k_sb, int64_t k_sh, int64_t k_ss,
                   int64_t v_sb, int64_t v_sh, int64_t v_ss,
                   int64_t do_sb, int64_t do_sh, int64_t do_ss,
-                  void* stream) {
-  BwdArgsF32 a;
-  a.q = static_cast<const float*>(q);
-  a.k = static_cast<const float*>(k);
-  a.v = static_cast<const float*>(v);
-  a.dout = static_cast<const float*>(dout);
-  a.q_sb = q_sb; a.q_sh = q_sh; a.q_ss = q_ss;
-  a.k_sb = k_sb; a.k_sh = k_sh; a.k_ss = k_ss;
-  a.v_sb = v_sb; a.v_sh = v_sh; a.v_ss = v_ss;
-  a.do_sb = do_sb; a.do_sh = do_sh; a.do_ss = do_ss;
-  a.lse = static_cast<const float*>(lse);
-  a.di = static_cast<const float*>(di);
-  a.dq = static_cast<float*>(dq);
-  a.dk = static_cast<float*>(dk);
-  a.dv = static_cast<float*>(dv);
-  a.heads = (int)heads; a.sq = (int)sq; a.skv = (int)skv;
+                  void* scratch, int64_t splits, double scale, void* stream) {
+  const View vq = {q, q_sb, q_sh, q_ss}, vk = {k, k_sb, k_sh, k_ss}, vv = {v, v_sb, v_sh, v_ss};
+  const View vdo = {dout, do_sb, do_sh, do_ss};
+  const float* lse_ = static_cast<const float*>(lse);
+  const float* di_ = static_cast<const float*>(di);
+  float* dq_ = static_cast<float*>(dq);
+  float* dk_ = static_cast<float*>(dk);
+  float* dv_ = static_cast<float*>(dv);
+  float* scratch_ = static_cast<float*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  FLASH_F32_DISPATCH(launch_bwd_f32)
+#define FLASH_BWD_F32(DP) \
+  launch_bwd_f32<DP>(vq, vk, vv, vdo, lse_, di_, dq_, dk_, dv_, scratch_, batch, heads, sq, skv, splits, scale, s)
+  FLASH_F32_DISPATCH(FLASH_BWD_F32)
+#undef FLASH_BWD_F32
 }
 
 #undef FLASH_F32_DISPATCH

@@ -10,10 +10,10 @@ Four wrappers over the kernels of ``csrc/flash_attention.cu`` stand behind it:
 ``flash_fwd`` (replaces the four Pallas forward families) and ``flash_bwd``
 (replaces the dq and dk/dv families) take bf16 (TMA and wgmma kernels at head
 dims 40, 64, 80, 160 and 512); ``flash_fwd_f32`` and ``flash_bwd_f32`` are the
-fp32 forward (three TF32 tensor-core products a product, fp32 accuracy) and
-backward (FFMA), at head dims 64, 96, 160, 512, for the VAE and the UNets that
-run in fp32 (the JAX kernels take fp32 as they take bf16,
-ops/flash_attention.py:1221-1246). ``flash_fwd`` and ``flash_bwd`` hand fp32
+fp32 forward and backward (three TF32 tensor-core products a product, fp32
+accuracy; the backward as JAX's two passes, a dQ kernel and a dK/dV kernel), at
+head dims 64, 96, 160, 512, for the VAE and the UNets that run in fp32 (the
+JAX kernels take fp32 as they take bf16, ops/flash_attention.py:1221-1246). ``flash_fwd`` and ``flash_bwd`` hand fp32
 inputs to them. As JAX pads D (:1257-1272), a head dim up to 512 that no
 kernel is built for is zero-padded to the next one (``kernel_head_dim``),
 after the pre-scaling, and the results are sliced back: zero columns add
@@ -42,6 +42,9 @@ F32_HEAD_DIMS = (64, 96, 160, 512)
 # the bf16 backward at d <= 160: kv rows a block owns, q rows of one ring stage
 BWD_KV_ROWS = 128
 BWD_Q_ROWS = 64
+# the fp32 dK/dV kernel: kv rows a block owns (two blocks a kv tile at d = 512,
+# one for each half of dK's and dV's columns); its q tiles are BWD_Q_ROWS
+F32_BWD_KV_ROWS = 64
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
@@ -53,7 +56,7 @@ def _lib():
         lib.flash_fwd_bf16.argtypes = [_P] * 5 + [_I] * 14 + [_P]
         lib.flash_bwd_bf16.argtypes = [_P] * 9 + [_I] * 17 + [_P, _P, _I, ctypes.c_double, _P]
         lib.flash_fwd_f32.argtypes = [_P] * 5 + [_I] * 14 + [_P] * 4
-        lib.flash_bwd_f32.argtypes = [_P] * 9 + [_I] * 17 + [_P]
+        lib.flash_bwd_f32.argtypes = [_P] * 9 + [_I] * 17 + [_P, _I, ctypes.c_double, _P]
         for fn in (lib.flash_fwd_bf16, lib.flash_bwd_bf16, lib.flash_fwd_f32, lib.flash_bwd_f32):
             fn.restype = ctypes.c_int
         lib._argtypes_set = True
@@ -197,19 +200,32 @@ def flash_bwd_plain(qs, k, v, do, lse, di, scale: float):
     return dq.to(qs.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def bwd_q_splits(b: int, h: int, sq: int, skv: int, sms: int) -> int:
-    """Blocks that share one kv tile's walk over q in the bf16 backward (d <= 160).
-
-    One when the kv tiles alone fill the card. Otherwise (kv = 77 gives one kv
-    tile per head) the count that puts a block on every SM and, from there, costs
-    the fewest waves x (q tiles a block walks + 1, for loading K and V and writing
-    dK, dV), the smaller on a tie. The tiles are the same at every head dim."""
-    blocks = -(-skv // BWD_KV_ROWS) * b * h
-    q_tiles = -(-sq // BWD_Q_ROWS)
+def _cheapest_split(blocks: int, q_tiles: int, sms: int, fewest: int) -> int:
+    """One when the kv blocks alone fill the card or q is one tile; otherwise
+    the count from ``fewest`` up that costs the fewest waves x (q tiles a block
+    walks + 1, for loading its kv rows and writing dK, dV), the smaller on a tie."""
     if blocks >= sms or q_tiles == 1:
         return 1
     cost = lambda n: -(-blocks * n // sms) * (-(-q_tiles // n) + 1)
-    return min(range(min(q_tiles, -(-sms // blocks)), q_tiles + 1), key=lambda n: (cost(n), n))
+    return min(range(fewest, q_tiles + 1), key=lambda n: (cost(n), n))
+
+
+def bwd_q_splits(b: int, h: int, sq: int, skv: int, sms: int) -> int:
+    """Blocks that share one kv tile's walk over q in the bf16 backward (d <= 160):
+    from the count that puts a block on every SM (kv = 77 gives one kv tile per
+    head). The tiles are the same at every head dim."""
+    blocks = -(-skv // BWD_KV_ROWS) * b * h
+    q_tiles = -(-sq // BWD_Q_ROWS)
+    return _cheapest_split(blocks, q_tiles, sms, min(q_tiles, -(-sms // blocks)))
+
+
+def bwd_f32_q_splits(b: int, h: int, sq: int, skv: int, d: int, sms: int) -> int:
+    """Blocks that share one kv tile's walk over q in the fp32 dK/dV kernel (d
+    the kernel head dim), from one: the q range stays whole wherever the kv
+    tiles alone nearly fill the card (1x8x1024x1024 gives 128 blocks on 132
+    SMs), and every grad is then written once, the same bits from call to call."""
+    blocks = -(-skv // F32_BWD_KV_ROWS) * b * h * (2 if d == 512 else 1)
+    return _cheapest_split(blocks, -(-sq // BWD_Q_ROWS), sms, 1)
 
 
 def bwd_q_ranges(sq: int, splits: int) -> list[tuple[int, int]]:
@@ -221,8 +237,8 @@ def bwd_q_ranges(sq: int, splits: int) -> list[tuple[int, int]]:
             for z in range(splits)]
 
 
-def _launch_bwd(entry: str, qs, k, v, do, lse, di, scale: float):
-    """The backward kernel at the row's kernel head dim: q̃, k, v, dO
+def _launch_bwd(qs, k, v, do, lse, di, scale: float):
+    """The bf16 backward kernel at the row's kernel head dim: q̃, k, v, dO
     zero-padded to it (LSE and Di are unchanged by zero columns), the grads
     sliced back to the true one; ``scale`` is the true head dim's."""
     d_true = qs.shape[-1]
@@ -231,10 +247,9 @@ def _launch_bwd(entry: str, qs, k, v, do, lse, di, scale: float):
     lse, di = lse.float().contiguous(), di.float().contiguous()
     b, h, sq, d = qs.shape
     skv = k.shape[2]
-    fn = getattr(_lib(), entry)
-    stream = torch.cuda.current_stream(qs.device).cuda_stream
-    # the TMA kernels (bf16, d <= 160) scale dq themselves and may split the q range
-    tma = entry == "flash_bwd_bf16" and d != 512
+    lib = _lib()
+    # the TMA kernels (d <= 160) scale dq themselves and may split the q range
+    tma = d != 512
     splits = bwd_q_splits(b, h, sq, skv, sm_count(qs.device.index)) if tma else 1
     # one zeroed fp32 buffer for what the kernel sums with atomics: dq, and dk,
     # dv when the q range is split; one cast to the grads' dtype at the end
@@ -243,20 +258,51 @@ def _launch_bwd(entry: str, qs, k, v, do, lse, di, scale: float):
     dk = dv = None  # written in bf16 by the kernel unless split
     if splits == 1:
         dk, dv = (torch.empty((b, h, skv, d), dtype=k.dtype, device=k.device) for _ in range(2))
-    args = [qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), di.data_ptr(),
-            acc.data_ptr(), dk.data_ptr() if dk is not None else None, dv.data_ptr() if dv is not None else None,
-            b, h, sq, skv, d, *_strides(qs), *_strides(k), *_strides(v), *_strides(do)]
-    if entry == "flash_bwd_bf16":  # dk, dv partial sums; splits; the scale dq leaves with
-        ptrs = [acc[n_q:].data_ptr(), acc[n_q + n_kv:].data_ptr()] if splits > 1 else [None, None]
-        args += [*ptrs, splits, scale if tma else 1.0]
-    _nvcc.check(fn(*args, stream), entry)
-    if not tma:  # the fp32 and d=512 kernels leave dq unscaled
+    ptrs = [acc[n_q:].data_ptr(), acc[n_q + n_kv:].data_ptr()] if splits > 1 else [None, None]
+    status = lib.flash_bwd_bf16(
+        qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), di.data_ptr(),
+        acc.data_ptr(), dk.data_ptr() if dk is not None else None, dv.data_ptr() if dv is not None else None,
+        b, h, sq, skv, d, *_strides(qs), *_strides(k), *_strides(v), *_strides(do),
+        *ptrs, splits, scale if tma else 1.0, torch.cuda.current_stream(qs.device).cuda_stream,
+    )
+    _nvcc.check(status, "flash_bwd_bf16")
+    if not tma:  # the d=512 kernel leaves dq unscaled
         dq = (acc.view(b, h, sq, d) * scale).to(qs.dtype)
     else:
         out = acc.to(qs.dtype)
         dq = out[:n_q].view(b, h, sq, d)
         if splits > 1:
             dk, dv = out[n_q:n_q + n_kv].view(b, h, skv, d), out[n_q + n_kv:].view(b, h, skv, d)
+    return tuple(g[..., :d_true] for g in (dq, dk, dv))
+
+
+def _launch_bwd_f32(qs, k, v, do, lse, di, scale: float):
+    """The fp32 backward kernels at the row's kernel head dim, padded and
+    sliced as ``_launch_bwd``. The kernels write dq (scaled), dk and dv in
+    place; dk and dv are zeroed and summed into when the q range is split."""
+    d_true = qs.shape[-1]
+    dp = kernel_head_dim(d_true, qs.dtype)
+    qs, k, v, do = (_kernel_view(_pad_head(t, dp)) for t in (qs, k, v, do))
+    lse, di = lse.float().contiguous(), di.float().contiguous()
+    b, h, sq, d = qs.shape
+    skv = k.shape[2]
+    lib = _lib()
+    splits = bwd_f32_q_splits(b, h, sq, skv, d, sm_count(qs.device.index))
+    dq = torch.empty((b, h, sq, d), dtype=torch.float32, device=qs.device)
+    new = torch.zeros if splits > 1 else torch.empty
+    dk, dv = (new((b, h, skv, d), dtype=torch.float32, device=qs.device) for _ in range(2))
+    # the tf32 hi and lo parts of q̃, k, v, dO by rows and of kᵀ, q̃ᵀ, dOᵀ,
+    # written by the kernels' split passes; transposed rows hold S rounded up to 4
+    r4 = lambda n: -(-n // 4) * 4
+    scratch = torch.empty(2 * b * h * d * (2 * sq + 2 * skv + r4(skv) + 2 * r4(sq)), dtype=torch.float32,
+                          device=qs.device)
+    status = lib.flash_bwd_f32(
+        qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), di.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, h, sq, skv, d, *_strides(qs), *_strides(k), *_strides(v), *_strides(do),
+        scratch.data_ptr(), splits, scale, torch.cuda.current_stream(qs.device).cuda_stream,
+    )
+    _nvcc.check(status, "flash_bwd_f32")
     return tuple(g[..., :d_true] for g in (dq, dk, dv))
 
 
@@ -269,7 +315,7 @@ def flash_bwd(qs, k, v, do, lse, di, scale: float):
     if qs.dtype == torch.float32:
         return flash_bwd_f32(qs, k, v, do, lse, di, scale)
     _check_cuda_inputs(qs, k, v, do)
-    out = _launch_bwd("flash_bwd_bf16", qs, k, v, do, lse, di, scale)
+    out = _launch_bwd(qs, k, v, do, lse, di, scale)
     flash_bwd.launches += 1
     return out
 
@@ -278,12 +324,14 @@ flash_bwd.launches = 0
 
 
 def flash_bwd_f32(qs, k, v, do, lse, di, scale: float):
-    """The fp32 backward kernel (FFMA): as ``flash_bwd``, with fp32 grads; dq
-    is summed with fp32 atomics, so its last bits vary from run to run."""
+    """The fp32 backward kernels (split-TF32 wgmma: a dQ kernel and a dK/dV
+    kernel, JAX's two passes): as ``flash_bwd``, with fp32 grads. Every grad
+    is written once, so two calls give the same bits, except where the q range
+    is split (``bwd_f32_q_splits``) and dk, dv are summed by fp32 atomics."""
     if qs.device.type == "cpu":
         return flash_bwd_plain(qs, k, v, do, lse, di, scale)
     _check_cuda_inputs(qs, k, v, do, dtype=torch.float32)
-    out = _launch_bwd("flash_bwd_f32", qs, k, v, do, lse, di, scale)
+    out = _launch_bwd_f32(qs, k, v, do, lse, di, scale)
     flash_bwd_f32.launches += 1
     return out
 

@@ -1,18 +1,20 @@
-"""What paces the fp32 flash forward: device times of the kernel and of patched builds.
+"""What paces the fp32 flash kernels: device times of the kernels and of patched builds.
 
     python -m neurosis_tpu_torch.tools.flash_f32_probes     # repository root, one CUDA card
 
-``flash_fwd_f32`` forms every fp32 product as three TF32 tensor-core products of
-split operands (``csrc/flash_attention.cu``). This tool times it at the fp32
-forward shapes of chip_smoke.py's paths, with its largest error against the
-plain fp32 version, and times two variants of the source (text replacements,
-listed in PROBES) built into neurosis_tpu_torch/_build. Their outputs are wrong
-by design; they take work away and show what the rest costs:
+``flash_fwd_f32`` and ``flash_bwd_f32`` form every fp32 product as three TF32
+tensor-core products of split operands (``csrc/flash_attention.cu``). This tool
+times them at the fp32 shapes of chip_smoke.py's paths (the backward's split
+passes, dQ and dK/dV kernels together), with the largest error against the plain
+fp32 version, and times two variants of the source (text replacements, listed in
+PROBES) built into neurosis_tpu_torch/_build. Their outputs are wrong by design;
+they take work away and show what the rest costs:
   - ``one_pass``: only hi.hi of each product (a third of the tensor work and
     of the operand reads from shared memory; the same loads by TMA);
-  - ``no_products``: no wgmma at all (the loads, the softmax, the barriers).
+  - ``no_products``: no wgmma at all (the loads, the softmax or the elementwise
+    work of the backward, the barriers).
 A probe whose text no longer matches the source is reported and skipped.
-One JSON line per shape: each build's device ms (the mean of 10 calls queued
+One JSON line per shape and direction: each build's device ms (the mean of 10 calls queued
 while the card sleeps) and the card's name and power limit. No library call is
 timed here: the package never calls one (flash_times.py times SDPA beside it).
 """
@@ -27,6 +29,7 @@ import sys
 
 SHAPES = [(2, 1, 16384, 16384, 512), (4, 1, 4096, 4096, 512), (8, 1, 1024, 1024, 512), (1, 1, 1024, 1024, 512),
           (2, 10, 4096, 4096, 64), (1, 8, 1024, 1024, 40), (1, 8, 1024, 77, 40)]
+BWD_SHAPES = [(8, 1, 1024, 1024, 512), (2, 10, 4096, 4096, 64), (1, 8, 1024, 1024, 40)]
 _SMALL_QK = "for (int kk = 0; kk < 4; ++kk) {\n    WgmmaTf32<N>::ss(d, sw128_desc(qh + 32 * kk, 0), sw128_desc(kl"
 _SMALL_PV = "for (int kk = 0; kk < 4; ++kk) {\n      const unsigned char* pk"
 _QK_BODY = "const unsigned char* kh, const unsigned char* kl, int accumulate) {\n"
@@ -92,24 +95,29 @@ def main() -> int:
                           capture_output=True, text=True).stdout.strip()
     libs = {"kernel": _nvcc.load("flash_attention")}
     libs.update({name: ctypes.CDLL(str(so)) for name, so in build_probes(_nvcc).items()})
-    for shape in SHAPES:
+    for direction, shape in [("fwd", sh) for sh in SHAPES] + [("bwd", sh) for sh in BWD_SHAPES]:
         b, h, sq, skv, d = shape
         g = torch.Generator("cuda").manual_seed(sum(shape))
-        q = torch.randn(b, h, sq, d, generator=g, device="cuda")
+        q, do = (torch.randn(b, h, sq, d, generator=g, device="cuda") for _ in range(2))
         k, v = (torch.randn(b, h, skv, d, generator=g, device="cuda") for _ in range(2))
-        qs = q * (fa.LOG2_E / math.sqrt(d))
-        row = dict(shape=list(shape), card=card)
+        scale = 1.0 / math.sqrt(d)
+        qs = q * (scale * fa.LOG2_E)
+        o_ref, lse = fa.flash_fwd_plain(qs, k, v)
+        di = (do * o_ref).sum(-1)
+        if direction == "fwd":
+            run, plain = (lambda: fa.flash_fwd_f32(qs, k, v)[:1]), (lambda: (o_ref,))
+        else:
+            run = lambda: fa.flash_bwd_f32(qs, k, v, do, lse, di, scale)
+            plain = lambda: fa.flash_bwd_plain(qs, k, v, do, lse, di, scale)
+        row = dict(direction=direction, shape=list(shape), card=card)
         for name, lib in libs.items():
             _nvcc._loaded["flash_attention"] = lib  # the wrapper launches this build
             if name == "kernel":
-                o, _ = fa.flash_fwd_f32(qs, k, v)
-                o_ref, _ = fa.flash_fwd_plain(qs, k, v)
-                row["rel_err"] = float((o - o_ref).abs().max() / o_ref.abs().max())
-                del o, o_ref
-            row[f"{name}_ms"] = device_ms(torch, lambda: fa.flash_fwd_f32(qs, k, v))
+                row["rel_err"] = max(float((x - y).abs().max() / y.abs().max()) for x, y in zip(run(), plain()))
+            row[f"{name}_ms"] = device_ms(torch, run)
         _nvcc._loaded["flash_attention"] = libs["kernel"]
         print(json.dumps(row), flush=True)
-        del q, k, v, qs
+        del q, k, v, do, qs, o_ref, lse, di
         torch.cuda.empty_cache()
     return 0
 

@@ -170,6 +170,76 @@ def test_split_tf32_arithmetic_matches_jax(interpreted_flash, shape, passes):
         assert not np.allclose(o, out_j, atol=3e-6, rtol=1e-4)
 
 
+def _split_tf32_bwd(qs, k, v, do, lse, di, scale: float, splits: int = 1, block: int = 64):
+    """A plain-torch model of the fp32 backward kernels' arithmetic, JAX's two
+    passes: every product a·bᵀ as lo·hi + hi·lo + hi·hi of the operands' tf32
+    splits (the small ones first), each tile's product in a fresh sum added
+    into its grad in fp32. The dQ pass walks kv in tiles of ``block`` keys
+    (S, dP, P from the saved LSE, dS, dQ += dS·K); the dK/dV pass walks q in
+    tiles of ``block`` rows (Sᵀ, Pᵀ, dPᵀ, dSᵀ from Pᵀ read back as hi + lo,
+    dV += Pᵀ·dO, dK += dSᵀ·q̃), over ``splits`` q ranges whose partial dK
+    and dV are summed, as the kernel's split blocks add theirs."""
+    from neurosis_tpu_torch.ops.flash_attention import LOG2_E, bwd_q_ranges
+
+    def mm(a, b):
+        ah, al = _tf32_split(a)
+        bh, bl = _tf32_split(b)
+        return al @ bh.transpose(-1, -2) + ah @ bl.transpose(-1, -2) + ah @ bh.transpose(-1, -2)
+
+    dq = torch.zeros_like(qs)
+    for t0 in range(0, k.shape[-2], block):
+        kt, vt = k[..., t0:t0 + block, :], v[..., t0:t0 + block, :]
+        p = torch.exp2(mm(qs, kt) - lse[..., None])
+        ds = p * (mm(do, vt) - di[..., None])
+        dq = dq + mm(ds, kt.transpose(-1, -2))
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for start, stop in bwd_q_ranges(qs.shape[-2], splits):
+        dk_part, dv_part = torch.zeros_like(k), torch.zeros_like(v)
+        for t0 in range(start, stop, block):
+            qt, dot = qs[..., t0:t0 + block, :], do[..., t0:t0 + block, :]
+            pt = torch.exp2(mm(k, qt) - lse[..., None, t0:t0 + block])
+            pt_read = sum(_tf32_split(pt))
+            dst = pt_read * (mm(v, dot) - di[..., None, t0:t0 + block])
+            dv_part = dv_part + mm(pt, dot.transpose(-1, -2))
+            dk_part = dk_part + mm(dst, qt.transpose(-1, -2))
+        dk, dv = dk + dk_part, dv + dv_part
+    return dq * scale, dk / LOG2_E, dv
+
+
+@pytest.mark.parametrize("shape,splits", [((1, 2, 256, 256, 64), 1), ((1, 1, 256, 256, 512), 1),
+                                          ((1, 2, 200, 77, 48), 1), ((1, 2, 200, 77, 48), 3)])
+def test_split_tf32_backward_matches_jax(interpreted_flash, shape, splits):
+    """The card's fp32 backward (a dQ kernel and a dK/dV kernel, each product
+    three TF32 tensor-core products of split operands), modelled in plain torch
+    at the kernel head dim (48 padded to 64, a kv = 77 tail), against the VJP of
+    JAX's fp32 flash attention interpreted (its _bwd), at the fp32 grad
+    tolerance (2e-5 / 1e-3); with the q range whole and split over 3 blocks."""
+    import math
+
+    import torch.nn.functional as F
+
+    from neurosis_tpu_torch.ops.flash_attention import LOG2_E, flash_fwd_plain, kernel_head_dim
+
+    fa = interpreted_flash
+    b, h, sq, skv, d = shape
+    rng = np.random.RandomState(4)
+    q, do = (rng.randn(b, h, sq, d).astype(np.float32) for _ in range(2))
+    k, v = (rng.randn(b, h, skv, d).astype(np.float32) for _ in range(2))
+    run = lambda *a: fa.flash_attention(*a, block_q=128, block_k=128)
+    _, vjp = jax.vjp(run, *(jnp.asarray(a.copy()) for a in (q, k, v)))
+    g_j = vjp(jnp.asarray(do.copy()))
+
+    dp = kernel_head_dim(d, torch.float32)
+    pad = lambda a: F.pad(torch.tensor(a.copy()), (0, dp - d))
+    scale = 1.0 / math.sqrt(d)
+    qs, tk, tv, tdo = pad(q) * (scale * LOG2_E), pad(k), pad(v), pad(do)
+    o, lse = flash_fwd_plain(qs, tk, tv)
+    grads = _split_tf32_bwd(qs, tk, tv, tdo, lse, (tdo * o).sum(-1), scale, splits)
+    for gt, gj in zip(grads, g_j):
+        assert bool((gt[..., d:] == 0).all())
+        np.testing.assert_allclose(gt[..., :d].numpy(), np.asarray(gj), atol=2e-5, rtol=1e-3)
+
+
 def test_tf32_split_is_exact_to_fp32():
     """hi + lo recovers x to 2^-22 relative, hi and lo are tf32 (low 13 bits
     clear), and |lo| <= 2^-11 |x|: the split the kernel's passes write."""
@@ -243,6 +313,23 @@ def test_bwd_q_splits_at_sdxl_cross_attention():
     assert bwd_q_splits(2, 20, 1024, 1024, 132) == 1
     assert 20 * bwd_q_splits(2, 10, 4096, 77, 132) >= 132
     assert 40 * bwd_q_splits(2, 20, 1024, 77, 132) >= 132
+
+
+@pytest.mark.parametrize("b,h,sq,skv,d,whole", [(8, 1, 1024, 1024, 512, True), (1, 8, 1024, 1024, 64, True),
+                                                (2, 10, 4096, 4096, 64, True), (2, 20, 1024, 1024, 64, True),
+                                                (1, 8, 1024, 77, 64, False), (2, 10, 4096, 77, 64, False),
+                                                (2, 20, 1024, 77, 64, False), (1, 1, 200, 77, 512, False)])
+def test_bwd_f32_q_split_geometry(b, h, sq, skv, d, whole):
+    """The fp32 dK/dV kernel's split of the q range on the 132 SMs of an H100:
+    whole at the paths' self-attention rows (the fp32 pair's 8x1x1024x1024x512,
+    128 blocks at SD1.5 fp32's 1x8x1024x1024), so their grads are written once;
+    split at kv = 77, with no more blocks a kv tile than q tiles."""
+    from neurosis_tpu_torch.ops.flash_attention import BWD_Q_ROWS, bwd_f32_q_splits, bwd_q_ranges
+
+    n = bwd_f32_q_splits(b, h, sq, skv, d, 132)
+    assert (n == 1) == whole and n <= -(-sq // BWD_Q_ROWS)
+    ranges = bwd_q_ranges(sq, n)
+    assert ranges[0][0] == 0 and ranges[-1][1] == sq and all(a < b_ for a, b_ in ranges)
 
 
 @pytest.mark.parametrize("d,dp", [(40, 64), (48, 64), (80, 96), (33, 40), (200, 512)])

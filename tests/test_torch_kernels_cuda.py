@@ -15,8 +15,9 @@ where the plain versions keep fp32), 5e-2 for attention grads. The fp32
 flash forward keeps fp32 accuracy: each product is three TF32 tensor-core
 products of split operands (hi.hi + hi.lo + lo.hi, each part a tf32), whose
 dropped terms are about 2^-22 relative, fp32's own rounding: 2e-5 on O and on
-the LSE, as for fp32 sums in another order; the fp32 backward runs on FFMA
-in fp32, with dq summed by atomics in an order that changes from run to run:
+the LSE, as for fp32 sums in another order; the fp32 backward forms its
+products the same way in two kernels (dQ; dK and dV), over chains of up to
+4096 keys or queries, and sums dK, dV by atomics where the q range is split:
 1e-4. The
 split2 and chunked forwards round P to bf16 as their plain version does, so
 only the output's bf16 rounding and the order of fp32 sums differ: 1e-2.
@@ -113,13 +114,30 @@ def test_flash_fwd_f32_kernel(cuda, shape):
     assert float((lse - lse_ref).abs().max()) < 2e-5
 
 
-@pytest.mark.parametrize("shape", [(2, 1, 100, 130, 512), (1, 1, 1024, 1024, 512)])
+# (B, H, Sq, Skv, D) reaching every path of the fp32 backward kernels: Sq and
+# Skv that are not multiples of 64 (ragged q and kv tiles of both kernels), the
+# kv = 77 tail with the q range split over blocks (F32_BWD_SPLIT, and most small
+# shapes on 132 SMs), the q range whole where the kv tiles fill the card
+# (F32_BWD_WHOLE, with one q tile), the halves of dK and dV at 512, and d = 40,
+# 80, 200 padded to 64, 96, 512
+F32_BWD_SPLIT = [(1, 2, 300, 77, 64), (1, 8, 1024, 77, 40), (1, 1, 200, 77, 512), (1, 2, 130, 77, 160)]
+F32_BWD_WHOLE = [(2, 4, 1000, 1000, 64), (8, 1, 1000, 1000, 512), (1, 1, 20, 130, 160)]
+F32_BWD_SHAPES = F32_BWD_SPLIT + F32_BWD_WHOLE + [(2, 1, 100, 130, 512), (1, 1, 1024, 1024, 512),
+                                                  (2, 3, 130, 200, 64), (1, 2, 100, 300, 96), (1, 2, 200, 150, 40),
+                                                  (1, 2, 130, 77, 80), (1, 1, 100, 200, 200)]
+
+
+@pytest.mark.parametrize("shape", F32_BWD_SHAPES)
 def test_flash_bwd_f32_kernel(cuda, shape):
     """dO is a non-contiguous view (the left half of a wider tensor's rows),
-    which the kernel reads in place through its row stride."""
+    which the kernels read in place through its row stride."""
     from neurosis_tpu_torch.ops import flash_attention as fa
 
     b, h, sq, skv, d = shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    splits = fa.bwd_f32_q_splits(b, h, sq, skv, fa.kernel_head_dim(d, torch.float32), sms)
+    if shape in F32_BWD_SPLIT + F32_BWD_WHOLE:
+        assert (splits > 1) == (shape in F32_BWD_SPLIT)
     q = torch.randn(b, h, sq, d, generator=cuda, device="cuda")
     k, v = (torch.randn(b, h, skv, d, generator=cuda, device="cuda") for _ in range(2))
     do = torch.randn(b, h, sq, 2 * d, generator=cuda, device="cuda")[..., :d]
@@ -134,15 +152,38 @@ def test_flash_bwd_f32_kernel(cuda, shape):
     torch.cuda.synchronize()
     assert (fa.flash_bwd_f32.launches, fa.flash_bwd.launches) == (n + 1, n_bf16)
     for g, w in zip(got, want):
-        assert g.dtype == torch.float32 and _rel(g, w) < 1e-4
+        assert g.dtype == torch.float32 and g.shape == w.shape and _rel(g, w) < 1e-4
+
+
+@pytest.mark.parametrize("shape", [(1, 8, 1024, 1024, 40), (8, 1, 1024, 1024, 512)])
+def test_flash_bwd_f32_is_deterministic(cuda, shape):
+    """Where the q range is whole, every fp32 grad is written once by plain
+    stores: two calls give the same bits."""
+    from neurosis_tpu_torch.ops import flash_attention as fa
+
+    b, h, sq, skv, d = shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert fa.bwd_f32_q_splits(b, h, sq, skv, fa.kernel_head_dim(d, torch.float32), sms) == 1
+    q, do = (torch.randn(b, h, sq, d, generator=cuda, device="cuda") for _ in range(2))
+    k, v = (torch.randn(b, h, skv, d, generator=cuda, device="cuda") for _ in range(2))
+    scale = 1.0 / math.sqrt(d)
+    qs = q * (scale * fa.LOG2_E)
+    o, lse = fa.flash_fwd(qs, k, v)
+    di = (do * o).sum(-1)
+    first = fa.flash_bwd(qs, k, v, do, lse, di, scale)
+    second = fa.flash_bwd(qs, k, v, do, lse, di, scale)
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
 
 
 # fp32 at every kernel head dim family, as the fp32 UNets and the small VAEs
-# give it: d = 40 (SD1.5's UNet) and 48 run at 64, 80 at 96, 64 and 160 as
-# built; each with a ragged q tail over the kv = 77 tail, and self-attention
-# over 1024 tokens at d = 40 and 64
+# give it: d = 40 (SD1.5's UNet) and 48 run at 64, 80 at 96, 200 at 512, 64 and
+# 160 as built; each with a ragged q tail over the kv = 77 tail, self-attention
+# over 1024 tokens at d = 40 and 64, and the fp32 SDXL UNet's level-1 rows, the
+# longest chains (dQ over 4096 keys, dK and dV over 4096 queries)
 F32_SHAPES = [(1, 2, 300, 77, 40), (1, 2, 300, 77, 48), (1, 2, 300, 77, 64), (1, 2, 300, 77, 80),
-              (1, 2, 300, 77, 160), (1, 8, 1024, 1024, 40), (2, 1, 1024, 1024, 64), (2, 1, 130, 200, 48)]
+              (1, 2, 300, 77, 160), (1, 8, 1024, 1024, 40), (2, 1, 1024, 1024, 64), (2, 1, 130, 200, 48),
+              (1, 2, 100, 77, 200), (2, 10, 4096, 77, 64), (2, 10, 4096, 4096, 64)]
 
 
 @pytest.mark.parametrize("shape", F32_SHAPES)
@@ -190,11 +231,11 @@ def test_flash_f32_autograd_matches_plain(cuda):
         assert _rel(a.grad, r.grad) < 1e-4
 
 
-@pytest.mark.parametrize("heads,d", [(8, 40), (2, 80), (2, 160), (2, 512)])
+@pytest.mark.parametrize("heads,d", [(8, 40), (2, 80), (2, 160), (2, 512), (2, 200)])
 def test_flash_f32_autograd_head_split_views(cuda, heads, d):
     """fp32 q/k/v as the attention layer hands them over, head-split views of a
     [B, S, H·D] projection, through flash_attention at each kernel head dim
-    (40 and 80 padded), with a ragged q tail and the kv = 77 tail of
+    (40, 80 and 200 padded), with a ragged q tail and the kv = 77 tail of
     cross-attention."""
     from neurosis_tpu_torch.ops.attention import plain_attention
     from neurosis_tpu_torch.ops.flash_attention import flash_attention
