@@ -9,7 +9,10 @@ per shape: ``flash_fwd`` and ``flash_bwd`` (the wrappers, extra passes included;
 fp32 inputs go to the fp32 kernels) and SDPA's forward and backward on the same
 inputs, each the mean device ms of 10 calls queued while the card sleeps
 (chip_smoke.py's method), and the card. A shape the checkout's kernels refuse
-gets its error in place of the times.
+gets its error in place of the times. Then one line per shape and chunk count
+of the flash-overlap tool: ``chunked_ms`` (``flash_fwd_chunked``),
+``split2_ms`` (``flash_fwd_split2``, at 2 chunks), ``base_ms`` (the shipped
+``flash_fwd`` on the same inputs, the tool's base case) and SDPA's forward.
 """
 
 from __future__ import annotations
@@ -35,6 +38,10 @@ SHAPES = [(4, 8, 4096, 4096, 40, "bf16", True), (4, 8, 4096, 77, 40, "bf16", Tru
           (2, 10, 4096, 77, 64, "fp32", True), (2, 20, 1024, 1024, 64, "fp32", True),
           (2, 20, 1024, 77, 64, "fp32", True), (1, 1, 1024, 1024, 64, "fp32", False),
           (2, 1, 1024, 1024, 64, "fp32", True)]
+# (B, H, Sq, Skv, chunks): the shapes and chunk counts of the flash-overlap
+# tool's cases (neurosis_tpu_torch/tools/overlap_bench.py), bf16 at head dim 64
+OVERLAP_SHAPES = [(2, 20, 1024, 1024, 2), (2, 20, 1024, 1024, 4), (2, 20, 1024, 1024, 8), (2, 10, 4096, 4096, 2),
+                  (2, 10, 4096, 4096, 4), (2, 10, 4096, 4096, 8), (2, 10, 4096, 4096, 16), (2, 20, 1024, 128, 1)]
 
 
 def device_ms(torch, fn, iters: int = 10) -> float:
@@ -87,6 +94,23 @@ def main() -> int:
             del lib_out, qg, kg, vg
         print(json.dumps(line), flush=True)
         del q, k, v, do, qs, o, lse
+        torch.cuda.empty_cache()
+
+    from neurosis_tpu_torch.ops import flash_overlap as fo
+
+    for b, h, sq, skv, chunks in OVERLAP_SHAPES:
+        g = torch.Generator("cuda").manual_seed(sq + skv + chunks)
+        q = torch.randn(b, h, sq, 64, generator=g, device="cuda").bfloat16()
+        k, v = (torch.randn(b, h, skv, 64, generator=g, device="cuda").bfloat16() for _ in range(2))
+        qs = (q * (fa.LOG2_E / 8.0)).to(q.dtype)
+        line = dict(shape=[b, h, sq, skv, 64], dtype="bf16", chunks=chunks, card=card)
+        line["chunked_ms"] = device_ms(torch, lambda: fo.flash_fwd_chunked(qs, k, v, chunks))
+        if chunks == 2:
+            line["split2_ms"] = device_ms(torch, lambda: fo.flash_fwd_split2(qs, k, v))
+        line["base_ms"] = device_ms(torch, lambda: fa.flash_fwd(qs, k, v))
+        line["sdpa_fwd_ms"] = device_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v))
+        print(json.dumps(line), flush=True)
+        del q, k, v, qs
         torch.cuda.empty_cache()
     return 0
 

@@ -74,11 +74,31 @@
 //              splitting S, which the card has to spare here (the kernel's
 //              bound is L2 traffic: every block reads all of K and V). P goes
 //              to P V as bf16 registers (RS wgmma, N = 256, V MN-major).
-//   backward : 16 kv rows per block, 8 warps, q walked in 64-row tiles. dK
-//              and dV live in WMMA accumulator registers (no rescaling is
-//              needed in the backward, so their opaque layout is fine): each
-//              warp owns 4 of the 32 16-wide column tiles of each. dQ goes
-//              to the fp32 buffer with vector (float4) atomics (~187 KB).
+//   backward : JAX's two passes (_bwd_dq_kernel, _bwd_dkv_kernel) on the same
+//              pipeline, each block 64 rows and each consumer warpgroup one
+//              accumulator of 256 columns: dQ, dK and dV of 64 kv rows in one
+//              kernel would take 384 fp32 registers a thread. The function
+//              needs 5 products of 2 B H Sq Skv 512 operations; the two kernels
+//              form 9 (S and dP in both, and in both halves of dK/dV), and
+//              every dQ block reads all of K and V, every dK/dV block all of
+//              q~ and dO, so L2 traffic, not the tensor cores, sets the pace.
+//     flash_bwd512_dq_wgmma (q-stationary; the forward's geometry): warpgroup
+//              w forms S and dP for keys 32 w .. +31 of each 64-key tile (N = 32
+//              SS wgmma over the 512-deep head dim), P = 2^(S - LSE) and dS = P
+//              (dP - Di) in fp32 registers, dS in bf16 into one shared box (the
+//              swizzle TMA writes, fence.proxy.async, a named barrier), then dQ
+//              [:, 256 w ..] += dS K (N = 256, K MN-major). q~ and dO stay in
+//              shared memory, K stays for the tile, V streams box by box (dP
+//              first, so K lands meanwhile). dQ is written once, scaled, bf16.
+//     flash_bwd512_dkv_wgmma (kv-stationary): 64 kv rows and one 256-column
+//              half of dK and dV a block (two blocks a kv tile), q walked in
+//              tiles of 64. Warpgroup w forms S^T = K q~^T and dP^T = V dO^T for
+//              q columns 32 w .. +31, P^T and dS^T for them in bf16 into two
+//              shared boxes; warpgroup 0 then forms dV += P^T dO, warpgroup 1
+//              dK += dS^T q~ over the owned half. K and V stay; the other
+//              half's boxes of q~ and dO stream through a ring, the owned
+//              half's (read again by dV and dK) stay for the tile.
+//              Every grad is written once, so two calls give the same bits.
 //
 // fp32 at padded head dims DP = 64, 96, 160, 512 (the caller zero-pads other
 // d <= 512 to the next of them): the frozen VAE encode and the UNets of the
@@ -146,13 +166,9 @@
 //     set their pace (neurosis_tpu_torch/tools/flash_f32_probes.py).
 
 #include <math.h>
-#include <mma.h>
 
 #include "flash_common.cuh"
-#include "hopper.cuh"
 #include "wgmma.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
@@ -161,22 +177,6 @@ constexpr float INV_LOG2E = 0.6931471805599453f;
 // ---------------------------------------------------------------------------
 // head dims 40, 64, 80, 160, bf16: TMA ring, wgmma, softmax in registers
 // ---------------------------------------------------------------------------
-
-constexpr int NCW = 8;                 // consumer warps: two warpgroups
-constexpr int NT_WS = NCW * 32 + 128;  // and a producer warpgroup, of which one warp works
-// registers a thread: ptxas budgets 168 for three warpgroups; the producer
-// warpgroup gives 128 from each of its threads to the consumers (setmaxnreg)
-constexpr int PRODUCER_REGS = 40;
-constexpr int CONSUMER_REGS = 232;
-constexpr int ROW = 128;              // bytes of one row of a 64-column box
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
-}
-
-// the k16 step kk over the head dim of a K-major tile of 64-column boxes
-// (box_bytes apart): 32 bytes along the row, then the next box
-__device__ __forceinline__ int kstep_offset(int kk, int box_bytes) { return (kk / 4) * box_bytes + (kk % 4) * 32; }
 
 constexpr int FQ = 128;  // forward: query rows per block
 
@@ -605,18 +605,6 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_bwd_wgmma(const __grid_constan
   }
 }
 
-// arguments of the head-dim-512 bf16 backward
-struct BwdArgs {
-  StridedRows q, k, v, dout;  // q is the pre-scaled q
-  int64_t q_sb, q_sh, k_sb, k_sh, v_sb, v_sh, do_sb, do_sh;
-  const float* lse;           // [B, H, Sq]
-  const float* di;            // [B, H, Sq] rowsum(dO * O)
-  float* dq;                  // [B, H, Sq, d] fp32, zeroed; receives dS . k
-  bf16* dk;                   // [B, H, Skv, d]
-  bf16* dv;                   // [B, H, Skv, d]
-  int heads, sq, skv, d;
-};
-
 // ---------------------------------------------------------------------------
 // head dim 512, bf16 forward: TMA, wgmma, O split over the warpgroups by column
 // ---------------------------------------------------------------------------
@@ -796,163 +784,396 @@ __global__ void __launch_bounds__(NT_WS, 1) flash_fwd512_wgmma(const __grid_cons
 }
 
 // ---------------------------------------------------------------------------
-// head dim 512, bf16 backward
+// head dim 512, bf16 backward: JAX's two passes on the TMA/wgmma pipeline
 // ---------------------------------------------------------------------------
 
-constexpr int D5 = 512;
-constexpr int LDK5 = D5 + 8;      // bf16 row stride of a q/k/v/dO tile
-constexpr int NW5 = 8;
-constexpr int NT5 = NW5 * 32;
-constexpr int BKB5 = 16;          // backward: kv rows per block
-constexpr int BQB5 = 64;          // backward: query rows per tile
-constexpr int LDSB5 = BKB5 + 4;
-constexpr int LDPB5 = BKB5 + 8;
+constexpr int B5 = 64;             // rows a block owns (q rows for dQ, kv rows for dK/dV) and rows of a tile
+constexpr int BOX5 = 64 * ROW;     // one box: 64 rows x 64 columns, 8 KB
+constexpr int TILE5 = 8 * BOX5;    // 64 rows x 512 columns, 64 KB
 
-constexpr size_t bwd512_smem_bytes() {
-  return sizeof(bf16) * (size_t)(2 * BKB5 + 2 * BQB5) * LDK5   // k, v, q, dO tiles
-       + sizeof(float) * (size_t)2 * BQB5 * LDSB5               // logits, dP
-       + sizeof(bf16) * (size_t)2 * BQB5 * LDPB5                // P, dS
-       + sizeof(float) * (size_t)NW5 * 256                      // per-warp staging
-       + sizeof(float) * 2 * BQB5;                              // lse, Di
-}
+// dQ kernel: q~ and dO stay (128 KB), K of one tile stays until dQ is formed
+// (64 KB), V streams box by box through a ring of 3 (24 KB), dS one box (8 KB):
+// 229,376 bytes and the barriers, of the 232,448 a block has.
+struct BwdDq512Cfg {
+  static constexpr int V_SLOTS = 3;
+  static constexpr size_t SMEM = 1024 + 3 * TILE5 + V_SLOTS * BOX5 + BOX5 + 8 * (3 + 2 * V_SLOTS);
+  static_assert(SMEM <= 232448, "the block's shared memory exceeds the H100's 227 KB");
+};
 
-__global__ void __launch_bounds__(NT5) flash_bwd512_kernel(BwdArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + BKB5 * LDK5;
-  bf16* sQ = sV + BKB5 * LDK5;
-  bf16* sdO = sQ + BQB5 * LDK5;
-  float* sS = reinterpret_cast<float*>(sdO + BQB5 * LDK5);
-  float* sdP = sS + BQB5 * LDSB5;
-  bf16* sP = reinterpret_cast<bf16*>(sdP + BQB5 * LDSB5);
-  bf16* sdS = sP + BQB5 * LDPB5;
-  float* sScr = reinterpret_cast<float*>(sdS + BQB5 * LDPB5);
-  float* sLse = sScr + NW5 * 256;
-  float* sDi = sLse + BQB5;
+// dK/dV kernel: K and V stay (128 KB); per q tile the owned column half of q~
+// and of dO (32 KB each) stays until dK and dV are formed, the other half's
+// boxes stream through a ring of 2 (16 KB); P^T and dS^T one box each, LSE
+// and Di of the tile (512 bytes): 230,400 bytes and the barriers.
+struct BwdKv512Cfg {
+  static constexpr int RING = 2;
+  static constexpr int HALF = 4 * BOX5;
+  static constexpr size_t SMEM = 1024 + 2 * TILE5 + RING * BOX5 + 2 * HALF + 2 * BOX5 + 2 * B5 * sizeof(float) +
+                                 8 * (3 + 2 * RING);
+  static_assert(SMEM <= 232448, "the block's shared memory exceeds the H100's 227 KB");
+};
 
-  const int bh = blockIdx.y;
-  const int b = bh / a.heads, h = bh % a.heads;
-  const int k0 = blockIdx.x * BKB5;
+struct Bwd512Tma {
+  CUtensorMap q, k, v, dout;  // boxes of 64 columns x 64 rows
+  const float* lse;           // [B, H, Sq]
+  const float* di;            // [B, H, Sq] rowsum(dO * O)
+  bf16* dq;                   // [B, H, Sq, 512]: dS K scale
+  bf16* dk;                   // [B, H, Skv, 512]: dS^T q~ / log2(e)
+  bf16* dv;                   // [B, H, Skv, 512]: P^T dO
+  float scale;
+  int heads, sq, skv;
+};
+
+// dQ = (P (dO V^T - Di)) K scale, q-stationary: a block owns 64 q rows (8 x 1 x
+// 1024 gives 128 blocks, one wave). Warpgroup w forms S and dP for keys 32 w ..
+// +31 of each 64-key tile (so P stays in fp32 registers and nothing but dS
+// crosses shared memory), dS for them into the shared dS tile, then dQ[:, 256 w
+// ..] += dS K over the tile's 64 keys. dP comes first, from the V ring, so the
+// tile's K lands meanwhile.
+__global__ void __launch_bounds__(NT_WS, 1) flash_bwd512_dq_wgmma(const __grid_constant__ Bwd512Tma p) {
+  using C = BwdDq512Cfg;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sQ = align1024(smem_raw);  // [box][64 q rows]
+  unsigned char* sdO = sQ + TILE5;
+  unsigned char* sK = sdO + TILE5;          // [box][64 keys]
+  unsigned char* sV = sK + TILE5;           // [slot]: one box of 64 keys
+  unsigned char* sdS = sV + C::V_SLOTS * BOX5;  // 64 q rows x 64 keys
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sdS + BOX5);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* k_empty = q_full + 2;
+  uint64_t* v_full = q_full + 3;
+  uint64_t* v_empty = v_full + C::V_SLOTS;
+
+  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
+  const int q0 = blockIdx.x * B5;
+  const int n_tiles = (p.skv + B5 - 1) / B5;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int kv_valid = min(BKB5, a.skv - k0);
 
-  StridedRows q = {a.q.ptr + b * a.q_sb + h * a.q_sh, a.q.stride};
-  StridedRows k = {a.k.ptr + b * a.k_sb + h * a.k_sh, a.k.stride};
-  StridedRows v = {a.v.ptr + b * a.v_sb + h * a.v_sh, a.v.stride};
-  StridedRows dout = {a.dout.ptr + b * a.do_sb + h * a.do_sh, a.dout.stride};
-  const float* lse = a.lse + (int64_t)bh * a.sq;
-  const float* di = a.di + (int64_t)bh * a.sq;
-  float* dq = a.dq + (int64_t)bh * a.sq * D5;
-  float* scr = sScr + warp * 256;
-
-  load_tile<BKB5, D5, LDK5, NT5>(sK, k, k0, a.skv, a.d);
-  load_tile<BKB5, D5, LDK5, NT5>(sV, v, k0, a.skv, a.d);
-
-  // this warp's dK and dV column tiles: (warp * 4 + j) * 16, j < 4
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc_k[4], acc_v[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    wmma::fill_fragment(acc_k[j], 0.0f);
-    wmma::fill_fragment(acc_v[j], 0.0f);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(k_full, 1);
+    mbar_init(k_empty, NCW);
+    for (int s = 0; s < C::V_SLOTS; ++s) {
+      mbar_init(&v_full[s], 1);
+      mbar_init(&v_empty[s], NCW);
+    }
+    mbar_fence_init();
   }
-  // logits (warps 0-3) or dP (warps 4-7) for query rows (warp % 4) * 16
-  const int sd_row = (warp % 4) * 16;
-  const bf16* sd_a = warp < 4 ? sQ : sdO;
-  const bf16* sd_b = warp < 4 ? sK : sV;
-  float* sd_out = warp < 4 ? sS : sdP;
-  // dQ tiles: query rows (warp % 4) * 16, columns (warp / 4) * 256 + 16 j
-  const int dq_row = (warp % 4) * 16, dq_col = (warp / 4) * 256;
+  __syncthreads();
 
-  for (int q0 = 0; q0 < a.sq; q0 += BQB5) {
-    __syncthreads();  // the previous tile's readers of sQ/sdO/sP/sdS are done
-    load_tile<BQB5, D5, LDK5, NT5>(sQ, q, q0, a.sq, a.d);
-    load_tile<BQB5, D5, LDK5, NT5>(sdO, dout, q0, a.sq, a.d);
-    for (int r = threadIdx.x; r < BQB5; r += NT5) {
-      const bool in = q0 + r < a.sq;
-      sLse[r] = in ? lse[q0 + r] : INFINITY;  // padded rows get P = 0
-      sDi[r] = in ? di[q0 + r] : 0.0f;
-    }
-    __syncthreads();
-
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.0f);
-#pragma unroll 8
-      for (int kk = 0; kk < D5; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, sd_a + sd_row * LDK5 + kk, LDK5);
-        wmma::load_matrix_sync(fb, sd_b + kk, LDK5);
-        wmma::mma_sync(acc, fa, fb, acc);
+  if (warp >= NCW) {
+    // producer warp 0: q~ and dO once, then each tile's K once the last tile's
+    // dQ product is done; producer warp 1: the V boxes through their ring
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (warp == NCW && lane == 0) {
+      mbar_arrive_tx(q_full, 2 * TILE5);
+      for (int j = 0; j < 8; ++j) {
+        tma_load_4d(sQ + j * BOX5, &p.q, q_full, 64 * j, q0, h, b);
+        tma_load_4d(sdO + j * BOX5, &p.dout, q_full, 64 * j, q0, h, b);
       }
-      wmma::store_matrix_sync(sd_out + sd_row * LDSB5, acc, LDSB5, wmma::mem_row_major);
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < BQB5 * BKB5; i += NT5) {
-      const int r = i / BKB5, c = i % BKB5;
-      const float p = c < kv_valid ? exp2f(sS[r * LDSB5 + c] - sLse[r]) : 0.0f;
-      const float ds = p * (sdP[r * LDSB5 + c] - sDi[r]);
-      sP[r * LDPB5 + c] = __float2bfloat16(p);
-      sdS[r * LDPB5 + c] = __float2bfloat16(ds);
-    }
-    __syncthreads();
-
-    // dV += P^T . dO ; dK += dS^T . q~  (kv rows 0..15, this warp's columns)
-#pragma unroll
-    for (int kk = 0; kk < BQB5; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fpt, fdst;
-      wmma::load_matrix_sync(fpt, sP + kk * LDPB5, LDPB5);
-      wmma::load_matrix_sync(fdst, sdS + kk * LDPB5, LDPB5);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = (warp * 4 + j) * 16;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fdo, fq;
-        wmma::load_matrix_sync(fdo, sdO + kk * LDK5 + n, LDK5);
-        wmma::load_matrix_sync(fq, sQ + kk * LDK5 + n, LDK5);
-        wmma::mma_sync(acc_v[j], fpt, fdo, acc_v[j]);
-        wmma::mma_sync(acc_k[j], fdst, fq, acc_k[j]);
+      for (int t = 0; t < n_tiles; ++t) {
+        mbar_wait(k_empty, (t & 1) ^ 1);
+        mbar_arrive_tx(k_full, TILE5);
+        for (int j = 0; j < 8; ++j) tma_load_4d(sK + j * BOX5, &p.k, k_full, 64 * j, t * B5, h, b);
+      }
+    } else if (warp == NCW + 1 && lane == 0) {
+      for (int n = 0; n < 8 * n_tiles; ++n) {
+        const int slot = n % C::V_SLOTS;
+        mbar_wait(&v_empty[slot], ((n / C::V_SLOTS) & 1) ^ 1);
+        mbar_arrive_tx(&v_full[slot], BOX5);
+        tma_load_4d(sV + slot * BOX5, &p.v, &v_full[slot], 64 * (n % 8), (n / 8) * B5, h, b);
       }
     }
+  } else {
+    // consumers: this thread holds q rows r and r + 8 of the block, keys
+    // key0 + 8 c + 2 qd + {0, 1} of S and dP, and dQ's columns 256 wg + 8 c +
+    // 2 qd + {0, 1}
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int wg = warp / 4, g = lane / 4, qd = lane % 4;
+    const int r = (warp % 4) * 16 + g, row = q0 + r;
+    const int key0 = 32 * wg;
+    const float* lse = p.lse + (int64_t)bh * p.sq;
+    const float* di = p.di + (int64_t)bh * p.sq;
+    // rows past Sq (TMA's zero rows) get P = 0
+    const float L0 = row < p.sq ? lse[row] : INFINITY, L1 = row + 8 < p.sq ? lse[row + 8] : INFINITY;
+    const float D0 = row < p.sq ? di[row] : 0.0f, D1 = row + 8 < p.sq ? di[row + 8] : 0.0f;
+    float dq[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) dq[i] = 0.0f;
+    float s_acc[16], dp_acc[16];
+    mbar_wait(q_full, 0);
 
-    // dQ[16 x 256] += dS[16 x 16] . K[16 x 256], added into the fp32 buffer
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fds;
-    wmma::load_matrix_sync(fds, sdS + dq_row * LDPB5, LDPB5);
-    for (int j = 0; j < 16; ++j) {
-      const int n = dq_col + j * 16;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fk;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.0f);
-      wmma::load_matrix_sync(fk, sK + n, LDK5);
-      wmma::mma_sync(acc, fds, fk, acc);
-      wmma::store_matrix_sync(scr, acc, 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 64; e += 32) {  // 64 float4 per 16 x 16 tile
-        const int row = q0 + dq_row + e / 4, col = n + (e % 4) * 4;
-        if (row < a.sq) {
-          const float4 val = reinterpret_cast<const float4*>(scr)[e];
-          atomicAdd(reinterpret_cast<float4*>(dq + (int64_t)row * D5 + col), val);
+    int n = 0;  // V boxes taken from the ring
+    for (int t = 0; t < n_tiles; ++t) {
+      // dP = dO V^T, V box by box; each box's slot is freed once its group is done
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 8; ++j, ++n) {
+        const int slot = n % C::V_SLOTS;
+        mbar_wait(&v_full[slot], (n / C::V_SLOTS) & 1);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          Wgmma<32>::ss<0, 0>(dp_acc, sw128_desc(sdO + j * BOX5 + 32 * kk, 0),
+                              sw128_desc(sV + slot * BOX5 + key0 * ROW + 32 * kk, 0), j > 0 || kk > 0);
+        }
+        wgmma_commit();
+        if (j > 0) {
+          wgmma_wait<1>();
+          release_slot(&v_empty[(n - 1) % C::V_SLOTS], lane);
         }
       }
-      __syncwarp();
+      // S = q~ K^T, both K-major
+      mbar_wait(k_full, t & 1);
+#pragma unroll
+      for (int kk = 0; kk < 32; ++kk) {
+        Wgmma<32>::ss<0, 0>(s_acc, sw128_desc(sQ + kstep_offset(kk, BOX5), 0),
+                            sw128_desc(sK + kstep_offset(kk, BOX5) + key0 * ROW, 0), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(s_acc);
+      reg_fence(dp_acc);
+      release_slot(&v_empty[(n - 1) % C::V_SLOTS], lane);
+
+      // P = 2^(S - LSE), 0 on keys past Skv (TMA's zero rows); dS = P (dP - Di)
+      // in bf16 into sdS, in the 128-byte swizzle TMA would write
+      const int valid = p.skv - t * B5 - key0;
+      named_bar_sync(1, 2 * 128);  // both warpgroups' dQ products of the last tile have read sdS
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int j = 8 * c + 2 * qd;
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool ok = j + e < valid;
+          ds[e] = ok ? exp2f(s_acc[4 * c + e] - L0) * (dp_acc[4 * c + e] - D0) : 0.0f;
+          ds[2 + e] = ok ? exp2f(s_acc[4 * c + 2 + e] - L1) * (dp_acc[4 * c + 2 + e] - D1) : 0.0f;
+        }
+        const int chunk = ((4 * wg + c) ^ (r & 7)) * 16 + qd * 4;  // rows r and r + 8 share r % 8
+        *reinterpret_cast<uint32_t*>(sdS + r * ROW + chunk) = pack_bf16(ds[0], ds[1]);
+        *reinterpret_cast<uint32_t*>(sdS + (r + 8) * ROW + chunk) = pack_bf16(ds[2], ds[3]);
+      }
+      fence_proxy_async();         // dS's stores -> the wgmma that reads them
+      named_bar_sync(2, 2 * 128);  // both warpgroups' keys of dS are in
+
+      // dQ[:, 256 wg ..] += dS K[:, 256 wg ..]: dS K-major, K MN-major (keys 16 kc.., boxes BOX5 apart)
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) {
+        Wgmma<256>::ss<0, 1>(dq, sw128_desc(sdS + 32 * kc, 0), sw128_desc(sK + 4 * wg * BOX5 + kc * 16 * ROW, BOX5), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(dq);
+      release_slot(k_empty, lane);
+    }
+
+    bf16* dq_bh = p.dq + (int64_t)bh * p.sq * 512 + 256 * wg;
+#pragma unroll
+    for (int c = 0; c < 32; ++c) {
+      const int col = 8 * c + 2 * qd;
+      if (row < p.sq) {
+        *reinterpret_cast<uint32_t*>(dq_bh + (int64_t)row * 512 + col) =
+            pack_bf16(dq[4 * c] * p.scale, dq[4 * c + 1] * p.scale);
+      }
+      if (row + 8 < p.sq) {
+        *reinterpret_cast<uint32_t*>(dq_bh + (int64_t)(row + 8) * 512 + col) =
+            pack_bf16(dq[4 * c + 2] * p.scale, dq[4 * c + 3] * p.scale);
+      }
     }
   }
+}
 
-  // dk = dS^T . q~ / log2(e), as in flash_bwd_wgmma
-  bf16* dk = a.dk + (int64_t)bh * a.skv * D5;
-  bf16* dv = a.dv + (int64_t)bh * a.skv * D5;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int n = (warp * 4 + j) * 16;
-    for (int pass = 0; pass < 2; ++pass) {
-      wmma::store_matrix_sync(scr, pass == 0 ? acc_k[j] : acc_v[j], 16, wmma::mem_row_major);
-      __syncwarp();
-      bf16* dst = pass == 0 ? dk : dv;
-      const float mul = pass == 0 ? INV_LOG2E : 1.0f;
-      for (int e = lane; e < 256; e += 32) {
-        const int r = e / 16, c = e % 16;
-        if (r < kv_valid) dst[(int64_t)(k0 + r) * D5 + n + c] = __float2bfloat16(scr[e] * mul);
+// dK = dS^T q~ / log2(e), dV = P^T dO, kv-stationary: a block owns 64 kv rows and
+// one 256-column half of dK and dV (two blocks a kv tile: 8 x 1 x 1024 gives
+// 256) and walks q in tiles of 64. Warpgroup w forms S^T = K q~^T and dP^T = V
+// dO^T for q columns 32 w .. +31 of each tile, P^T and dS^T for them into the
+// shared P^T and dS^T tiles; then warpgroup 0 forms dV += P^T dO and warpgroup 1
+// dK += dS^T q~ over the owned half. The logits take the other half's boxes
+// first, from the ring, so the owned half of the tile lands meanwhile.
+__global__ void __launch_bounds__(NT_WS, 1) flash_bwd512_dkv_wgmma(const __grid_constant__ Bwd512Tma p) {
+  using C = BwdKv512Cfg;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sK = align1024(smem_raw);  // [box][64 kv rows]
+  unsigned char* sV = sK + TILE5;
+  unsigned char* ring = sV + TILE5;         // [slot]: one box of 64 q rows
+  unsigned char* sHq = ring + C::RING * BOX5;  // the owned half of q~'s tile: [box][64 q rows]
+  unsigned char* sHd = sHq + C::HALF;          // and of dO's
+  unsigned char* sP = sHd + C::HALF;           // P^T: 64 kv rows x 64 q
+  unsigned char* sdS = sP + BOX5;              // dS^T
+  float* sLse = reinterpret_cast<float*>(sdS + BOX5);  // the tile's LSE and Di
+  float* sDi = sLse + B5;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sDi + B5);
+  uint64_t* h_full = kv_full + 1;
+  uint64_t* h_empty = kv_full + 2;
+  uint64_t* r_full = kv_full + 3;
+  uint64_t* r_empty = r_full + C::RING;
+
+  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
+  const int col_half = blockIdx.x % 2, k0 = (blockIdx.x / 2) * B5;
+  const int own = 4 * col_half, other = 4 - own;  // the first box of the owned and of the other column half
+  const int q_tiles = (p.sq + B5 - 1) / B5;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    mbar_init(h_full, 32);  // the producer warp's lanes (LSE and Di) and the TMA bytes
+    mbar_init(h_empty, NCW);
+    for (int s = 0; s < C::RING; ++s) {
+      mbar_init(&r_full[s], 1);
+      mbar_init(&r_empty[s], NCW);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= NCW) {
+    // producer warp 0: K and V once, then per q tile the other half's boxes of
+    // q~ and of dO through the ring; producer warp 1: per q tile the owned
+    // half's boxes by TMA and LSE, Di by its lanes, once dK and dV of the last
+    // tile are formed
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (warp == NCW && lane == 0) {
+      mbar_arrive_tx(kv_full, 2 * TILE5);
+      for (int j = 0; j < 8; ++j) {
+        tma_load_4d(sK + j * BOX5, &p.k, kv_full, 64 * j, k0, h, b);
+        tma_load_4d(sV + j * BOX5, &p.v, kv_full, 64 * j, k0, h, b);
       }
-      __syncwarp();
+      for (int n = 0; n < 8 * q_tiles; ++n) {
+        const int slot = n % C::RING, i = n % 8;
+        mbar_wait(&r_empty[slot], ((n / C::RING) & 1) ^ 1);
+        mbar_arrive_tx(&r_full[slot], BOX5);
+        tma_load_4d(ring + slot * BOX5, i < 4 ? &p.q : &p.dout, &r_full[slot], 64 * (other + i % 4), (n / 8) * B5, h,
+                    b);
+      }
+    } else if (warp == NCW + 1) {
+      const float* lse = p.lse + (int64_t)bh * p.sq;
+      const float* di = p.di + (int64_t)bh * p.sq;
+      for (int t = 0; t < q_tiles; ++t) {
+        mbar_wait(h_empty, (t & 1) ^ 1);
+        if (lane == 0) {  // the boxes first, so the loads below overlap their flight
+          mbar_expect_tx(h_full, 2 * C::HALF);
+          for (int j = 0; j < 4; ++j) {
+            tma_load_4d(sHq + j * BOX5, &p.q, h_full, 64 * (own + j), t * B5, h, b);
+            tma_load_4d(sHd + j * BOX5, &p.dout, h_full, 64 * (own + j), t * B5, h, b);
+          }
+        }
+        for (int i = lane; i < B5; i += 32) {
+          const int q = t * B5 + i;
+          sLse[i] = q < p.sq ? lse[q] : INFINITY;  // q rows past Sq get P = 0
+          sDi[i] = q < p.sq ? di[q] : 0.0f;
+        }
+        mbar_arrive(h_full);  // each lane after its own stores
+      }
+    }
+  } else {
+    // consumers: this thread holds kv rows r and r + 8 of the block, q columns
+    // 32 wg + 8 c + 2 qd + {0, 1} of S^T and dP^T, and dV's (warpgroup 0) or
+    // dK's (1) columns 256 col_half + 8 c + 2 qd + {0, 1}
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int wg = warp / 4, g = lane / 4, qd = lane % 4;
+    const int r = (warp % 4) * 16 + g;
+    const int col0 = 32 * wg;
+    const bool ok0 = k0 + r < p.skv, ok1 = k0 + r + 8 < p.skv;
+    float acc[128];  // dV (warpgroup 0) or dK (1)
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+    float s_acc[16], dp_acc[16];
+    mbar_wait(kv_full, 0);
+
+    int n = 0;  // boxes taken from the ring
+    for (int t = 0; t < q_tiles; ++t) {
+      // S^T = K q~^T, dP^T = V dO^T (A the kv rows, B the q rows, both K-major):
+      // the other half's head-dim chunks box by box from the ring, then the owned half's
+      wgmma_fence();
+#pragma unroll
+      for (int i = 0; i < 8; ++i, ++n) {
+        const int slot = n % C::RING;
+        mbar_wait(&r_full[slot], (n / C::RING) & 1);
+        const unsigned char* a = (i < 4 ? sK : sV) + (other + i % 4) * BOX5;
+        const unsigned char* bq = ring + slot * BOX5 + col0 * ROW;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          if (i < 4) {
+            Wgmma<32>::ss<0, 0>(s_acc, sw128_desc(a + 32 * kk, 0), sw128_desc(bq + 32 * kk, 0), i > 0 || kk > 0);
+          } else {
+            Wgmma<32>::ss<0, 0>(dp_acc, sw128_desc(a + 32 * kk, 0), sw128_desc(bq + 32 * kk, 0), i > 4 || kk > 0);
+          }
+        }
+        wgmma_commit();
+        if (i > 0) {
+          wgmma_wait<1>();
+          release_slot(&r_empty[(n - 1) % C::RING], lane);
+        }
+      }
+      mbar_wait(h_full, t & 1);
+#pragma unroll
+      for (int kk = 0; kk < 16; ++kk) {
+        Wgmma<32>::ss<0, 0>(s_acc, sw128_desc(sK + own * BOX5 + kstep_offset(kk, BOX5), 0),
+                            sw128_desc(sHq + kstep_offset(kk, BOX5) + col0 * ROW, 0), 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 16; ++kk) {
+        Wgmma<32>::ss<0, 0>(dp_acc, sw128_desc(sV + own * BOX5 + kstep_offset(kk, BOX5), 0),
+                            sw128_desc(sHd + kstep_offset(kk, BOX5) + col0 * ROW, 0), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(s_acc);
+      reg_fence(dp_acc);
+      release_slot(&r_empty[(n - 1) % C::RING], lane);
+
+      // P^T = 2^(S^T - LSE), 0 on kv rows past Skv and (by their infinite LSE) on q
+      // columns past Sq; dS^T = P^T (dP^T - Di); both in bf16 into their shared
+      // tiles, in the 128-byte swizzle TMA would write
+      named_bar_sync(1, 2 * 128);  // both warpgroups' dV and dK products of the last tile have read them
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int j = col0 + 8 * c + 2 * qd;
+        const float2 L = *reinterpret_cast<const float2*>(sLse + j);
+        const float2 Di = *reinterpret_cast<const float2*>(sDi + j);
+        const float p00 = ok0 ? exp2f(s_acc[4 * c] - L.x) : 0.0f;
+        const float p01 = ok0 ? exp2f(s_acc[4 * c + 1] - L.y) : 0.0f;
+        const float p10 = ok1 ? exp2f(s_acc[4 * c + 2] - L.x) : 0.0f;
+        const float p11 = ok1 ? exp2f(s_acc[4 * c + 3] - L.y) : 0.0f;
+        const int chunk = ((4 * wg + c) ^ (r & 7)) * 16 + qd * 4;  // rows r and r + 8 share r % 8
+        *reinterpret_cast<uint32_t*>(sP + r * ROW + chunk) = pack_bf16(p00, p01);
+        *reinterpret_cast<uint32_t*>(sP + (r + 8) * ROW + chunk) = pack_bf16(p10, p11);
+        *reinterpret_cast<uint32_t*>(sdS + r * ROW + chunk) =
+            pack_bf16(p00 * (dp_acc[4 * c] - Di.x), p01 * (dp_acc[4 * c + 1] - Di.y));
+        *reinterpret_cast<uint32_t*>(sdS + (r + 8) * ROW + chunk) =
+            pack_bf16(p10 * (dp_acc[4 * c + 2] - Di.x), p11 * (dp_acc[4 * c + 3] - Di.y));
+      }
+      fence_proxy_async();         // the stores -> the wgmma that reads them
+      named_bar_sync(2, 2 * 128);  // both warpgroups' q columns are in
+
+      // dV += P^T dO (warpgroup 0) or dK += dS^T q~ (1) over the owned half: A
+      // K-major, B MN-major (q rows 16 kc.., boxes BOX5 apart)
+      const unsigned char* a = wg ? sdS : sP;
+      const unsigned char* owned = wg ? sHq : sHd;
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) {
+        Wgmma<256>::ss<0, 1>(acc, sw128_desc(a + 32 * kc, 0), sw128_desc(owned + kc * 16 * ROW, BOX5), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(acc);
+      release_slot(h_empty, lane);
+    }
+
+    // dk = dS^T q~ / log2(e): q~ = q * scale * log2(e), dk = dS^T q * scale
+    const float mul = wg ? INV_LOG2E : 1.0f;
+    bf16* out = (wg ? p.dk : p.dv) + (int64_t)bh * p.skv * 512 + 256 * col_half;
+#pragma unroll
+    for (int c = 0; c < 32; ++c) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = k0 + r + 8 * e;
+        if (row < p.skv) {
+          *reinterpret_cast<uint32_t*>(out + (int64_t)row * 512 + 8 * c + 2 * qd) =
+              pack_bf16(acc[4 * c + 2 * e] * mul, acc[4 * c + 2 * e + 1] * mul);
+        }
+      }
     }
   }
 }
@@ -1099,11 +1320,6 @@ __device__ __forceinline__ void pv_tile_tf32(float (&d)[N / 2], const unsigned c
       WgmmaTf32<N>::ss(d, sw128_desc(ph + kh * P_BOX + 32 * kk, 0), sw128_desc((kh ? vh1 : vh0) + 32 * kk, 0), 1);
     }
   }
-}
-
-__device__ __forceinline__ void release_slot(uint64_t* empty, int lane) {
-  __syncwarp();
-  if (lane == 0) mbar_arrive(empty);
 }
 
 // acc = A B^T over G 32-column chunks of the head dim, one ring stage each (A's hi
@@ -1841,9 +2057,9 @@ cudaError_t launch_bwd_wgmma(View q, View k, View v, View dout, const void* lse,
 cudaError_t launch_fwd512(View q, View k, View v, void* o, void* lse, int64_t batch, int64_t heads, int64_t sq,
                           int64_t skv, cudaStream_t stream) {
   FwdTma p;
-  if (!bf16_map(&p.q, q.ptr, batch, heads, sq, D5, q.sb, q.sh, q.ss, F5Q) ||
-      !bf16_map(&p.k, k.ptr, batch, heads, skv, D5, k.sb, k.sh, k.ss, F5K) ||
-      !bf16_map(&p.v, v.ptr, batch, heads, skv, D5, v.sb, v.sh, v.ss, F5K)) {
+  if (!bf16_map(&p.q, q.ptr, batch, heads, sq, 512, q.sb, q.sh, q.ss, F5Q) ||
+      !bf16_map(&p.k, k.ptr, batch, heads, skv, 512, k.sb, k.sh, k.ss, F5K) ||
+      !bf16_map(&p.v, v.ptr, batch, heads, skv, 512, v.sb, v.sh, v.ss, F5K)) {
     return cudaErrorInvalidValue;
   }
   p.o = static_cast<bf16*>(o);
@@ -1856,12 +2072,34 @@ cudaError_t launch_fwd512(View q, View k, View v, void* o, void* lse, int64_t ba
   return cudaGetLastError();
 }
 
-cudaError_t launch_bwd512(const BwdArgs& a, int batch, cudaStream_t stream) {
-  const size_t smem = bwd512_smem_bytes();
-  cudaError_t err = allow_smem(flash_bwd512_kernel, smem);
+// The dQ kernel, then the dK/dV kernel, one after the other on the stream.
+cudaError_t launch_bwd512(View q, View k, View v, View dout, const void* lse, const void* di, void* dq, void* dk,
+                          void* dv, int64_t batch, int64_t heads, int64_t sq, int64_t skv, double scale,
+                          cudaStream_t stream) {
+  Bwd512Tma p;
+  if (!bf16_map(&p.q, q.ptr, batch, heads, sq, 512, q.sb, q.sh, q.ss, B5) ||
+      !bf16_map(&p.dout, dout.ptr, batch, heads, sq, 512, dout.sb, dout.sh, dout.ss, B5) ||
+      !bf16_map(&p.k, k.ptr, batch, heads, skv, 512, k.sb, k.sh, k.ss, B5) ||
+      !bf16_map(&p.v, v.ptr, batch, heads, skv, 512, v.sb, v.sh, v.ss, B5)) {
+    return cudaErrorInvalidValue;
+  }
+  p.lse = static_cast<const float*>(lse);
+  p.di = static_cast<const float*>(di);
+  p.dq = static_cast<bf16*>(dq);
+  p.dk = static_cast<bf16*>(dk);
+  p.dv = static_cast<bf16*>(dv);
+  p.scale = (float)scale;
+  p.heads = (int)heads; p.sq = (int)sq; p.skv = (int)skv;
+  static cudaError_t dq_opted_in = allow_smem(flash_bwd512_dq_wgmma, BwdDq512Cfg::SMEM);
+  if (dq_opted_in != cudaSuccess) return dq_opted_in;
+  static cudaError_t kv_opted_in = allow_smem(flash_bwd512_dkv_wgmma, BwdKv512Cfg::SMEM);
+  if (kv_opted_in != cudaSuccess) return kv_opted_in;
+  flash_bwd512_dq_wgmma<<<dim3((unsigned)((sq + B5 - 1) / B5), (unsigned)(batch * heads)), NT_WS,
+                          BwdDq512Cfg::SMEM, stream>>>(p);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dim3 grid((a.skv + BKB5 - 1) / BKB5, batch * a.heads);
-  flash_bwd512_kernel<<<grid, NT5, smem, stream>>>(a);
+  flash_bwd512_dkv_wgmma<<<dim3((unsigned)((skv + B5 - 1) / B5 * 2), (unsigned)(batch * heads)), NT_WS,
+                           BwdKv512Cfg::SMEM, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -2014,11 +2252,12 @@ int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o, void* l
 }
 
 // q (pre-scaled), k, v, dout: strided bf16 as in flash_fwd_bf16; lse, di:
-// fp32 [B, H, Sq]; dq: zeroed fp32 [B, H, Sq, d]; dk, dv: bf16 [B, H, Skv, d].
-// d = 40, 64, 80, 160: dq receives dS . k . scale; the q range is split over
-// `splits` blocks per kv tile, and with splits > 1 dk and dv are summed into
-// the zeroed fp32 dk_acc, dv_acc [B, H, Skv, d] (dk, dv untouched).
-// d = 512: dq receives dS . k (the caller multiplies by scale); splits must
+// fp32 [B, H, Sq]; dk, dv: bf16 [B, H, Skv, d].
+// d = 40, 64, 80, 160: dq is a zeroed fp32 [B, H, Sq, d] that receives dS . k .
+// scale; the q range is split over `splits` blocks per kv tile, and with
+// splits > 1 dk and dv are summed into the zeroed fp32 dk_acc, dv_acc [B, H,
+// Skv, d] (dk, dv untouched).
+// d = 512: dq is bf16 [B, H, Sq, 512] and written dS . k . scale; splits must
 // be 1 and dk_acc, dv_acc are not read.
 int flash_bwd_bf16(const void* q, const void* k, const void* v, const void* dout,
                    const void* lse, const void* di, void* dq, void* dk, void* dv,
@@ -2040,23 +2279,9 @@ int flash_bwd_bf16(const void* q, const void* k, const void* v, const void* dout
     case 64: return FLASH_BWD_WGMMA(64);
     case 80: return FLASH_BWD_WGMMA(80);
     case 160: return FLASH_BWD_WGMMA(160);
-    case 512: {
+    case 512:
       if (splits != 1) return cudaErrorInvalidValue;
-      BwdArgs a;
-      a.q = {static_cast<const bf16*>(q), q_ss};
-      a.k = {static_cast<const bf16*>(k), k_ss};
-      a.v = {static_cast<const bf16*>(v), v_ss};
-      a.dout = {static_cast<const bf16*>(dout), do_ss};
-      a.q_sb = q_sb; a.q_sh = q_sh; a.k_sb = k_sb; a.k_sh = k_sh;
-      a.v_sb = v_sb; a.v_sh = v_sh; a.do_sb = do_sb; a.do_sh = do_sh;
-      a.lse = static_cast<const float*>(lse);
-      a.di = static_cast<const float*>(di);
-      a.dq = static_cast<float*>(dq);
-      a.dk = static_cast<bf16*>(dk);
-      a.dv = static_cast<bf16*>(dv);
-      a.heads = (int)heads; a.sq = (int)sq; a.skv = (int)skv; a.d = (int)d;
-      return launch_bwd512(a, (int)batch, s);
-    }
+      return launch_bwd512(vq, vk, vv, vdo, lse, di, dq, dk, dv, batch, heads, sq, skv, scale, s);
     default: return cudaErrorInvalidValue;
   }
 #undef FLASH_BWD_WGMMA

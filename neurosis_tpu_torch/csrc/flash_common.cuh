@@ -1,49 +1,38 @@
-// Helpers shared by the flash attention sources: strided row views, tile
-// loads into shared memory, warp reductions, the dynamic shared-memory opt-in.
+// What the flash attention sources share: the warp-specialised block (two
+// consumer warpgroups, one producer warpgroup) and its ring helpers on top of
+// hopper.cuh, and the dynamic shared-memory opt-in.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-template <typename T>
-struct Rows {
-  const T* ptr;      // row 0 of this (batch, head)
-  int64_t stride;    // elements between rows
-};
-using StridedRows = Rows<bf16>;
+constexpr int NCW = 8;                 // consumer warps: two warpgroups
+constexpr int NT_WS = NCW * 32 + 128;  // and a producer warpgroup, of which one or two warps work
+// registers a thread: ptxas budgets 168 for three warpgroups; the producer
+// warpgroup gives 128 from each of its threads to the consumers (setmaxnreg)
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+constexpr int ROW = 128;              // bytes of one row of a 64-column box
 
-// Copy rows [row0, row0+R) x [0, d) of a strided bf16 or fp32 matrix into a
-// shared tile of R x DP (row stride LD) in 16-byte chunks, with NT threads;
-// rows past n_rows and columns past d are zero.
-template <int R, int DP, int LD, int NT, typename T>
-__device__ __forceinline__ void load_tile(T* dst, Rows<T> src, int row0, int n_rows, int d) {
-  constexpr int PER = 16 / sizeof(T);  // elements per chunk
-  constexpr int CHUNKS = DP / PER;
-  for (int i = threadIdx.x; i < R * CHUNKS; i += NT) {
-    const int r = i / CHUNKS;
-    const int c = (i % CHUNKS) * PER;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    const int row = row0 + r;
-    if (row < n_rows && c < d) {
-      v = *reinterpret_cast<const uint4*>(src.ptr + (int64_t)row * src.stride + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = v;
-  }
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
+// the k16 step kk over the head dim of a K-major tile of 64-column boxes
+// (box_bytes apart): 32 bytes along the row, then the next box
+__device__ __forceinline__ int kstep_offset(int kk, int box_bytes) { return (kk / 4) * box_bytes + (kk % 4) * 32; }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// a warp's arrival on a ring slot's empty barrier, once all its lanes are done with it
+__device__ __forceinline__ void release_slot(uint64_t* empty, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(empty);
 }
 
 template <typename Kernel>

@@ -248,27 +248,28 @@ def _launch_bwd(qs, k, v, do, lse, di, scale: float):
     b, h, sq, d = qs.shape
     skv = k.shape[2]
     lib = _lib()
-    # the TMA kernels (d <= 160) scale dq themselves and may split the q range
-    tma = d != 512
-    splits = bwd_q_splits(b, h, sq, skv, sm_count(qs.device.index)) if tma else 1
-    # one zeroed fp32 buffer for what the kernel sums with atomics: dq, and dk,
-    # dv when the q range is split; one cast to the grads' dtype at the end
     n_q, n_kv = b * h * sq * d, b * h * skv * d
-    acc = torch.zeros(n_q + (2 * n_kv if splits > 1 else 0), dtype=torch.float32, device=qs.device)
+    # d <= 160: one zeroed fp32 buffer for what the kernel sums with atomics, dq
+    # (scaled) and, where the q range is split, dk and dv; one cast to the
+    # grads' dtype at the end. d = 512 (a dQ and a dK/dV kernel, JAX's two
+    # passes): every grad written once in bf16, dq scaled.
+    splits = 1 if d == 512 else bwd_q_splits(b, h, sq, skv, sm_count(qs.device.index))
+    acc = None
+    if d != 512:
+        acc = torch.zeros(n_q + (2 * n_kv if splits > 1 else 0), dtype=torch.float32, device=qs.device)
+    dq = torch.empty((b, h, sq, d), dtype=qs.dtype, device=qs.device) if acc is None else acc
     dk = dv = None  # written in bf16 by the kernel unless split
     if splits == 1:
         dk, dv = (torch.empty((b, h, skv, d), dtype=k.dtype, device=k.device) for _ in range(2))
     ptrs = [acc[n_q:].data_ptr(), acc[n_q + n_kv:].data_ptr()] if splits > 1 else [None, None]
     status = lib.flash_bwd_bf16(
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), di.data_ptr(),
-        acc.data_ptr(), dk.data_ptr() if dk is not None else None, dv.data_ptr() if dv is not None else None,
+        dq.data_ptr(), dk.data_ptr() if dk is not None else None, dv.data_ptr() if dv is not None else None,
         b, h, sq, skv, d, *_strides(qs), *_strides(k), *_strides(v), *_strides(do),
-        *ptrs, splits, scale if tma else 1.0, torch.cuda.current_stream(qs.device).cuda_stream,
+        *ptrs, splits, scale, torch.cuda.current_stream(qs.device).cuda_stream,
     )
     _nvcc.check(status, "flash_bwd_bf16")
-    if not tma:  # the d=512 kernel leaves dq unscaled
-        dq = (acc.view(b, h, sq, d) * scale).to(qs.dtype)
-    else:
+    if acc is not None:
         out = acc.to(qs.dtype)
         dq = out[:n_q].view(b, h, sq, d)
         if splits > 1:
@@ -309,7 +310,8 @@ def _launch_bwd_f32(qs, k, v, do, lse, di, scale: float):
 def flash_bwd(qs, k, v, do, lse, di, scale: float):
     """Backward kernel wrapper: (dq, dk, dv) from the forward's residuals,
     the output cotangent ``do`` and Di = rowsum(dO∘O) [B,H,Sq] fp32. fp32
-    inputs go to ``flash_bwd_f32``."""
+    inputs go to ``flash_bwd_f32``. At head dim 512 two kernels run (dQ, then
+    dK and dV) and write every grad once, so two calls give the same bits."""
     if qs.device.type == "cpu":
         return flash_bwd_plain(qs, k, v, do, lse, di, scale)
     if qs.dtype == torch.float32:

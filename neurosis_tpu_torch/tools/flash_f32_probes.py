@@ -54,22 +54,23 @@ def device_ms(torch, fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def build_probes(nvcc_mod) -> dict:
-    """name -> path of the built library of each probe that applies to the source."""
-    src = (nvcc_mod.CSRC / "flash_attention.cu").read_text()
+def build_probes(nvcc_mod, source: str = "flash_attention", probes: dict = PROBES) -> dict:
+    """name -> path of the built library of each probe (text replacements in
+    csrc/<source>.cu) that applies to the source."""
+    src = (nvcc_mod.CSRC / f"{source}.cu").read_text()
     nvcc_mod.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, reps in PROBES.items():
+    for name, reps in probes.items():
         text = src
         for old, new in reps:
             if old not in text:
-                print(json.dumps(dict(probe=name, skipped="its text is not in csrc/flash_attention.cu")), flush=True)
+                print(json.dumps(dict(probe=name, skipped=f"its text is not in csrc/{source}.cu")), flush=True)
                 break
             text = text.replace(old, new)
         else:
-            cu = nvcc_mod.BUILD_DIR / f"probe_{name}.cu"
+            cu = nvcc_mod.BUILD_DIR / f"probe_{source}_{name}.cu"
             cu.write_text(text)
-            so = nvcc_mod.BUILD_DIR / f"libprobe_{name}.so"
+            so = nvcc_mod.BUILD_DIR / f"libprobe_{source}_{name}.so"
             cmd = [nvcc_mod.nvcc(), *nvcc_mod.NVCC_FLAGS, "-I", str(nvcc_mod.CSRC), "-o", str(so), str(cu)]
             procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
     out = {}

@@ -11,17 +11,20 @@ operations over the time) and ``us_per_call``, timed with CUDA events over
 Variants, and how the TPU tool's cases map onto the card:
   base    — the port's shipped forward, ``flash_fwd``. The TPU cases name
             block sizes (one-pass 1024/1024, 512/1024) that exist to fit
-            VMEM; the CUDA kernel has one tiling (64 query rows, 64-row kv
-            tiles), so both base cases launch it as it ships.
+            VMEM; the CUDA kernel has one tiling at head dim 64 (128 query
+            rows, 128-row kv tiles), so both base cases launch it as it ships.
   split2  — ``flash_fwd_split2``: the kv row as 2 halves.
   chunkN  — ``flash_fwd_chunked`` with N chunks (1 to 16).
 The TPU kernels' ``block_q`` (512, 1024, 2048) sizes the VMEM block of one
-grid cell and is no launch parameter here: a CUDA block owns 64 query rows
+grid cell and is no launch parameter here: a CUDA block owns 128 query rows
 whatever the case. Cases that differ only in ``block_q`` keep their labels
 and launch the same kernel, so their spread is the run-to-run noise. A chunk
 is staged through shared memory in at most 128 rows (``csrc/flash_overlap.cu``),
 so every case of this list, whose chunks are 128 to 2048 rows, runs 128-row
 stages; the chunk count changes the schedule only below 128 rows a chunk.
+split2 and chunkN differ from base in their schedule alone: the next stage's
+logits are issued before this stage's softmax, so the tensor cores form them
+while the CUDA cores run the exponentials.
 """
 
 from __future__ import annotations

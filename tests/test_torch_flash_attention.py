@@ -1,8 +1,9 @@
 """neurosis_tpu_torch flash attention (plain version, CPU) against the JAX
 Pallas flash attention in interpret mode: forward and grads, with the
 tolerances of tests/test_flash_attention.py (fp32: 3e-6/1e-4 forward,
-2e-5/1e-3 grads); and a plain-torch model of the fp32 forward kernel's
-split-TF32 arithmetic against the same JAX forward."""
+2e-5/1e-3 grads); plain-torch models of the fp32 kernels' split-TF32
+arithmetic and of the bf16 head-dim-512 backward's rounding against the
+same JAX kernels."""
 
 import numpy as np
 import pytest
@@ -238,6 +239,69 @@ def test_split_tf32_backward_matches_jax(interpreted_flash, shape, splits):
     for gt, gj in zip(grads, g_j):
         assert bool((gt[..., d:] == 0).all())
         np.testing.assert_allclose(gt[..., :d].numpy(), np.asarray(gj), atol=2e-5, rtol=1e-3)
+
+
+def _bf16_two_pass_bwd(qs, k, v, do, lse, di, scale: float, block: int = 64):
+    """A plain-torch model of the bf16 head-dim-512 backward kernels' arithmetic,
+    JAX's two passes, in the kernels' order: the dQ pass walks kv in tiles of
+    ``block`` keys (S and dP in fp32, P from the saved LSE, dS rounded to bf16,
+    dQ += dS·K in fp32, written once, scaled); the dK/dV pass walks q in tiles
+    of ``block`` rows (Sᵀ, dPᵀ, Pᵀ and dSᵀ rounded to bf16, dV += Pᵀ·dO, dK +=
+    dSᵀ·q̃ in fp32); every grad rounded to bf16 once."""
+    from neurosis_tpu_torch.ops.flash_attention import LOG2_E
+
+    q32, k32, v32, do32 = (t.float() for t in (qs, k, v, do))
+    rnd = lambda t: t.to(torch.bfloat16).float()
+    dq = torch.zeros_like(q32)
+    for t0 in range(0, k.shape[-2], block):
+        kt, vt = k32[..., t0:t0 + block, :], v32[..., t0:t0 + block, :]
+        p = torch.exp2(q32 @ kt.transpose(-1, -2) - lse[..., None])
+        ds = rnd(p * (do32 @ vt.transpose(-1, -2) - di[..., None]))
+        dq = dq + ds @ kt
+    dk, dv = torch.zeros_like(k32), torch.zeros_like(v32)
+    for t0 in range(0, qs.shape[-2], block):
+        qt, dot = q32[..., t0:t0 + block, :], do32[..., t0:t0 + block, :]
+        pt = torch.exp2(k32 @ qt.transpose(-1, -2) - lse[..., None, t0:t0 + block])
+        dst = pt * (v32 @ dot.transpose(-1, -2) - di[..., None, t0:t0 + block])
+        dv = dv + rnd(pt) @ dot
+        dk = dk + rnd(dst) @ qt
+    return tuple(g.to(torch.bfloat16) for g in (dq * scale, dk / LOG2_E, dv))
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 128, 128, 512), (1, 1, 100, 77, 512)])
+def test_bf16_two_pass_backward_matches_jax(interpreted_flash, shape):
+    """The card's bf16 backward at head dim 512 (a dQ kernel and a dK/dV kernel,
+    P and dS rounded to bf16 per 64-row tile, fp32 sums, each grad rounded to
+    bf16 once), modelled in plain torch, against the VJP of JAX's flash
+    attention interpreted in bf16 (its _bwd), a ragged q and the kv = 77 tail
+    included. Both sides round the same P and dS and each grad once, and sum
+    in fp32 in another order: a grad may differ by a few of its bf16 rounding
+    steps (2^-8 relative), so 2e-2 relative to the grad's largest entry."""
+    import math
+
+    from neurosis_tpu_torch.ops.flash_attention import LOG2_E, flash_fwd_plain
+
+    fa = interpreted_flash
+    b, h, sq, skv, d = shape
+    rng = np.random.RandomState(5)
+    q, do = (rng.randn(b, h, sq, d).astype(np.float32) for _ in range(2))
+    k, v = (rng.randn(b, h, skv, d).astype(np.float32) for _ in range(2))
+    bf = lambda a: jnp.asarray(a.copy()).astype(jnp.bfloat16)
+    run = lambda *a: fa.flash_attention(*a, block_q=128, block_k=128)
+    _, vjp = jax.vjp(run, bf(q), bf(k), bf(v))
+    g_j = vjp(bf(do))
+
+    tb = lambda a: torch.tensor(a.copy()).to(torch.bfloat16)
+    tq, tk, tv, tdo = tb(q), tb(k), tb(v), tb(do)
+    scale = 1.0 / math.sqrt(d)
+    qs = (tq * (scale * LOG2_E)).to(torch.bfloat16)
+    o, lse = flash_fwd_plain(qs, tk, tv)
+    grads = _bf16_two_pass_bwd(qs, tk, tv, tdo, lse, (tdo.float() * o.float()).sum(-1), scale)
+    for gt, gj in zip(grads, g_j):
+        want = np.asarray(gj.astype(jnp.float32))
+        got = gt.float().numpy()
+        assert gt.dtype == torch.bfloat16 and got.shape == want.shape
+        assert np.abs(got - want).max() <= 2e-2 * np.abs(want).max()
 
 
 def test_tf32_split_is_exact_to_fp32():

@@ -2,7 +2,8 @@
 shapes that reach every code path of each kernel: ragged q tails, q shorter
 than a block, the masked kv=77 tail and other kv tails, a backward whose q
 range is split over blocks, each head dim the kernel takes (512 with ragged q
-and kv tails, in bf16 and in fp32) and head dims padded to them, channel counts
+and kv tails, in bf16 and in fp32) and head dims padded to them, overlap
+chunks that end inside a stage, channel counts
 that take one and several tiles,
 the GroupNorm prologue's zeroed halo.
 
@@ -51,13 +52,16 @@ def _rel(got, want):
 # several kv tiles, a backward whose q range is split over blocks (kv = 77 with
 # few heads; SPLIT, and most small shapes on 132 SMs), one full-size SDXL
 # self-attention (one block per kv tile), and d = 512 (the VAE-GAN pair's
-# 8x1x1024x1024 among them); head dims padded to the next kernel head dim:
-# 32 -> 40, 128 -> 160, 256 -> 512
+# 8x1x1024x1024 among them; for the dQ and the dK/dV kernel at 512, Sq shorter
+# than a 64-row block (40), ragged Sq tails (100, 130, 200), the kv = 77 tail
+# and Skv that is no multiple of 64 (130, 300)); head dims padded to the next
+# kernel head dim: 32 -> 40, 128 -> 160, 256 -> 512
 SPLIT = [(2, 3, 300, 77, 40), (2, 5, 1024, 77, 64), (1, 2, 1024, 77, 80), (1, 2, 512, 77, 160)]
 FLASH_SHAPES = SPLIT + [(1, 2, 256, 300, 40), (1, 2, 130, 200, 64), (1, 2, 20, 130, 64), (1, 2, 256, 256, 80),
                         (1, 2, 100, 300, 80), (1, 1, 64, 77, 160), (2, 1, 300, 256, 160), (1, 1, 50, 200, 160),
                         (2, 20, 1024, 1024, 64), (2, 1, 200, 300, 512), (1, 1, 1024, 1024, 512),
-                        (8, 1, 1024, 1024, 512), (1, 2, 300, 77, 32), (1, 2, 130, 200, 128), (1, 1, 200, 300, 256)]
+                        (8, 1, 1024, 1024, 512), (1, 2, 300, 77, 32), (1, 2, 130, 200, 128), (1, 1, 200, 300, 256),
+                        (1, 1, 40, 77, 512), (1, 2, 130, 77, 512), (1, 1, 100, 130, 512), (1, 1, 40, 300, 512)]
 
 
 @pytest.mark.parametrize("shape", FLASH_SHAPES)
@@ -176,6 +180,25 @@ def test_flash_bwd_f32_is_deterministic(cuda, shape):
         assert torch.equal(a, b_)
 
 
+@pytest.mark.parametrize("shape", [(8, 1, 1024, 1024, 512), (2, 1, 200, 300, 512)])
+def test_flash_bwd_bf16_512_is_deterministic(cuda, shape):
+    """The bf16 backward at head dim 512 (a dQ kernel and a dK/dV kernel)
+    writes every grad once by plain stores: two calls give the same bits."""
+    from neurosis_tpu_torch.ops import flash_attention as fa
+
+    b, h, sq, skv, d = shape
+    q, do = (torch.randn(b, h, sq, d, generator=cuda, device="cuda").bfloat16() for _ in range(2))
+    k, v = (torch.randn(b, h, skv, d, generator=cuda, device="cuda").bfloat16() for _ in range(2))
+    scale = 1.0 / math.sqrt(d)
+    qs = (q * (scale * fa.LOG2_E)).to(q.dtype)
+    o, lse = fa.flash_fwd(qs, k, v)
+    di = (do.float() * o.float()).sum(-1)
+    first = fa.flash_bwd(qs, k, v, do, lse, di, scale)
+    second = fa.flash_bwd(qs, k, v, do, lse, di, scale)
+    for a, b_ in zip(first, second):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b_)
+
+
 # fp32 at every kernel head dim family, as the fp32 UNets and the small VAEs
 # give it: d = 40 (SD1.5's UNet) and 48 run at 64, 80 at 96, 200 at 512, 64 and
 # 160 as built; each with a ragged q tail over the kv = 77 tail, self-attention
@@ -283,6 +306,26 @@ def test_flash_overlap_kernels(cuda, sq, skv, n_chunks):
         torch.cuda.synchronize()
         assert fo.flash_fwd_split2.launches == n + 1
         assert torch.equal(o2, o)
+
+
+@pytest.mark.parametrize("b,h,sq,skv,n_chunks", [(2, 2, 1024, 1024, 1), (2, 2, 1024, 1024, 16),
+                                                    (1, 2, 200, 320, 2), (1, 2, 130, 600, 3)])
+def test_flash_overlap_kernels_at_more_chunk_counts(cuda, b, h, sq, skv, n_chunks):
+    """One chunk and 16 chunks over 1024 keys; chunks that end inside a 128-row
+    stage (160 = 128 + 32 rows, 200 = 128 + 72), so a stage's TMA box reaches
+    into the next chunk, whose rows are masked."""
+    from neurosis_tpu_torch.ops import flash_attention as fa
+    from neurosis_tpu_torch.ops import flash_overlap as fo
+
+    q = torch.randn(b, h, sq, 64, generator=cuda, device="cuda").bfloat16()
+    k, v = (torch.randn(b, h, skv, 64, generator=cuda, device="cuda").bfloat16() for _ in range(2))
+    qs = (q * (fa.LOG2_E / 8.0)).to(q.dtype)
+    o = fo.flash_fwd_chunked(qs, k, v, n_chunks)
+    torch.cuda.synchronize()
+    assert _rel(o, fo.flash_fwd_chunked_plain(qs, k, v, n_chunks)) < 1e-2
+    assert _rel(o, fa.flash_fwd_plain(qs, k, v)[0]) < 2e-2
+    if n_chunks == 2:
+        assert torch.equal(fo.flash_fwd_split2(qs, k, v), o)
 
 
 def test_flash_overlap_refuses_ragged_chunks(cuda):

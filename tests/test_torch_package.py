@@ -355,6 +355,11 @@ def test_every_flash_row_of_the_configs_reaches_a_kernel(kernel_stub, monkeypatc
     ("void (anonymous namespace)::flash_fwd_wgmma<64>((anonymous namespace)::FwdTma)", "port kernels"),
     ("void (anonymous namespace)::flash_fwd_f32_wgmma<512>((anonymous namespace)::FwdF32Tma)", "port kernels"),
     ("void (anonymous namespace)::flash_fwd_f32_wgmma<64>((anonymous namespace)::FwdF32Tma)", "port kernels"),
+    ("(anonymous namespace)::flash_bwd512_dq_wgmma((anonymous namespace)::Bwd512Tma)", "port kernels"),
+    ("(anonymous namespace)::flash_bwd512_dkv_wgmma((anonymous namespace)::Bwd512Tma)", "port kernels"),
+    ("(anonymous namespace)::flash_fwd_overlap_wgmma((anonymous namespace)::OverlapTma)", "port kernels"),
+    ("void (anonymous namespace)::flash_bwd_dq_f32_wgmma<512>((anonymous namespace)::BwdDqF32Tma)", "port kernels"),
+    ("void (anonymous namespace)::flash_bwd_dkv_f32_wgmma<64>((anonymous namespace)::BwdKvF32Tma)", "port kernels"),
     ("(anonymous namespace)::flash_f32_split_rows(const float *, long, long, long, int, int, int, long, float *)",
      "port kernels"),
     ("(anonymous namespace)::flash_f32_split_vt(const float *, long, long, long, int, int, int, int, float *)",
