@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
-Six paths run at full width: the SD1.5 train step from images (the frozen
+Nine paths run at full width: the SD1.5 train step from images (the frozen
 fp32 VAE encode in front of the UNet step) with a bf16 UNet and with the fp32
 UNet of configs/sd15/sd15.example.yaml as written, the VAE-GAN trainer
 (alternating generator and discriminator steps) with a bf16 and with an fp32
-encoder and decoder, the SDXL train step from 1024 px images, and the
-flash-overlap tool.
+encoder and decoder, the SDXL train step from 1024 px images, the
+flash-overlap tool, and the training entry point
+(python -m neurosis_tpu_torch fit) on configs/sdxl/sdxl.example.yaml as
+written, on its bf16-mixed copy and on configs/vae/vae.example.yaml.
 
 Phases, each fatal on failure:
   1. environment: Python, torch and CUDA versions, the card's name and power limit;
@@ -51,7 +53,17 @@ Phases, each fatal on failure:
      Adafactor, no EMA), launch counts read around the three, then a profiled
      step, and the encode and each text tower profiled on their own;
  10. overlap: python -m neurosis_tpu_torch.tools.overlap_bench's cases, with
-     the launch counts read around them.
+     the launch counts read around them;
+ 11. cli: in chiprun_out/cli/, an image folder of 8 seeded PNGs (written by
+     neurosis_tpu_torch/data/png.py, sizes in WDXLBucketList's 1024x1024
+     bucket) with tag captions, then the CLI's main() in this process, the
+     launch counts read around each run: fit of sdxl.example.yaml as written
+     (fp32 UNet, one step, fast_dev_run, the hash tokenizer, no checkpoint)
+     under torch.profiler; fit of its copy with precision bf16-mixed,
+     fast_dev_run false and max_steps 4 (phase 9's launches x 4), and of the
+     same copy for 2 steps under torch.profiler; fit of vae.example.yaml as
+     written (fp32, one generator step). Each run's losses are finite, its
+     metrics.jsonl has a line a step with the host step and data ms.
 Then one JSON line of kernels, the nvidia-smi line and, last, the result line.
 Everything measured also goes to chiprun_out/chip_smoke.json.
 
@@ -148,7 +160,7 @@ SDXL_CONV_SHAPES = {(2, 64, 64, 1280, 1280): (1, 1), (2, 64, 64, 640, 640): (0, 
                     (2, 32, 32, 640, 1280): (0, 1), (2, 32, 32, 1280, 1280): (0, 10)}
 # the SDXL step's frozen fp32 encode: the VAE's mid attention over 128x128 latents
 SDXL_FLASH_F32_SHAPES = {(2, 1, 16384, 16384, 512): 1}
-# fp32 rows no path here drives, checked and timed at kernel level: the SDXL
+# fp32 rows no path of phases 5-10 drives, checked and timed at kernel level: the SDXL
 # step's attention with the fp32 UNet of configs/sdxl/sdxl.example.yaml as
 # written (the shapes and counts of SDXL_FLASH_SHAPES, head dim 64), the frozen
 # encode of configs/smoke/sd15-tiny.yaml (ch 32 x [1, 2] at 64 px: 64 channels
@@ -157,13 +169,36 @@ SDXL_FLASH_F32_SHAPES = {(2, 1, 16384, 16384, 512): 1}
 # generator step)
 UNDRIVEN_F32_FLASH_SHAPES = {"sdxl_f32": SDXL_FLASH_SHAPES, "sd15_tiny": {(1, 1, 1024, 1024, 64): (1, 0)},
                              "vae_tiny": {(2, 1, 1024, 1024, 64): (4, 2)}}
+# Phase 11 drives the first of them (its rows are phase 11's path,
+# cli_sdxl_f32): a step of sdxl.example.yaml as written
+# through the CLI is the fp32 UNet's attention plus its frozen encode. Its
+# copy with precision bf16-mixed is phase 9's step (the SDXL_* tables). A
+# generator step of vae.example.yaml as written (256 px, batch 2, fp32): the
+# mid attention over 32x32 latents at d=512, forward in the encoder and the
+# decoder, backward through both.
+CLI_SDXL_F32_FLASH_SHAPES = {**UNDRIVEN_F32_FLASH_SHAPES["sdxl_f32"],
+                             **{shape: (n, 0) for shape, n in SDXL_FLASH_F32_SHAPES.items()}}
+CLI_VAE_F32_FLASH_SHAPES = {(2, 1, 1024, 1024, 512): (2, 2)}
+# the image folder of phase 11: (width, height) of its PNGs, every aspect in
+# WDXLBucketList's 1024x1024 bucket (ratios 0.90-1.11; that bucket takes
+# (0.882, 1.133]) and every side >= 1024, so the cover resize and the crop run
+# and the UNet sees phase 9's shapes
+CLI_IMAGE_SIZES = [(1024, 1024), (1088, 1024), (1024, 1088), (1152, 1040), (1040, 1152), (1100, 1040),
+                   (1280, 1216), (1216, 1280)]
+CLI_DIR = Path("chiprun_out") / "cli"
 
 # path -> (its key in the report, the unit its launch tables count)
 PATHS = {"sd15": ("slice", "SD1.5 train step"),
          "sd15_f32": ("sd15_f32", "SD1.5 train step, fp32 UNet (sd15.example.yaml as written, 256 px, batch 1)"),
          "vae_gan": ("vae_gan", "VAE-GAN generator + discriminator pair, bf16"),
          "vae_gan_f32": ("vae_gan_f32", "VAE-GAN generator + discriminator pair, fp32"),
-         "sdxl": ("sdxl", "SDXL train step"), "overlap": ("overlap", "one run of the flash-overlap tool")}
+         "sdxl": ("sdxl", "SDXL train step"), "overlap": ("overlap", "one run of the flash-overlap tool"),
+         "cli_sdxl_f32": ("cli_sdxl_f32", "SDXL train step of sdxl.example.yaml as written (fp32 UNet) through "
+                                          "python -m neurosis_tpu_torch fit"),
+         "cli_sdxl_bf16": ("cli_sdxl_bf16", "SDXL train step of its bf16-mixed copy through the CLI"),
+         "cli_vae": ("cli_vae", "generator step of vae.example.yaml as written (fp32) through the CLI")}
+# a path whose shape tables are another's (the same step, reached another way)
+TABLES_OF = {"cli_sdxl_bf16": "sdxl"}
 
 # tolerances on max|kernel - plain| / max|plain|, same bf16 inputs on both sides
 TOL = {
@@ -291,6 +326,24 @@ def overlap_launches() -> dict:
     return out
 
 
+def flash_tables(torch) -> list:
+    """(path, (B, H, Sq, Skv, D), (forward, backward) launches per unit, dtype)
+    of every flash row phase 3 checks."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    return [("sd15", sh, n, bf16) for sh, n in FLASH_SHAPES.items()] + \
+           [("vae_gan", sh, n, bf16) for sh, n in VAE_FLASH_SHAPES.items()] + \
+           [("sdxl", sh, n, bf16) for sh, n in SDXL_FLASH_SHAPES.items()] + \
+           [("overlap", sh, (n, 0), bf16) for sh, n in overlap_launches()["flash_fwd"].items()] + \
+           [("sd15", sh, (n, 0), f32) for sh, n in FLASH_F32_SHAPES.items()] + \
+           [("sd15_f32", sh, n, f32) for sh, n in SD15_F32_FLASH_SHAPES.items()] + \
+           [("vae_gan_f32", sh, n, f32) for sh, n in VAE_F32_FLASH_SHAPES.items()] + \
+           [("sdxl", sh, (n, 0), f32) for sh, n in SDXL_FLASH_F32_SHAPES.items()] + \
+           [(path, sh, n, f32) for path, table in UNDRIVEN_F32_FLASH_SHAPES.items() if path != "sdxl_f32"
+            for sh, n in table.items()] + \
+           [("cli_sdxl_f32", sh, n, f32) for sh, n in CLI_SDXL_F32_FLASH_SHAPES.items()] + \
+           [("cli_vae", sh, n, f32) for sh, n in CLI_VAE_F32_FLASH_SHAPES.items()]
+
+
 def check_flash(torch, log: list) -> dict:
     """Each flash shape of every path in its dtype: forward and backward in
     bf16, and in fp32 (the frozen encodes run the forward only; fp32 plain
@@ -301,17 +354,8 @@ def check_flash(torch, log: list) -> dict:
     from neurosis_tpu_torch.ops import flash_attention as fa
 
     rows = {"flash_fwd": [], "flash_bwd": [], "flash_fwd_f32": [], "flash_bwd_f32": []}
-    bf16, f32 = torch.bfloat16, torch.float32
-    tables = [("sd15", sh, n, bf16) for sh, n in FLASH_SHAPES.items()] + \
-             [("vae_gan", sh, n, bf16) for sh, n in VAE_FLASH_SHAPES.items()] + \
-             [("sdxl", sh, n, bf16) for sh, n in SDXL_FLASH_SHAPES.items()] + \
-             [("overlap", sh, (n, 0), bf16) for sh, n in overlap_launches()["flash_fwd"].items()] + \
-             [("sd15", sh, (n, 0), f32) for sh, n in FLASH_F32_SHAPES.items()] + \
-             [("sd15_f32", sh, n, f32) for sh, n in SD15_F32_FLASH_SHAPES.items()] + \
-             [("vae_gan_f32", sh, n, f32) for sh, n in VAE_F32_FLASH_SHAPES.items()] + \
-             [("sdxl", sh, (n, 0), f32) for sh, n in SDXL_FLASH_F32_SHAPES.items()] + \
-             [(path, sh, n, f32) for path, table in UNDRIVEN_F32_FLASH_SHAPES.items() for sh, n in table.items()]
-    for path, shape, (n_fwd, n_bwd), dtype in tables:
+    f32 = torch.float32
+    for path, shape, (n_fwd, n_bwd), dtype in flash_tables(torch):
         is_f32 = dtype == f32
         name, bwd_name = ("flash_fwd_f32", "flash_bwd_f32") if is_f32 else ("flash_fwd", "flash_bwd")
         fwd = fa.flash_fwd_f32 if is_f32 else fa.flash_fwd
@@ -802,6 +846,7 @@ def step_totals(rows: dict, path: str) -> dict:
     per step (or pair) of that path, their summed time and summed bound (and
     the fp32 rows' FFMA bound beside it)."""
     out = {}
+    path = TABLES_OF.get(path, path)
     for name, rs in rows.items():
         rs = [r for r in rs if r["path"] == path]
         out[name] = dict(launches=sum(r["per_step"] for r in rs), ms=sum(r["per_step"] * r["ms"] for r in rs),
@@ -1008,6 +1053,166 @@ def run_overlap(torch, rows: dict, log: list) -> dict:
     return dict(lines=lines, launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the training entry point
+# ---------------------------------------------------------------------------
+
+
+def write_image_folder(torch, folder: Path, seed: int = 11) -> None:
+    """CLI_IMAGE_SIZES as PNGs (written by the port's PNG writer) of smooth
+    random fields, each with a caption of a few comma-separated tags."""
+    import torch.nn.functional as F
+
+    from neurosis_tpu_torch.data.png import write_png
+
+    folder.mkdir(parents=True, exist_ok=True)
+    g = torch.Generator("cpu").manual_seed(seed)
+    tags = ["a photo", "smooth field", "soft light", "outdoors", "blue sky", "grass", "portrait", "landscape"]
+    for i, (w, h) in enumerate(CLI_IMAGE_SIZES):
+        coarse = torch.rand(1, 3, h // 32, w // 32, generator=g)
+        img = F.interpolate(coarse, size=(h, w), mode="bilinear", align_corners=False)
+        img = (img + 0.05 * torch.randn(1, 3, h, w, generator=g)).clamp(0, 1)
+        write_png(folder / f"img_{i}.png", (img[0] * 255).round().to(torch.uint8).permute(1, 2, 0).numpy())
+        picks = torch.randperm(len(tags), generator=g)[:4].tolist()
+        (folder / f"img_{i}.txt").write_text(", ".join(tags[j] for j in picks))
+
+
+def step_profiles(torch, prof, span: str) -> list:
+    """Each ``span`` of a profile: device busy ms (the union of the kernels
+    that ran between the span's start and end; the trainer syncs the card at
+    both, so no other work overlaps a step), ms by kind, and kernel count."""
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.name == span and e.device_type != cuda)
+    kernels = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
+                     if e.device_type == cuda and not getattr(e, "is_user_annotation", False))
+    out = []
+    for s0, s1 in spans:
+        busy, end, kinds, n = 0.0, -math.inf, {}, 0
+        for k0, k1, name in kernels:
+            if k0 < s0 or k1 > s1:
+                continue
+            n += 1
+            kinds[kernel_kind(name)] = kinds.get(kernel_kind(name), 0.0) + (k1 - k0) / 1e3
+            if k1 > end:
+                busy += k1 - max(k0, end)
+                end = k1
+        out.append(dict(device_ms=busy / 1e3 if n else None, kinds_ms=kinds, launches=n))
+    return out
+
+
+def run_cli(torch, rows: dict, config: Path, label: str, path: str, steps: int, profiled: bool) -> dict:
+    """``python -m neurosis_tpu_torch fit -c config`` in this process (its
+    main()), from the working directory (CLI_DIR) and a fresh projects/ there: rc 0, a finite
+    loss on each of ``steps`` lines of metrics.jsonl, and every kernel's
+    launches equal to ``steps`` x the path's tables; with ``profiled`` the
+    run is inside one torch.profiler window, which gives each step's device
+    time."""
+    import gc
+    import shutil
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from neurosis_tpu_torch import ops
+    from neurosis_tpu_torch.trainer import cli
+    from neurosis_tpu_torch.trainer.loop import STEP_SPAN
+
+    shutil.rmtree("projects", ignore_errors=True)
+    gc.collect()  # an earlier run's profile, freed before this run's host times
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    argv = ["fit", "-c", str(config)]
+    if profiled:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            rc = cli.main(argv)
+            torch.cuda.synchronize()
+    else:
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if rc != 0:
+        raise PhaseError(f"{label}: main() returned {rc}")
+    lines = [json.loads(x) for x in Path("projects/logs/metrics.jsonl").read_text().splitlines()]
+    loss_key = "total" if path == "cli_vae" else "loss"
+    if [r["step"] for r in lines] != list(range(1, steps + 1)):
+        raise PhaseError(f"{label}: metrics.jsonl has steps {[r['step'] for r in lines]}, not 1-{steps}")
+    if not all(math.isfinite(r[loss_key]) for r in lines):
+        raise PhaseError(f"{label}: a loss is not finite: {[r[loss_key] for r in lines]}")
+    for r in lines:
+        print(f"{label} step {r['step']}: {loss_key} {r[loss_key]:.6f}, host step {r['step_ms']:.1f} ms, "
+              f"data {r['data_ms']:.1f} ms", flush=True)
+    print(f"{label}: {seconds:.1f} s in main(), peak device memory {peak} bytes ({peak / 2**30:.2f} GiB)", flush=True)
+    check_launches(launches, step_totals(rows, path), steps, label)
+    out = dict(metrics=lines, launches=launches, peak_bytes=peak, seconds=seconds)
+    if profiled:
+        out["profiles"] = step_profiles(torch, prof, STEP_SPAN)
+        for i, p in enumerate(out["profiles"]):
+            if p["device_ms"] is None:
+                print(f"{label} step {i + 1}: the profiler recorded no device kernels in the step: device time "
+                      "not measured", flush=True)
+                continue
+            kinds = ", ".join(f"{k} {ms:.3f}" for k, ms in sorted(p["kinds_ms"].items(), key=lambda kv: -kv[1]))
+            print(f"{label} step {i + 1}: device busy {p['device_ms']:.3f} ms in {p['launches']} kernels (host step "
+                  f"{lines[i]['step_ms']:.1f} ms under the profiler); by kind: {kinds}", flush=True)
+    return out
+
+
+def run_cli_phase(torch, rows: dict) -> dict:
+    """Phase 11: the image folder, then the CLI's fit on the three configs.
+    The bf16 copy runs twice: first unprofiled for its host times (the first
+    run after phase 10, as phase 9 is the first after phase 8), then two
+    steps profiled, the second of which compares with phase 9's profiled
+    (steady) step: a first step also creates the optimizer's state."""
+    import os
+
+    from neurosis_tpu_torch.config.loader import load_config
+
+    repo = Path.cwd().resolve()
+    sdxl, vae = repo / "configs/sdxl/sdxl.example.yaml", repo / "configs/vae/vae.example.yaml"
+    t0 = time.perf_counter()
+    write_image_folder(torch, CLI_DIR / "data" / "dataset" / "folder")
+    print(f"cli: wrote {len(CLI_IMAGE_SIZES)} PNGs in {time.perf_counter() - t0:.1f} s", flush=True)
+    written = "  fast_dev_run: true  # disable to actually train\n"
+    text = sdxl.read_text()
+    if text.count(written) != 1:
+        raise PhaseError(f"{sdxl} no longer has the line {written!r}")
+    bf16 = (CLI_DIR / "sdxl-bf16.yaml").resolve()
+    bf16.write_text(text.replace(written, "  fast_dev_run: false\n  max_steps: 4\n  precision: bf16-mixed\n"))
+    bf16_two = (CLI_DIR / "sdxl-bf16-two-steps.yaml").resolve()
+    bf16_two.write_text(text.replace(written, "  fast_dev_run: false\n  max_steps: 2\n  precision: bf16-mixed\n"))
+    want = load_config(sdxl)
+    want["trainer"].update(fast_dev_run=False, max_steps=4, precision="bf16-mixed")
+    if load_config(bf16) != want:
+        raise PhaseError("the bf16 copy of sdxl.example.yaml differs in more than its three keys")
+
+    out = {}
+    cwd, hash_env = os.getcwd(), os.environ.get("NEUROSIS_ALLOW_HASH_TOKENIZER")
+    os.chdir(CLI_DIR)
+    try:
+        os.environ["NEUROSIS_ALLOW_HASH_TOKENIZER"] = "1"
+        out["cli_sdxl_bf16"] = run_cli(torch, rows, bf16, "CLI fit sdxl bf16-mixed copy", "cli_sdxl_bf16",
+                                       4, profiled=False)
+        out["cli_sdxl_f32"] = run_cli(torch, rows, sdxl, "CLI fit sdxl.example.yaml (fp32)", "cli_sdxl_f32", 1,
+                                      profiled=True)
+        out["cli_sdxl_bf16_profiled"] = run_cli(torch, rows, bf16_two, "CLI fit sdxl bf16-mixed, profiled",
+                                                "cli_sdxl_bf16", 2, profiled=True)
+        out["cli_vae"] = run_cli(torch, rows, vae, "CLI fit vae.example.yaml (fp32)", "cli_vae", 1, profiled=False)
+    finally:
+        os.chdir(cwd)
+        if hash_env is None:
+            os.environ.pop("NEUROSIS_ALLOW_HASH_TOKENIZER", None)
+        else:
+            os.environ["NEUROSIS_ALLOW_HASH_TOKENIZER"] = hash_env
+    if "train/loss/rec" not in out["cli_vae"]["metrics"][0]:
+        raise PhaseError("the VAE run's step was not a generator step")
+    return out
+
+
 def kernel_kind(name: str) -> str:
     """Which layer a device kernel belongs to, by its name."""
     low = name.lower()
@@ -1130,6 +1335,8 @@ def main() -> int:
         report["sdxl"] = run_slice(torch, rows, "sdxl")
         torch.cuda.empty_cache()
         report["overlap"] = run_overlap(torch, rows, log)
+        torch.cuda.empty_cache()
+        report.update(run_cli_phase(torch, rows))
         report["seconds"] = time.perf_counter() - t_start
         print(f"all phases: {report['seconds']:.1f} s", flush=True)
     except Exception as e:  # any failed phase ends the run without a result line

@@ -1,6 +1,6 @@
-"""A small reader of the safetensors format (the card's machine has no
-``safetensors`` package): an 8-byte little-endian header length, a JSON
-header of {name: {dtype, shape, data_offsets}}, then the raw buffers."""
+"""A small reader and writer of the safetensors format (the card's machine
+has no ``safetensors`` package): an 8-byte little-endian header length, a
+JSON header of {name: {dtype, shape, data_offsets}}, then the raw buffers."""
 
 from __future__ import annotations
 
@@ -31,3 +31,28 @@ def load_file(path) -> dict[str, torch.Tensor]:
         arr = np.frombuffer(body[start:end], dtype=np.dtype(_DTYPES[meta["dtype"]]).newbyteorder("<"))
         out[name] = torch.from_numpy(arr.reshape(meta["shape"]).astype(arr.dtype.newbyteorder("="), copy=True))
     return out
+
+
+_NAMES = {np.dtype(v).newbyteorder("<"): k for k, v in _DTYPES.items()}
+
+
+def save_file(tensors: dict, path, metadata: dict = None) -> None:
+    """Write {name: tensor or array} as a .safetensors file (little-endian
+    buffers in name order, the header padded to 8 bytes)."""
+    header, buffers, offset = {}, [], 0
+    for name in sorted(tensors):
+        value = tensors[name]
+        arr = value.detach().cpu().numpy() if isinstance(value, torch.Tensor) else np.asarray(value)
+        arr = np.array(arr, dtype=arr.dtype.newbyteorder("<"), order="C")
+        if arr.dtype not in _NAMES:
+            raise ValueError(f"{name} has dtype {arr.dtype}, which this writer does not take")
+        raw = arr.tobytes()
+        header[name] = {"dtype": _NAMES[arr.dtype], "shape": list(arr.shape),
+                        "data_offsets": [offset, offset + len(raw)]}
+        buffers.append(raw)
+        offset += len(raw)
+    if metadata:
+        header["__metadata__"] = {str(k): str(v) for k, v in metadata.items()}
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    Path(path).write_bytes(struct.pack("<Q", len(head)) + head + b"".join(buffers))

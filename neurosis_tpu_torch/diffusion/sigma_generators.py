@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .._device import DeviceLike, resolve_device
@@ -17,10 +18,10 @@ class DiscreteSigmaGenerator:
     def __init__(self, discretization: LegacyDDPMDiscretization, num_idx: int = 1000,
                  flip: bool = True, exclude_zero: bool = True, device: DeviceLike = None):
         self.num_idx = num_idx
-        sigmas = discretization(num_idx, flip=flip, device=resolve_device(device))
-        if exclude_zero and sigmas.shape[0] > num_idx and float(sigmas[0]) == 0.0:
-            sigmas = sigmas[1:]
-        self.sigmas = sigmas
+        table = discretization.table(num_idx, flip=flip)
+        if exclude_zero and table.shape[0] > num_idx and table[0] == 0.0:
+            table = table[1:]
+        self.sigmas = torch.as_tensor(np.ascontiguousarray(table), device=resolve_device(device))
 
     def __call__(self, n_samples: int, t: torch.Tensor) -> torch.Tensor:
         t = t.float()

@@ -59,12 +59,13 @@ class FrozenCLIPEmbedder(_TextEmbedder):
     """HF CLIP-L text encoder embedder. ``layer``: 'last' | 'pooled' |
     'hidden' | 'penultimate'; hidden and penultimate select
     ``hidden_states[idx + 1]`` (0 = embeddings), idx = ``layer_idx``
-    (negative counts from the end) or 10 for penultimate."""
+    (negative counts from the end) or 10 for penultimate. ``version`` (the
+    reference's HF model name) is taken and unused, as the JAX field is."""
 
     def __init__(self, input_key: str = "caption", ucg_rate: float = 0.0, is_trainable: bool = False,
                  max_length: int = 77, layer: str = "last", layer_idx: Optional[int] = None,
                  vocab_size: int = 49408, width: int = 768, layers: int = 12, heads: int = 12,
-                 dtype: Optional[torch.dtype] = None, device: DeviceLike = None,
+                 version: Optional[str] = None, dtype: Optional[torch.dtype] = None, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__(input_key, ucg_rate, is_trainable)
         if layer not in ("last", "pooled", "hidden", "penultimate"):
@@ -95,12 +96,15 @@ class FrozenOpenCLIPEmbedder2(_TextEmbedder):
     """OpenCLIP bigG text embedder. ``layer``: 'last' | 'penultimate' (the
     resblock outputs before ln_final); pooled = ln_final(last) at the EOS
     token times text_projection. ``legacy`` returns ln_final's output for
-    'last' (and the penultimate as it is) and never the pooled vector."""
+    'last' (and the penultimate as it is) and never the pooled vector.
+    ``arch`` and ``version`` (the reference's open_clip names) are taken and
+    unused, as the JAX fields are; the widths say the architecture."""
 
     def __init__(self, input_key: str = "caption", ucg_rate: float = 0.0, is_trainable: bool = False,
                  max_length: int = 77, layer: str = "penultimate", always_return_pooled: bool = False,
                  legacy: bool = False, vocab_size: int = 49408, width: int = 1280, layers: int = 32,
-                 heads: int = 20, dtype: Optional[torch.dtype] = None, device: DeviceLike = None,
+                 heads: int = 20, arch: str = "ViT-bigG-14", version: Optional[str] = None,
+                 dtype: Optional[torch.dtype] = None, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__(input_key, ucg_rate, is_trainable)
         if layer not in ("last", "penultimate"):

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 
-def adamw(params, lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+def adamw(params, learning_rate: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
           weight_decay: float = 1e-4) -> torch.optim.AdamW:
-    return torch.optim.AdamW(params, lr=lr, betas=(b1, b2), eps=eps, weight_decay=weight_decay)
+    """optax.adamw's signature (``learning_rate``, as the configs name it)."""
+    return torch.optim.AdamW(params, lr=learning_rate, betas=(b1, b2), eps=eps, weight_decay=weight_decay)

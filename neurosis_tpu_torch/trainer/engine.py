@@ -7,12 +7,14 @@ updates the module parameters in place. The latents are
 ``batch['latents']`` (NHWC, already scaled) when the batch has them, else
 the frozen first stage encodes ``batch[input_key]`` (uint8 or [-1, 1]
 images, NHWC): moments → posterior sample → ·scale_factor, without grad
-(models/diffusion.py:187-197).
+(models/diffusion.py:187-197). ``eval_step`` is the loss alone, without
+grad or update, and under the EMA shadows too when ``use_ema`` is set.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence
+import contextlib
+from typing import Any, Callable, Optional, Sequence
 
 import torch
 
@@ -34,8 +36,10 @@ class DiffusionEngine:
                  optimizer: Callable[[list], torch.optim.Optimizer],
                  use_ema: bool = False, ema_decay: float = 0.9999, latents_key: str = "latents",
                  trainable_embedders: Sequence[int] = (), first_stage: Optional[AutoencoderKL] = None,
-                 scale_factor: float = 0.18215, input_key: str = "image", device: DeviceLike = None):
+                 scale_factor: float = 0.18215, input_key: str = "image", sampler: Any = None,
+                 device: DeviceLike = None):
         self.device = resolve_device(device)
+        self.sampler = sampler  # the config's sampler; engine.sample waits (ROADMAP Queue 1 item 5)
         self.model = model
         self.denoiser = denoiser
         self.loss_fn = loss_fn
@@ -103,3 +107,35 @@ class DiffusionEngine:
             ema_update(state.ema, params, self.ema_decay)
         state.step += 1
         return state, {"loss": loss.detach(), "grad_norm": grad_norm}
+
+    @contextlib.contextmanager
+    def ema_scope(self, state: TrainState):
+        """The trainable parameters hold the EMA shadows inside the block
+        (models/diffusion.py:247-257)."""
+        params = self.trainable_parameters()
+        saved = [p.detach().clone() for p in params]
+        with torch.no_grad():
+            for p, s in zip(params, state.ema.params):
+                p.copy_(s)
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                for p, s in zip(params, saved):
+                    p.copy_(s)
+
+    @torch.no_grad()
+    def eval_step(self, state: TrainState, batch: dict):
+        """The loss for ``validate``: no grad, no update. With ``use_ema`` the
+        same draws of t and noise also give ``loss_ema`` under the shadows."""
+        if self.latents_key in batch:
+            latents = batch[self.latents_key]
+        else:
+            latents = self.encode_first_stage(batch[self.input_key], state.generator)
+        t = torch.rand(latents.shape[0], generator=state.generator, device=latents.device)
+        noise = torch.randn(latents.shape, generator=state.generator, device=latents.device, dtype=latents.dtype)
+        metrics = {"loss": self.loss(batch, latents, t=t, noise=noise)}
+        if self.use_ema and state.ema is not None:
+            with self.ema_scope(state):
+                metrics["loss_ema"] = self.loss(batch, latents, t=t, noise=noise)
+        return state, metrics
