@@ -3,14 +3,16 @@
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
-Nine paths run at full width: the SD1.5 train step from images (the frozen
+These paths run at full width: the SD1.5 train step from images (the frozen
 fp32 VAE encode in front of the UNet step) with a bf16 UNet and with the fp32
 UNet of configs/sd15/sd15.example.yaml as written, the VAE-GAN trainer
 (alternating generator and discriminator steps) with a bf16 and with an fp32
-encoder and decoder, the SDXL train step from 1024 px images, the
-flash-overlap tool, and the training entry point
-(python -m neurosis_tpu_torch fit) on configs/sdxl/sdxl.example.yaml as
-written, on its bf16-mixed copy and on configs/vae/vae.example.yaml.
+encoder and decoder, the SDXL train step from 1024 px images, SDXL CFG
+sampling at 1024 px and its fp32 decode, the flash-overlap tool, and the
+entry point: python -m neurosis_tpu_torch fit on
+configs/sdxl/sdxl.example.yaml as written, on its bf16-mixed copy (also with
+an image logger) and on configs/vae/vae.example.yaml (also with an image
+logger), and python -m neurosis_tpu_torch predict on sdxl.example.yaml.
 
 Phases, each fatal on failure:
   1. environment: Python, torch and CUDA versions, the card's name and power limit;
@@ -63,7 +65,25 @@ Phases, each fatal on failure:
      fast_dev_run false and max_steps 4 (phase 9's launches x 4), and of the
      same copy for 2 steps under torch.profiler; fit of vae.example.yaml as
      written (fp32, one generator step). Each run's losses are finite, its
-     metrics.jsonl has a line a step with the host step and data ms.
+     metrics.jsonl has a line a step with the host step and data ms;
+ 12. sample (right after phase 9, on its engine): first a small SDXL-layout
+     engine samples 4 CFG steps on the card and on the CPU from one noise
+     tensor (latents within 2e-2 of their largest value, bf16 UNet) and its
+     fp32 decode of the same latents agrees within 1e-3; then bench.py's
+     sample mode on the port: EulerEDMSampler, 30 steps, VanillaCFG(7), 1 and
+     4 images of 1024 px, each a warm call, a timed call (seconds an image,
+     images a minute; launches per UNet call held to sdxl_unet_call), the
+     fp32 decode timed, one sampler step profiled inside the span
+     neurosis/sample_step, the whole call and the decode profiled (busy
+     share), peak memory;
+ 13. cli sampling, in chiprun_out/cli/ after phase 11: predict of
+     sdxl.example.yaml as written (fp32 UNet, CFG 7.5) with
+     trainer.allow_random_weights added, two prompts, 4 steps, 1024 px; fit
+     of the bf16-mixed copy for 2 steps with an image_logger: node (every 2
+     steps and the first, 2 images, 4 sampler steps); fit of
+     vae.example.yaml with one, 1 step. The image logger's launches are read
+     apart from the steps' and held to their own tables, each PNG is read
+     back (names, sizes, not flat), every decode and reconstruction finite.
 Then one JSON line of kernels, the nvidia-smi line and, last, the result line.
 Everything measured also goes to chiprun_out/chip_smoke.json.
 
@@ -187,6 +207,59 @@ CLI_IMAGE_SIZES = [(1024, 1024), (1088, 1024), (1024, 1088), (1152, 1040), (1040
                    (1280, 1216), (1216, 1280)]
 CLI_DIR = Path("chiprun_out") / "cli"
 
+
+# Sampling (phases 12-13): one call of the SDXL UNet at CFG's doubled batch n
+# (two per image), forward only and without grad, so nothing is recomputed:
+# each of the 70 transformer blocks' self and cross attention once (half a
+# train step's forwards), the fused convs of SDXL_GN_CONV_SHAPES once each and
+# the upsample conv into 64x64. The fp32 UNet of sdxl.example.yaml as written
+# takes the same rows in the fp32 kernel and no conv kernel.
+def sdxl_unet_call(n: int) -> tuple[dict, dict, dict]:
+    """(flash, conv3x3, gn_silu_conv3x3) launches of one SDXL UNet forward at batch n."""
+    flash = {(n,) + sh[1:]: fwd // 2 for sh, (fwd, _bwd) in SDXL_FLASH_SHAPES.items()}
+    conv = {(n, 64, 64, 1280, 1280): 1}
+    gn = {(n,) + sh[1:]: k for sh, k in SDXL_GN_CONV_SHAPES.items()}
+    return flash, conv, gn
+
+
+def scaled(table: dict, k: int) -> dict:
+    return {sh: n * k for sh, n in table.items()}
+
+
+SAMPLE_BATCHES = (1, 4)  # images a call of phase 12 (bench.py's sample mode, batch 1 and NEUROSIS_BENCH_BATCH=4)
+SAMPLE_STEPS = 30
+SAMPLE_CFG = 7.0
+# the fp32 decode of b images at 1024 px: the decoder's mid attention over 128x128 latents
+DECODE_F32_SHAPE = (1, 16384, 16384, 512)
+# phase 13: predict of sdxl.example.yaml as written, 2 prompts (UNet batch 4, fp32), 4 steps, one decode of 2
+PREDICT_PROMPTS = ("a photograph of an astronaut riding a horse", "a red fox in fresh snow, soft light")
+PREDICT_STEPS = 4
+# one image-logger call in the bf16 copy's fit: 2 images encoded (fp32), 4 CFG steps at UNet
+# batch 4, the reconstructions and the samples decoded (fp32)
+LOGGER_IMAGES, LOGGER_STEPS = 2, 4
+# one image-logger call in vae.example.yaml's fit: the fp32 reconstruction of 2 images,
+# its mid attention (32x32 latents) in the encoder and the decoder
+CLI_VAE_LOGGER_F32_FLASH_SHAPES = {(2, 1, 1024, 1024, 512): 2}
+FORWARD_ONLY = ("sdxl_sample1", "sdxl_sample4", "sdxl_decode1", "sdxl_decode4", "cli_predict", "cli_logger",
+                "cli_vae_logger")
+
+
+def sampling_tables() -> dict:
+    """{path: (bf16 flash, fp32 flash, conv3x3, gn_silu_conv3x3)} launches per
+    unit of each sampling path: sdxl_sample<b> one UNet call for b images,
+    sdxl_decode<b> one decode of b images, cli_predict one predict run,
+    cli_logger and cli_vae_logger one image-logger call."""
+    out = {}
+    for b in SAMPLE_BATCHES:
+        out[f"sdxl_sample{b}"] = (*sdxl_unet_call(2 * b)[:1], {}, *sdxl_unet_call(2 * b)[1:])
+        out[f"sdxl_decode{b}"] = ({}, {(b,) + DECODE_F32_SHAPE: 1}, {}, {})
+    flash32 = scaled(sdxl_unet_call(2 * len(PREDICT_PROMPTS))[0], PREDICT_STEPS)
+    out["cli_predict"] = ({}, {**flash32, (len(PREDICT_PROMPTS),) + DECODE_F32_SHAPE: 1}, {}, {})
+    flash, conv, gn = (scaled(t, LOGGER_STEPS) for t in sdxl_unet_call(2 * LOGGER_IMAGES))
+    out["cli_logger"] = (flash, {(LOGGER_IMAGES,) + DECODE_F32_SHAPE: 3}, conv, gn)  # encode, two decodes
+    out["cli_vae_logger"] = ({}, dict(CLI_VAE_LOGGER_F32_FLASH_SHAPES), {}, {})
+    return out
+
 # path -> (its key in the report, the unit its launch tables count)
 PATHS = {"sd15": ("slice", "SD1.5 train step"),
          "sd15_f32": ("sd15_f32", "SD1.5 train step, fp32 UNet (sd15.example.yaml as written, 256 px, batch 1)"),
@@ -196,7 +269,16 @@ PATHS = {"sd15": ("slice", "SD1.5 train step"),
          "cli_sdxl_f32": ("cli_sdxl_f32", "SDXL train step of sdxl.example.yaml as written (fp32 UNet) through "
                                           "python -m neurosis_tpu_torch fit"),
          "cli_sdxl_bf16": ("cli_sdxl_bf16", "SDXL train step of its bf16-mixed copy through the CLI"),
-         "cli_vae": ("cli_vae", "generator step of vae.example.yaml as written (fp32) through the CLI")}
+         "cli_vae": ("cli_vae", "generator step of vae.example.yaml as written (fp32) through the CLI"),
+         **{f"sdxl_sample{b}": (f"sdxl_sample{b}", f"one SDXL UNet call of CFG sampling, {b} image(s) at 1024 px "
+                                                   f"(UNet batch {2 * b})") for b in SAMPLE_BATCHES},
+         **{f"sdxl_decode{b}": (f"sdxl_decode{b}", f"the fp32 decode of {b} image(s) at 1024 px")
+            for b in SAMPLE_BATCHES},
+         "cli_predict": ("cli_predict", "python -m neurosis_tpu_torch predict of sdxl.example.yaml as written "
+                                        "(fp32 UNet, CFG 7.5), 2 prompts, 4 steps, 1024 px"),
+         "cli_logger": ("cli_logger", "one image-logger call of the bf16-mixed copy's fit (2 images: encode, 4 "
+                                      "CFG steps, two decodes)"),
+         "cli_vae_logger": ("cli_vae_logger", "one image-logger call of vae.example.yaml's fit (2 images)")}
 # a path whose shape tables are another's (the same step, reached another way)
 TABLES_OF = {"cli_sdxl_bf16": "sdxl"}
 
@@ -341,7 +423,9 @@ def flash_tables(torch) -> list:
            [(path, sh, n, f32) for path, table in UNDRIVEN_F32_FLASH_SHAPES.items() if path != "sdxl_f32"
             for sh, n in table.items()] + \
            [("cli_sdxl_f32", sh, n, f32) for sh, n in CLI_SDXL_F32_FLASH_SHAPES.items()] + \
-           [("cli_vae", sh, n, f32) for sh, n in CLI_VAE_F32_FLASH_SHAPES.items()]
+           [("cli_vae", sh, n, f32) for sh, n in CLI_VAE_F32_FLASH_SHAPES.items()] + \
+           [(path, sh, (n, 0), dtype) for path, tables in sampling_tables().items()
+            for dtype, table in zip((bf16, f32), tables[:2]) for sh, n in table.items()]
 
 
 def check_flash(torch, log: list) -> dict:
@@ -355,9 +439,13 @@ def check_flash(torch, log: list) -> dict:
 
     rows = {"flash_fwd": [], "flash_bwd": [], "flash_fwd_f32": [], "flash_bwd_f32": []}
     f32 = torch.float32
+    forwards = {}  # (shape, dtype) -> its forward row: a forward-only row of another path reuses it
     for path, shape, (n_fwd, n_bwd), dtype in flash_tables(torch):
         is_f32 = dtype == f32
         name, bwd_name = ("flash_fwd_f32", "flash_bwd_f32") if is_f32 else ("flash_fwd", "flash_bwd")
+        if not n_bwd and (shape, dtype) in forwards:
+            rows[name].append(dict(forwards[shape, dtype], path=path, per_step=n_fwd))
+            continue
         fwd = fa.flash_fwd_f32 if is_f32 else fa.flash_fwd
         bwd = fa.flash_bwd_f32 if is_f32 else fa.flash_bwd
         peak = PEAK_TF32_FLOPS / 3 if is_f32 else PEAK_BF16_FLOPS  # split TF32 or bf16 tensor cores
@@ -390,7 +478,8 @@ def check_flash(torch, log: list) -> dict:
             plain_ms=time_ms(torch, lambda: fa.flash_fwd_plain(qs, k, v), iters=3, warmup=1),
             library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v)),
             bound_ms=t, bound_by=by, **extra))
-        if not n_bwd:  # a forward-only shape: a frozen encode, the overlap tool's base cases
+        forwards[shape, dtype] = rows[name][-1]
+        if not n_bwd:  # a forward-only shape: a frozen encode, a decode, sampling, the overlap tool's base cases
             del q, k, v, do, qs, o, o_ref
             torch.cuda.empty_cache()
             continue
@@ -473,10 +562,16 @@ def check_conv(torch, log: list) -> dict:
     from neurosis_tpu_torch.ops import conv3x3 as cv
 
     rows = {"conv3x3": [], "gn_silu_conv3x3": []}
+    sampling = sampling_tables()
     tables = [("sd15", sh, n) for sh, n in CONV_SHAPES.items()] + \
              [("vae_gan", sh, n) for sh, n in VAE_CONV_SHAPES.items()] + \
-             [("sdxl", sh, n) for sh, n in SDXL_CONV_SHAPES.items()]
+             [("sdxl", sh, n) for sh, n in SDXL_CONV_SHAPES.items()] + \
+             [(path, sh, (n, 0)) for path, t in sampling.items() for sh, n in t[2].items()]
+    measured = {}  # (kind, shape) -> its row: another path's row at that shape reuses it
     for path, shape, (n_fwd, n_dgrad) in tables:
+        if not n_dgrad and ("fwd", shape) in measured:
+            rows["conv3x3"].append(dict(measured["fwd", shape], path=path, per_step=n_fwd))
+            continue
         b, hh, ww, c, f = shape
         g = torch.Generator("cuda").manual_seed(sum(shape))
         x = torch.randn(b, hh, ww, c, generator=g, device="cuda").bfloat16()
@@ -487,7 +582,7 @@ def check_conv(torch, log: list) -> dict:
         for kind, n, inp, filt, lib_w, (ci, fo) in (
             ("fwd", n_fwd, x, w_k, w, (c, f)),
             ("dgrad", n_dgrad, dy, w_flip, w_flip.permute(3, 2, 0, 1), (f, c)),
-        ):
+        )[: 2 if n_dgrad else 1]:
             tag = f"{kind} {b}x{hh}x{ww}x{ci}->{fo}"
             out = cv.conv3x3_nhwc(inp, filt)
             err, rel = rel_err(out, cv.conv3x3_plain(inp, filt))
@@ -500,11 +595,16 @@ def check_conv(torch, log: list) -> dict:
                 plain_ms=time_ms(torch, lambda: cv.conv3x3_plain(inp, filt), iters=3, warmup=1),
                 library_ms=time_ms(torch, lambda: F.conv2d(inp_nchw, lib_w, padding=1)),
                 bound_ms=t, bound_by=by))
+            measured[kind, shape] = rows["conv3x3"][-1]
 
     gn_tables = [("sd15", sh, n) for sh, n in GN_CONV_SHAPES.items()] + \
                 [("vae_gan", sh, n) for sh, n in VAE_GN_CONV_SHAPES.items()] + \
-                [("sdxl", sh, n) for sh, n in SDXL_GN_CONV_SHAPES.items()]
+                [("sdxl", sh, n) for sh, n in SDXL_GN_CONV_SHAPES.items()] + \
+                [(path, sh, n) for path, t in sampling.items() for sh, n in t[3].items()]
     for path, shape, n in gn_tables:
+        if ("gn", shape) in measured:
+            rows["gn_silu_conv3x3"].append(dict(measured["gn", shape], path=path, per_step=n))
+            continue
         b, hh, ww, c, f = shape
         g = torch.Generator("cuda").manual_seed(sum(shape) + 7)
         x = torch.randn(b, hh, ww, c, generator=g, device="cuda").bfloat16()
@@ -517,17 +617,20 @@ def check_conv(torch, log: list) -> dict:
         out = cv.gn_silu_conv3x3_nhwc(x, a, bb, w_k)
         err, rel = rel_err(out, cv.gn_silu_conv3x3_plain(x, a, bb, w_k))
         check(f"gn_silu_conv3x3 {tag}", rel, TOL["gn_silu_conv3x3"], log, err)
-        got = cv.gn_silu_conv3x3_bwd(x, a, bb, w, dy)
-        want = cv.gn_silu_conv3x3_bwd(x, a, bb, w, dy, conv=cv.conv3x3_plain)
-        for gname, gk, gp in zip(("dx", "da", "db", "dw"), got, want):
-            e, r = rel_err(gk, gp)
-            check(f"gn_silu_conv3x3 bwd {b}x{hh}x{ww}x{c}->{f} {gname}", r, TOL["gn_silu_conv3x3_bwd"], log, e)
+        got = want = None
+        if path not in FORWARD_ONLY:  # a training path also takes the fused pair's backward
+            got = cv.gn_silu_conv3x3_bwd(x, a, bb, w, dy)
+            want = cv.gn_silu_conv3x3_bwd(x, a, bb, w, dy, conv=cv.conv3x3_plain)
+            for gname, gk, gp in zip(("dx", "da", "db", "dw"), got, want):
+                e, r = rel_err(gk, gp)
+                check(f"gn_silu_conv3x3 bwd {b}x{hh}x{ww}x{c}->{f} {gname}", r, TOL["gn_silu_conv3x3_bwd"], log, e)
         t, by = bound_ms(2.0 * 9 * b * hh * ww * c * f, 2 * (b * hh * ww * (c + f) + 9 * c * f) + 8 * b * c)
         rows["gn_silu_conv3x3"].append(dict(
             path=path, shape=tag, per_step=n, max_abs_err=err, rel_err=rel,
             ms=time_ms(torch, lambda: cv.gn_silu_conv3x3_nhwc(x, a, bb, w_k)),
             plain_ms=time_ms(torch, lambda: cv.gn_silu_conv3x3_plain(x, a, bb, w_k), iters=3, warmup=1),
             library_ms=None, bound_ms=t, bound_by=by))
+        measured["gn", shape] = rows["gn_silu_conv3x3"][-1]
         del x, dy, w, w_k, got, want
         torch.cuda.empty_cache()
     return rows
@@ -950,6 +1053,7 @@ def run_slice(torch, rows: dict, path: str = "sd15", steps: int = 3) -> dict:
     out = dict(steps=step_rows, launches=launches, per_step=totals, peak_bytes=peak, unet_params=n_unet,
                embedder_params=n_cond, vae_params=n_vae, profile=profile, encode_profile=encode)
     if sdxl:
+        out["engine"] = engine  # phase 12 samples with it
         with torch.no_grad():
             ids = batch["caption_ids"]
             out["clip_l_profile"] = profile_fn(torch, lambda: engine.conditioner.embedders[0](ids), "SDXL CLIP-L tower",
@@ -1102,13 +1206,16 @@ def step_profiles(torch, prof, span: str) -> list:
     return out
 
 
-def run_cli(torch, rows: dict, config: Path, label: str, path: str, steps: int, profiled: bool) -> dict:
+def run_cli(torch, rows: dict, config: Path, label: str, path: str, steps: int, profiled: bool,
+            logger: tuple = None) -> dict:
     """``python -m neurosis_tpu_torch fit -c config`` in this process (its
     main()), from the working directory (CLI_DIR) and a fresh projects/ there: rc 0, a finite
     loss on each of ``steps`` lines of metrics.jsonl, and every kernel's
     launches equal to ``steps`` x the path's tables; with ``profiled`` the
     run is inside one torch.profiler window, which gives each step's device
-    time."""
+    time. With ``logger`` = (its path, calls), the launches inside the image
+    logger's calls are read apart and held to that path's tables x calls; a
+    call that raises fails the run (the logger itself would log and go on)."""
     import gc
     import shutil
 
@@ -1116,6 +1223,7 @@ def run_cli(torch, rows: dict, config: Path, label: str, path: str, steps: int, 
 
     from neurosis_tpu_torch import ops
     from neurosis_tpu_torch.trainer import cli
+    from neurosis_tpu_torch.trainer.callbacks import ImageLogger
     from neurosis_tpu_torch.trainer.loop import STEP_SPAN
 
     shutil.rmtree("projects", ignore_errors=True)
@@ -1123,17 +1231,36 @@ def run_cli(torch, rows: dict, config: Path, label: str, path: str, steps: int, 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
+    logged, calls, inner = dict.fromkeys(ops.launch_counts(), 0), [], ImageLogger._log_images
+
+    def counted(self, *args, **kwargs):
+        before = ops.launch_counts()
+        try:
+            result = inner(self, *args, **kwargs)
+            calls.append("ok")
+            return result
+        except Exception as e:
+            calls.append(repr(e))
+            raise
+        finally:
+            for k, n in ops.launch_counts().items():
+                logged[k] += n - before[k]
+
+    ImageLogger._log_images = counted
     t0 = time.perf_counter()
     argv = ["fit", "-c", str(config)]
-    if profiled:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    try:
+        if profiled:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                rc = cli.main(argv)
+                torch.cuda.synchronize()
+        else:
             rc = cli.main(argv)
             torch.cuda.synchronize()
-    else:
-        rc = cli.main(argv)
-        torch.cuda.synchronize()
+    finally:
+        ImageLogger._log_images = inner
     seconds = time.perf_counter() - t0
-    launches = ops.launch_counts()
+    launches = {k: n - logged[k] for k, n in ops.launch_counts().items()}
     peak = torch.cuda.max_memory_allocated()
     if rc != 0:
         raise PhaseError(f"{label}: main() returned {rc}")
@@ -1149,6 +1276,14 @@ def run_cli(torch, rows: dict, config: Path, label: str, path: str, steps: int, 
     print(f"{label}: {seconds:.1f} s in main(), peak device memory {peak} bytes ({peak / 2**30:.2f} GiB)", flush=True)
     check_launches(launches, step_totals(rows, path), steps, label)
     out = dict(metrics=lines, launches=launches, peak_bytes=peak, seconds=seconds)
+    if logger is not None:
+        logger_path, n_calls = logger
+        if calls != ["ok"] * n_calls:
+            raise PhaseError(f"{label}: the image logger's calls ended {calls}, not {n_calls} x ok")
+        check_launches(logged, step_totals(rows, logger_path), n_calls, f"{label}: image-logger call")
+        out.update(logger_launches=logged, images=Path("projects/images/train"))
+    elif any(logged.values()) or calls:
+        raise PhaseError(f"{label}: an image logger ran in a run without one: {calls}")
     if profiled:
         out["profiles"] = step_profiles(torch, prof, STEP_SPAN)
         for i, p in enumerate(out["profiles"]):
@@ -1213,6 +1348,290 @@ def run_cli_phase(torch, rows: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 12 and 13: sampling
+# ---------------------------------------------------------------------------
+
+SAMPLE_SPAN = "neurosis/sample_step"
+
+
+def make_sampler(num_steps: int, scale: float):
+    """EulerEDMSampler over LegacyDDPM with VanillaCFG(scale), as the configs name it."""
+    from neurosis_tpu_torch.diffusion.discretization import LegacyDDPMDiscretization
+    from neurosis_tpu_torch.sampling.guidance import VanillaCFG
+    from neurosis_tpu_torch.sampling.samplers import EulerEDMSampler
+
+    return EulerEDMSampler(discretization=LegacyDDPMDiscretization(), guider=VanillaCFG(scale), num_steps=num_steps)
+
+
+def prompt_batch(torch, device, images: int, seed: int, px: int = 1024) -> dict:
+    """Token ids of ``images`` prompts, the empty prompt's ids as uncond_ids,
+    and SDXL's size conditionings of an uncropped px x px image (as predict
+    sets them)."""
+    batch = {"caption_ids": make_batch(torch, device, images, 8, seed)["caption_ids"]}
+    uncond = torch.full((1, 77), 49407)
+    uncond[0, 0] = 49406  # BOS, then EOS and its padding
+    batch["uncond_ids"] = uncond.to(device)
+    batch["original_size_as_tuple"] = torch.full((images, 2), float(px), device=device)
+    batch["crop_coords_top_left"] = torch.zeros(images, 2, device=device)
+    batch["target_size_as_tuple"] = torch.full((images, 2), float(px), device=device)
+    return batch
+
+
+def reference_sample(torch, log: list) -> dict:
+    """Four CFG Euler steps of a small SDXL-layout engine (bf16 UNet, two text
+    towers, size embedders) on the card against the same on the CPU, from
+    one noise tensor; then the CPU's latents decoded by its small fp32 first
+    stage on both (the fp32 flash forward at d=512 over 1024 tokens)."""
+    from neurosis_tpu_torch import ops
+
+    dd = dict(SMALL_VAE, double_z=True, in_channels=3, out_ch=3)
+    engines = {}
+    for dev in ("cpu", "cuda"):
+        engines[dev] = make_engine(torch, dev, 1, SMALL_SDXL_UNET, SMALL_CLIP, use_ema=False, bigg=SMALL_BIGG,
+                                   size_outdim=32, vae=dd)
+        engines[dev].sampler = make_sampler(4, SAMPLE_CFG)
+    g = torch.Generator("cpu").manual_seed(2)
+    with torch.no_grad():
+        for p in engines["cpu"].model.parameters():  # zero-init output layers included
+            p.add_(0.02 * torch.randn(p.shape, generator=g))
+        for name in ("model", "conditioner", "first_stage"):
+            getattr(engines["cuda"], name).load_state_dict(getattr(engines["cpu"], name).state_dict())
+    batch = prompt_batch(torch, "cpu", 2, 3, px=256)
+    noise = torch.randn(2, 32, 32, 4, generator=torch.Generator("cpu").manual_seed(4))
+    latents = {}
+    before = ops.launch_counts()
+    for dev, eng in engines.items():
+        with torch.no_grad():
+            c, uc = eng.conditioner.get_unconditional_conditioning({k: v.to(dev) for k, v in batch.items()})
+        latents[dev] = eng.sample(c, uc, noise.shape, noise=noise.to(dev)).cpu()
+    launched = {k: ops.launch_counts()[k] - before[k] for k in before}
+    print(f"small SDXL sample launches: {launched}", flush=True)
+    missing = [k for k in ("flash_fwd", "gn_silu_conv3x3") if not launched[k]]
+    if missing or launched["flash_bwd"]:
+        raise PhaseError(f"the small SDXL sample did not launch {missing} (or ran a backward): {launched}")
+    err, rel = rel_err(latents["cuda"], latents["cpu"])
+    # bf16 UNet on both sides: the kernels round where the plain versions do, sums in another order
+    check("small SDXL sample, 4 CFG steps, latents (cuda vs cpu)", rel, 2e-2, log, err)
+    before = ops.launch_counts()["flash_fwd_f32"]
+    images = {dev: eng.decode_first_stage(latents["cpu"].to(dev)).cpu() for dev, eng in engines.items()}
+    if ops.launch_counts()["flash_fwd_f32"] - before != 1:
+        raise PhaseError("the small decode did not launch flash_fwd_f32 once")
+    d_err, d_rel = rel_err(images["cuda"], images["cpu"])
+    # fp32 on both sides with TF32 off: sums in another order through ~20 layers
+    check("small fp32 decode of the same latents (cuda vs cpu)", d_rel, 1e-3, log, d_err)
+    return dict(latents_max_abs_err=err, latents_rel_err=rel, decode_max_abs_err=d_err, decode_rel_err=d_rel,
+                launches=launched)
+
+
+def run_sample(torch, rows: dict, engine) -> dict:
+    """Phase 12: bench.py's sample mode on the port's SDXL engine of phase 9
+    (bf16 UNet, fp32 towers and VAE): EulerEDMSampler, 30 steps, CFG 7, at
+    each of SAMPLE_BATCHES images of 1024 px. A warm 2-step call, then one
+    timed call (its launches per UNet call held to the tables), the fp32
+    decode timed (its launches too), one sampler step profiled inside a
+    SAMPLE_SPAN span, the whole call and the decode profiled."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from neurosis_tpu_torch import ops
+
+    for p in engine.trainable_parameters():
+        p.grad = None  # phase 9's last grads
+    engine.sampler = make_sampler(SAMPLE_STEPS, SAMPLE_CFG)
+    out = {}
+    for b in SAMPLE_BATCHES:
+        label = f"SDXL sampling, {b} image(s)"
+        batch = prompt_batch(torch, "cuda", b, 20 + b)
+        with torch.no_grad():
+            c, uc = engine.conditioner.get_unconditional_conditioning(batch)
+        shape = (b, 128, 128, 4)
+        g = torch.Generator("cuda")
+
+        def sample(num_steps=None):
+            return engine.sample(c, uc, shape, num_steps=num_steps, generator=g.manual_seed(b))
+
+        sample(2)  # warm: the allocator and the library's algorithm choices at this batch
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        latents = sample()
+        torch.cuda.synchronize()
+        sample_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        check_launches(launches, step_totals(rows, f"sdxl_sample{b}"), SAMPLE_STEPS, f"{label}: UNet call")
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        images = engine.decode_first_stage(latents)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        decode_launches = ops.launch_counts()
+        check_launches(decode_launches, step_totals(rows, f"sdxl_decode{b}"), 1, f"{label}: decode")
+        peak = torch.cuda.max_memory_allocated()
+        for what, x, want in (("latents", latents, shape), ("images", images, (b, 1024, 1024, 3))):
+            if tuple(x.shape) != want or not bool(torch.isfinite(x).all()):
+                raise PhaseError(f"{label}: {what} {tuple(x.shape)}, not {want}, finite: {bool(torch.isfinite(x).all())}")
+        print(f"{label}: sampler {sample_s:.3f} s ({sample_s / b:.3f} s an image, {60 * b / sample_s:.2f} images a "
+              f"minute), decode {decode_s * 1e3:.1f} ms, with the decode {(sample_s + decode_s) / b:.3f} s an image; "
+              f"peak device memory {peak} bytes ({peak / 2**30:.2f} GiB); images mean {float(images.mean()):.4f} "
+              f"std {float(images.std()):.4f}", flush=True)
+        del images
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with record_function(SAMPLE_SPAN):
+                sample(1)
+                torch.cuda.synchronize()
+        step = step_profiles(torch, prof, SAMPLE_SPAN)[0]
+        del prof
+        if step["device_ms"] is None:
+            print(f"{label}: the profiler recorded no device kernels in the step: device time not measured", flush=True)
+        else:
+            kinds = ", ".join(f"{k} {ms:.3f}" for k, ms in sorted(step["kinds_ms"].items(), key=lambda kv: -kv[1]))
+            print(f"{label}: one sampler step (one UNet call at batch {2 * b}), device busy {step['device_ms']:.3f} "
+                  f"ms in {step['launches']} kernels; by kind: {kinds}", flush=True)
+        t0 = time.perf_counter()
+        whole = profile_fn(torch, sample, f"{label}, whole call ({SAMPLE_STEPS} steps)", sample_s * 1e3, top=8,
+                           host=False)
+        print(f"{label}: the whole call's profile took {time.perf_counter() - t0:.1f} s", flush=True)
+        decode = profile_fn(torch, lambda: engine.decode_first_stage(latents), f"{label}, decode", decode_s * 1e3,
+                            top=8)
+        out[f"sdxl_sample{b}"] = dict(launches=launches, seconds=sample_s, s_per_image=sample_s / b,
+                                      images_per_min=60 * b / sample_s, peak_bytes=peak, step_profile=step,
+                                      profile=whole)
+        out[f"sdxl_decode{b}"] = dict(launches=decode_launches, ms=decode_s * 1e3, profile=decode)
+        del latents
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_cli_sampling(torch, rows: dict) -> dict:
+    """Phase 13, in CLI_DIR after phase 11 (its image folder): predict of
+    sdxl.example.yaml as written with trainer.allow_random_weights added;
+    fit of its bf16-mixed copy for 2 steps with an image_logger: node (every
+    2 steps, the first step too, 2 images, 4 sampler steps); fit of
+    vae.example.yaml with one, 1 step. Every PNG is read back with the
+    port's reader; every decode and reconstruction must be finite."""
+    import os
+
+    from neurosis_tpu_torch.trainer.engine import DiffusionEngine
+    from neurosis_tpu_torch.trainer.vae_engine import AutoencodingEngine
+
+    repo = Path.cwd().resolve()
+    sdxl, vae = repo / "configs/sdxl/sdxl.example.yaml", repo / "configs/vae/vae.example.yaml"
+    written = "  fast_dev_run: true  # disable to actually train\n"
+    text = sdxl.read_text()
+    predict_cfg = (CLI_DIR / "sdxl-predict.yaml").resolve()
+    predict_cfg.write_text(text.replace(written, written + "  allow_random_weights: true\n"))
+    node = ("\nimage_logger:\n  every_n_train_steps: 2\n  max_images: {n}\n  log_first_step: true\n"
+            "  log_func_kwargs:\n    num_steps: {steps}\n")
+    logger_cfg = (CLI_DIR / "sdxl-bf16-image-logger.yaml").resolve()
+    logger_cfg.write_text(text.replace(written, "  fast_dev_run: false\n  max_steps: 2\n  precision: bf16-mixed\n")
+                          + node.format(n=LOGGER_IMAGES, steps=LOGGER_STEPS))
+    vae_cfg = (CLI_DIR / "vae-image-logger.yaml").resolve()
+    vae_cfg.write_text(vae.read_text() + node.format(n=2, steps=LOGGER_STEPS))
+
+    not_finite = []
+    originals = DiffusionEngine.decode_first_stage, AutoencodingEngine.forward
+
+    def decode(self, z):
+        x = originals[0](self, z)
+        if not bool(torch.isfinite(x).all()):
+            not_finite.append(f"decode {tuple(x.shape)}")
+        return x
+
+    def forward(self, *args, **kwargs):
+        z, recons, reg = originals[1](self, *args, **kwargs)
+        if not bool(torch.isfinite(recons).all()):
+            not_finite.append(f"reconstruction {tuple(recons.shape)}")
+        return z, recons, reg
+
+    out = {}
+    cwd, hash_env = os.getcwd(), os.environ.get("NEUROSIS_ALLOW_HASH_TOKENIZER")
+    os.chdir(CLI_DIR)
+    DiffusionEngine.decode_first_stage, AutoencodingEngine.forward = decode, forward
+    try:
+        os.environ["NEUROSIS_ALLOW_HASH_TOKENIZER"] = "1"
+        out["cli_predict"] = run_predict(torch, rows, predict_cfg)
+        run = run_cli(torch, rows, logger_cfg, "CLI fit sdxl bf16-mixed with an image logger", "cli_sdxl_bf16", 2,
+                      profiled=False, logger=("cli_logger", 2))
+        check_pngs(run["images"], {f"gs{s:06d}_e0000_b{s:06d}_{k}_{i:02d}.png": (1024, 1024, 3)
+                                   for s in (1, 2) for k in ("conditioning", "inputs", "reconstructions", "samples")
+                                   for i in range(LOGGER_IMAGES)},
+                   [f"gs{s:06d}_e0000_b{s:06d}_samples_grid.png" for s in (1, 2)], "the SDXL image logger")
+        out["cli_sdxl_bf16_image_logger"], out["cli_logger"] = run, dict(launches=run.pop("logger_launches"))
+        run = run_cli(torch, rows, vae_cfg, "CLI fit vae.example.yaml with an image logger", "cli_vae", 1,
+                      profiled=False, logger=("cli_vae_logger", 1))
+        check_pngs(run["images"], {**{f"gs000001_e0000_b000001_{k}_{i:02d}.png": (256, 256, 3)
+                                      for k in ("inputs", "reconstructions", "diff", "diff_boost") for i in (0, 1)},
+                                   **{f"gs000001_e0000_b000001_{k}_00.png": (2 * 256 + 24, 2 * 256, 3)
+                                      for k in ("vis_logits", "vis_logits_blended")}}, [], "the VAE image logger")
+        out["cli_vae_image_logger"], out["cli_vae_logger"] = run, dict(launches=run.pop("logger_launches"))
+    finally:
+        DiffusionEngine.decode_first_stage, AutoencodingEngine.forward = originals
+        os.chdir(cwd)
+        if hash_env is None:
+            os.environ.pop("NEUROSIS_ALLOW_HASH_TOKENIZER", None)
+        else:
+            os.environ["NEUROSIS_ALLOW_HASH_TOKENIZER"] = hash_env
+    if not_finite:
+        raise PhaseError(f"phase 13 made non-finite images: {not_finite}")
+    return out
+
+
+def check_pngs(folder: Path, sized: dict, grids: list, label: str) -> None:
+    """``folder`` holds exactly the PNGs ``sized`` ({name: shape}) and
+    ``grids`` names; each reads back as RGB at its shape (a grid: wider and
+    taller than one image) and is not one flat colour."""
+    from neurosis_tpu_torch.data.png import read_png
+
+    names = sorted(p.name for p in folder.iterdir())
+    if names != sorted([*sized, *grids]):
+        raise PhaseError(f"{label} wrote {names}, not {sorted([*sized, *grids])}")
+    for name in names:
+        px, mode, _ = read_png(folder / name)
+        want = sized.get(name)
+        ok = mode == "RGB" and (tuple(px.shape) == want if want else px.shape[0] > 1024 and px.shape[1] > 1024)
+        if not ok or int(px.max()) == int(px.min()):
+            raise PhaseError(f"{label}: {name} is {mode} {px.shape} in [{px.min()}, {px.max()}], not {want or 'a grid'}")
+    print(f"{label}: {len(names)} PNGs read back ({', '.join(names[:3])}, ...)", flush=True)
+
+
+def run_predict(torch, rows: dict, config: Path) -> dict:
+    """python -m neurosis_tpu_torch predict -c config in this process (its
+    main()): PREDICT_PROMPTS, PREDICT_STEPS steps, 1024 px, into predict/;
+    its launches held to the tables, its PNGs read back."""
+    import gc
+    import shutil
+
+    from neurosis_tpu_torch import ops
+    from neurosis_tpu_torch.trainer import cli
+
+    for folder in ("projects", "predict"):
+        shutil.rmtree(folder, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    argv = ["predict", "-c", str(config), "--steps", str(PREDICT_STEPS), "--size", "1024", "--out", "predict"]
+    for prompt in PREDICT_PROMPTS:
+        argv += ["--prompt", prompt]
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if rc != 0:
+        raise PhaseError(f"CLI predict: main() returned {rc}")
+    print(f"CLI predict of sdxl.example.yaml (fp32 UNet), {len(PREDICT_PROMPTS)} prompts, {PREDICT_STEPS} steps: "
+          f"{seconds:.1f} s in main() (the engine's build included), peak device memory {peak} bytes "
+          f"({peak / 2**30:.2f} GiB)", flush=True)
+    check_launches(launches, step_totals(rows, "cli_predict"), 1, "CLI predict")
+    check_pngs(Path("predict"), {f"sample_{i:03d}.png": (1024, 1024, 3) for i in range(len(PREDICT_PROMPTS))},
+               ["grid.png"], "CLI predict")
+    return dict(launches=launches, seconds=seconds, peak_bytes=peak)
+
+
 def kernel_kind(name: str) -> str:
     """Which layer a device kernel belongs to, by its name."""
     low = name.lower()
@@ -1227,13 +1646,16 @@ def kernel_kind(name: str) -> str:
     return "other (elementwise, norms, reductions, optimizer)"
 
 
-def profile_fn(torch, fn, label: str, step_ms, top: int = 15) -> dict:
+def profile_fn(torch, fn, label: str, step_ms, top: int = 15, host: bool = True) -> dict:
     """``fn`` once under torch.profiler: device time by kernel and by kind,
-    and (given the median unprofiled ``step_ms``) the device's busy share."""
+    and (given the median unprofiled ``step_ms``) the device's busy share.
+    ``host=False`` traces the device alone (a long call's host events only
+    cost time here)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host else [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         fn()
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
@@ -1333,10 +1755,16 @@ def main() -> int:
         report["vae_gan_f32"] = run_vae_gan(torch, rows, "vae_gan_f32")
         torch.cuda.empty_cache()
         report["sdxl"] = run_slice(torch, rows, "sdxl")
+        sdxl_engine = report["sdxl"].pop("engine")
+        report["reference_sample"] = reference_sample(torch, log)
+        report.update(run_sample(torch, rows, sdxl_engine))
+        del sdxl_engine
         torch.cuda.empty_cache()
         report["overlap"] = run_overlap(torch, rows, log)
         torch.cuda.empty_cache()
         report.update(run_cli_phase(torch, rows))
+        torch.cuda.empty_cache()
+        report.update(run_cli_sampling(torch, rows))
         report["seconds"] = time.perf_counter() - t_start
         print(f"all phases: {report['seconds']:.1f} s", flush=True)
     except Exception as e:  # any failed phase ends the run without a result line

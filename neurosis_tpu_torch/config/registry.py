@@ -32,9 +32,11 @@ _PORTED = {
     _D + "StandardDiffusionLoss": ("diffusion.loss", "StandardDiffusionLoss"),
     _D + "sigma_sampling.DiscreteSampling": ("diffusion.sigma_generators", "DiscreteSigmaGenerator"),
     _SS + "DiscreteSigmaGenerator": ("diffusion.sigma_generators", "DiscreteSigmaGenerator"),
-    _D + "sampling.EulerEDMSampler": ("sampling.samplers", "EulerEDMSampler"),
-    "neurosis.modules.guidance.VanillaCFG": ("sampling.guidance", "VanillaCFG"),
-    "neurosis.modules.guidance.IdentityGuider": ("sampling.guidance", "IdentityGuider"),
+    **{_D + "sampling." + n: ("sampling.samplers", n) for n in (
+        "EulerEDMSampler", "HeunEDMSampler", "EulerAncestralSampler", "DPMPP2SAncestralSampler", "DPMPP2MSampler",
+        "LinearMultistepSampler")},
+    **{"neurosis.modules.guidance." + n: ("sampling.guidance", n) for n in (
+        "VanillaCFG", "IdentityGuider", "LinearPredictionGuider")},
     _ENC + "GeneralConditioner": ("modules.encoders.embedding", "GeneralConditioner"),
     "neurosis.models.text_encoder.FrozenCLIPEmbedder": ("modules.encoders.embedding", "FrozenCLIPEmbedder"),
     "neurosis.models.text_encoder.FrozenOpenCLIPEmbedder2": ("modules.encoders.embedding",
@@ -74,8 +76,6 @@ _DIFFUSION_MATH = ["Denoiser", "VPreconditioning", "VPreconditioningWithEDMcNois
                    "sigma_sampling.EDMSampling"]
 _SIGMA_GENERATORS = ["EDMSigmaGenerator", "CosineScheduleSigmaGenerator", "TanScheduleSigmaGenerator",
                      "RectifiedFlowSigmaGenerator", "RectifiedFlowComfySigmaGenerator"]
-_SAMPLERS = ["HeunEDMSampler", "EulerAncestralSampler", "DPMPP2SAncestralSampler", "DPMPP2MSampler",
-             "LinearMultistepSampler"]
 _SCHEDULERS = ["CosineWithWarmUp", "CosineWithHardRestartsAndWarmUp", "LambdaWarmUpCosineScheduler2",
                "LambdaLinearScheduler", "CosineAnnealingWarmupRestarts", "CosineDecayWithWarmup",
                "CosineWarmupSchedule", "CosineWarmupStagedSchedule", "LinearWarmupSchedule",
@@ -85,7 +85,6 @@ _NOT_PORTED.update({_D + n: "7 (the rest of the SD path's options)" for n in _DI
 _NOT_PORTED.update({_SS + n: "7 (the rest of the SD path's options)" for n in _SIGMA_GENERATORS})
 _NOT_PORTED.update({p: "7 (the rest of the SD path's options)" for p in (
     "neurosis.models.IdentityFirstStage", "neurosis.models.autoencoder.IdentityFirstStage")})
-_NOT_PORTED.update({_D + "sampling." + n: "5 (the rest of sampling)" for n in _SAMPLERS})
 _OPTIMIZERS_ITEM = "8 (sdxl-te: optimizers and schedulers)"
 _NOT_PORTED.update({p: _OPTIMIZERS_ITEM for p in (
     ["bitsandbytes.optim.AdamW8bit", "neurosis.optimizers.AdafactorScheduler", "neurosis.optimizers.CAME",

@@ -5,12 +5,15 @@ loss for the generator, a scalar for the discriminator, and a dict of 0-d
 tensors under the reference's ``train/`` log names. Only the training
 forward is ported (the discriminator in train mode, the gate on
 ``global_step``); the eval split waits for ``eval_step``.
+``AutoencoderLPIPSWithDiscr.log_images`` draws the discriminator's patch
+logits for the image logger.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -104,6 +107,43 @@ class AutoencoderLPIPSWithDiscr(nn.Module):
             return d_loss, {k: v.detach() for k, v in log.items()}
         raise ValueError(f"Unknown optimizer_idx {optimizer_idx}")
 
+    @torch.no_grad()
+    def log_images(self, inputs: torch.Tensor, recons: torch.Tensor) -> dict:
+        """Discriminator-logit grids (vae_lpips_discr.py:202-309):
+        {"vis_logits", "vis_logits_blended"}, (1, H, W, 3) numpy arrays in
+        [-1, 1]: the real and fake patch logits (real row on top) in a
+        diverging colour map, and the same over the images, each above a
+        labelled colour bar. Empty while the discriminator is off."""
+        from ..utils.image import diverging_colormap, make_grid_nhwc
+
+        if self.disc_start < 0 or self.disc_factor == 0:
+            return {}
+        inputs = inputs.float().clamp(-1.0, 1.0)
+        recons = recons.float().clamp(-1.0, 1.0)
+        lr = self.discr(inputs, False).float().cpu().numpy()  # (b, h', w', 1), running statistics
+        if lr.ndim < 4:
+            return {}  # not a patch discriminator (vae_lpips_discr.py:214-216)
+        lf = self.discr(recons, False).float().cpu().numpy()
+        high = max(float(np.abs(lr).max()), float(np.abs(lf).max()), 1e-8)
+        h, w = inputs.shape[1], inputs.shape[2]
+
+        def upsample(lg):  # nearest, to the image size (vae_lpips_discr.py:231-243)
+            reps_h, reps_w = (h + lg.shape[1] - 1) // lg.shape[1], (w + lg.shape[2] - 1) // lg.shape[2]
+            return np.repeat(np.repeat(lg, reps_h, axis=1), reps_w, axis=2)[:, :h, :w]
+
+        lr, lf = upsample(lr), upsample(lf)
+        alpha = 0.8 * np.concatenate([make_grid_nhwc(np.abs(lr) / high, 4), make_grid_nhwc(np.abs(lf) / high, 4)],
+                                     axis=0)
+        cm_r = diverging_colormap(((lr + high) / (2 * high))[..., 0])
+        cm_f = diverging_colormap(((lf + high) / (2 * high))[..., 0])
+        grid_logits = np.concatenate([make_grid_nhwc(cm_r, 4), make_grid_nhwc(cm_f, 4)], axis=0)
+        grid_images = np.concatenate([make_grid_nhwc(0.5 * inputs.cpu().numpy() + 0.5, 4),
+                                      make_grid_nhwc(0.5 * recons.cpu().numpy() + 0.5, 4)], axis=0)
+        grid_blend = alpha * grid_logits + (1 - alpha) * grid_images
+        cbar = colorbar_strip(grid_logits.shape[1], high)
+        return {"vis_logits": (2.0 * np.concatenate([grid_logits, cbar], axis=0) - 1.0)[None],
+                "vis_logits_blended": (2.0 * np.concatenate([grid_blend, cbar], axis=0) - 1.0)[None]}
+
     def r1_penalty(self, inputs: torch.Tensor) -> torch.Tensor:
         """λ·E_b[Σ (∂ mean D(x) / ∂x)²] on the real inputs (vae_lpips_discr.py:303-308),
         detached: it contributes no generator grads."""
@@ -113,3 +153,18 @@ class AutoencoderLPIPSWithDiscr(nn.Module):
             (grad,) = torch.autograd.grad(logits.mean(), x)
         dims = tuple(range(1, x.ndim))
         return (grad.square().sum(dim=dims).mean() * self.disc_lambda_r1).detach()
+
+
+def colorbar_strip(width: int, high: float, height: int = 24) -> np.ndarray:
+    """A horizontal colour bar, -high at the left and +high at the right, each
+    labelled (vae_lpips_discr.py:281-303): float HxWx3 in [0, 1]."""
+    from ..utils import font
+    from ..utils.image import diverging_colormap
+
+    ramp = diverging_colormap(np.linspace(0.0, 1.0, width))
+    strip = (np.broadcast_to(ramp[None], (height, width, 3)) * 255).astype(np.uint8)
+    size = max(10, height - 12)
+    font.draw_text(strip, (2, 2), f"{-high:.2f}", (0, 0, 0), size)
+    label = f"{high:.2f}"
+    font.draw_text(strip, (width - font.text_length(label, size) - 2, 2), label, (0, 0, 0), size)
+    return strip.astype(np.float32) / 255.0

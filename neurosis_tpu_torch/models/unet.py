@@ -147,6 +147,7 @@ class UNetModel(nn.Module):
         n_levels = len(channel_mult)
         res_blocks = [num_res_blocks] * n_levels if isinstance(num_res_blocks, int) else list(num_res_blocks)
         depth = [transformer_depth] * n_levels if isinstance(transformer_depth, int) else list(transformer_depth)
+        self.in_channels = in_channels  # the latent channels a sampler draws noise for
         self.model_channels = model_channels
         emb_dim = model_channels * 4
         layout_in, layout_mid, layout_out = _build_layout(

@@ -6,6 +6,7 @@ step (the JAX version returns a new pytree; in place saves a copy).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -37,3 +38,19 @@ def ema_update(state: EmaState, params, decay: float = 0.9999) -> EmaState:
         s.sub_((s - p.float()) * one_minus)
     state.num_updates = n
     return state
+
+
+@contextlib.contextmanager
+def ema_swapped_in(state: EmaState, params):
+    """``params`` hold the EMA shadows inside the block and their own values
+    again after it (LitEma's store, copy_to and restore)."""
+    saved = [p.detach().clone() for p in params]
+    with torch.no_grad():
+        for p, s in zip(params, state.params):
+            p.copy_(s)
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for p, s in zip(params, saved):
+                p.copy_(s)

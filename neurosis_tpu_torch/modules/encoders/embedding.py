@@ -165,3 +165,20 @@ class GeneralConditioner(nn.Module):
                 else:
                     output[out_key] = emb
         return output
+
+    def get_unconditional_conditioning(self, batch_c: dict, batch_uc: Optional[dict] = None,
+                                       force_uc_zero_embeddings: Sequence[str] = (),
+                                       force_cond_zero_embeddings: Sequence[str] = ()) -> tuple[dict, dict]:
+        """(cond, uncond) for CFG sampling (embedding.py:165-183). Without
+        ``batch_uc`` the uncond batch is ``batch_c`` with each text
+        embedder's ids replaced by ``batch_c['uncond_ids']`` broadcast to the
+        batch (the JAX package's per-key uncond ids serve the T5 embedder,
+        which is not ported); numeric inputs keep their values."""
+        c = self(batch_c, force_zero_embeddings=force_cond_zero_embeddings)
+        if batch_uc is None:
+            batch_uc = dict(batch_c)
+            for embedder in self.embedders:
+                tkey = embedder.token_key()
+                if tkey is not None and tkey in batch_uc:
+                    batch_uc[tkey] = batch_c["uncond_ids"].expand(batch_c[tkey].shape)
+        return c, self(batch_uc, force_zero_embeddings=force_uc_zero_embeddings)

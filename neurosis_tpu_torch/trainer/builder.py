@@ -125,8 +125,6 @@ def build_autoencoding_engine(model_node: dict, dtype=None, device=None, generat
         if args.get(key):
             raise NotImplementedError(f"{key}: {what} for the VAE trainer are not ported yet: ROADMAP Queue 1 "
                                       f"item {'8' if key == 'scheduler' else '9'}")
-    if args.get("use_ema"):
-        raise NotImplementedError("use_ema: EMA of the VAE trainer is not ported yet: ROADMAP Queue 1 item 9")
     context = {"device": device, "generator": generator}
     dd = dict(args.get("ddconfig") or {})
     double_z = dd.pop("double_z", True)
@@ -159,6 +157,7 @@ def build_autoencoding_engine(model_node: dict, dtype=None, device=None, generat
         kl_weight=float(args.get("kl_weight", 0.0)),
         input_key=args.get("input_key", "image"),
         disc_start=disc_start if isinstance(disc_start, int) else -1,
+        use_ema=bool(args.get("use_ema", False)),
         device=device,
     )
 

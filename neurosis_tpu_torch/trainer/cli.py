@@ -2,17 +2,21 @@
 trainer/cli.py:50-149, the LightningCLI surface).
 
     python -m neurosis_tpu_torch {fit,validate,test} -c config.yaml [--device cpu]
+    python -m neurosis_tpu_torch predict -c config.yaml [--prompt P ...] [--steps N] [--out DIR]
+        [--size PX] [--device cpu]
 
 consumes the reference YAML shape: trainer args, model (engine node), data
-(dataset node), trainer.logger (wandb pass-through), trainer.callbacks.
-``--device`` (default ``cuda``) is the port's counterpart of
-``JAX_PLATFORMS=cpu``: without it and without CUDA the CLI raises.
+(dataset node), the top-level image_logger node, trainer.logger (wandb
+pass-through), trainer.callbacks. ``--device`` (default ``cuda``) is the
+port's counterpart of ``JAX_PLATFORMS=cpu``: without it and without CUDA the
+CLI raises. ``predict`` samples the prompts with the model's ``sampler:``
+into ``--out`` (default ``<root>/predictions``).
 
 Config nodes the port cannot honour yet raise ``NotImplementedError`` naming
-their ROADMAP Queue 1 item, never pass in silence: ``image_logger:`` (5),
-``model_checkpoint:`` (12), ``trainer.profiler:`` (11), more than one
-device, ``strategy: fsdp`` or ``context_parallel`` (10); ``predict`` is item
-5. ``data.num_workers`` prefetch is item 13: batches load in this process.
+their ROADMAP Queue 1 item, never pass in silence: ``model_checkpoint:``
+(12), ``trainer.profiler:`` (11), more than one device, ``strategy: fsdp``
+or ``context_parallel`` (10). ``data.num_workers`` prefetch is item 13:
+batches load in this process.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ def main(argv=None) -> int:
     fit = sub.add_parser("fit", help="train from a YAML config")
     val = sub.add_parser("validate", help="run loss-only evaluation from a YAML config")
     tst = sub.add_parser("test", help="run loss-only evaluation on the test split (`data_test:` node, else `data:`)")
-    pred = sub.add_parser("predict", help="sample images from prompts (not ported yet: ROADMAP Queue 1 item 5)")
+    pred = sub.add_parser("predict", help="sample images from prompts with a trained model")
     for p in (fit, val, tst, pred):
         p.add_argument("-c", "--config", required=True, type=Path)
         p.add_argument("--device", default="cuda", help="the device to run on (default cuda; cpu for tests)")
@@ -42,6 +46,10 @@ def main(argv=None) -> int:
     fit.add_argument("--fast-dev-run", action="store_true", default=None)
     val.add_argument("--max-batches", type=int, default=None)
     tst.add_argument("--max-batches", type=int, default=None)
+    pred.add_argument("--prompt", action="append", default=None, help="repeatable prompt(s)")
+    pred.add_argument("--steps", type=int, default=None, help="sampler steps override")
+    pred.add_argument("--out", type=Path, default=None, help="output directory (default <root>/predictions)")
+    pred.add_argument("--size", type=int, default=1024, help="image size (pixels, square)")
     args = parser.parse_args(argv)
 
     if args.command == "fit":
@@ -50,7 +58,7 @@ def main(argv=None) -> int:
         return run_eval(args, "val")
     if args.command == "test":
         return run_eval(args, "test")
-    raise NotImplementedError("predict (engine.sample, log_images) is not ported yet: ROADMAP Queue 1 item 5")
+    return run_predict(args)
 
 
 def _wandb_config(trainer_cfg: dict):
@@ -72,7 +80,6 @@ def _wandb_config(trainer_cfg: dict):
 def _refuse_unported(cfg: dict, trainer_cfg: dict) -> None:
     """Raise on every node the port cannot honour yet (see the module doc)."""
     for node, item, what in (
-        (cfg.get("image_logger"), 5, "image_logger: (sampling and log_images)"),
         (cfg.get("model_checkpoint"), 12, "model_checkpoint: (the port's checkpoint saving and resume)"),
         (trainer_cfg.get("profiler"), 11, "trainer.profiler: (NeurosisProfiler on torch.profiler)"),
     ):
@@ -86,6 +93,27 @@ def _refuse_unported(cfg: dict, trainer_cfg: dict) -> None:
         raise NotImplementedError(f"devices={devices!r}, strategy={strategy!r}, fsdp={fsdp}, "
                                   f"context_parallel={context}: the port trains on one card; more is ROADMAP "
                                   "Queue 1 item 10")
+
+
+def _image_logger(node: dict):
+    """The top-level ``image_logger:`` node → ImageLogger (cli.py:160-179)."""
+    from .callbacks import ImageLogger
+
+    il = dict(node)
+    return ImageLogger(
+        every_n_train_steps=il.get("every_n_train_steps", 100),
+        max_images=il.get("max_images", 4),
+        num_steps=(il.get("log_func_kwargs") or {}).get("num_steps"),
+        log_before_start=il.get("log_before_start", False),
+        log_first_step=il.get("log_first_step", False),
+        log_step_type=il.get("log_step_type", "global_step"),
+        batch_size=il.get("batch_size", 1),
+        accumulate_grad_batches=il.get("accumulate_grad_batches", 1),
+        clamp=il.get("clamp", True),
+        rescale=il.get("rescale", True),
+        extra_log_keys=il.get("extra_log_keys") or (),
+        wandb_log_table=il.get("wandb_log_table", False),
+    )
 
 
 def _callbacks(trainer_cfg: dict) -> list:
@@ -149,7 +177,8 @@ def _build(args):
         default_root_dir=trainer_cfg.get("default_root_dir", "./projects"),
         seed=seed,
         fast_dev_run=bool(fast_dev),
-        callbacks=_callbacks(trainer_cfg),
+        callbacks=_callbacks(trainer_cfg) + ([_image_logger(cfg["image_logger"])] if cfg.get("image_logger")
+                                             else []),
         wandb_config=_wandb_config(trainer_cfg),
         allow_random_weights=trainer_cfg.get("allow_random_weights", False),
     )
@@ -189,6 +218,19 @@ def run_eval(args, split: str) -> int:
     metrics = trainer.validate(_batch_factory(dataset), max_batches=args.max_batches)
     logger.info(f"{split}: " + ", ".join(f"{k}={v:.5f}" for k, v in metrics.items()))
     print(json.dumps({f"{split}/{k}": v for k, v in metrics.items()}))
+    return 0
+
+
+def run_predict(args) -> int:
+    """Sample ``--prompt``s (repeatable) into ``--out``: ``sample_###.png``
+    and ``grid.png`` (cli.py:295-306)."""
+    cfg, engine, dataset, trainer = _build(args)
+    if engine.sampler is None:
+        raise ValueError("predict requires a `sampler:` in the model config")
+    prompts = args.prompt or ["a photograph of an astronaut riding a horse"]
+    out_dir = args.out or (trainer.root_dir / "predictions")
+    for p in trainer.predict(prompts, out_dir=out_dir, size=args.size, num_steps=args.steps):
+        logger.info(f"wrote {p}")
     return 0
 
 

@@ -9,6 +9,14 @@ the frozen first stage encodes ``batch[input_key]`` (uint8 or [-1, 1]
 images, NHWC): moments → posterior sample → ·scale_factor, without grad
 (models/diffusion.py:187-197). ``eval_step`` is the loss alone, without
 grad or update, and under the EMA shadows too when ``use_ema`` is set.
+
+Sampling (models/diffusion.py:298-445): ``denoiser_fn`` is the
+preconditioned UNet as the sampler calls it, ``sample`` draws (or takes)
+the initial noise and runs the configured sampler, ``decode_first_stage``
+maps latents back to images, and ``log_images`` gives the image logger its
+inputs, reconstructions, rendered captions and samples. Callers run them
+inside ``eval_scope(state)``: the EMA shadows when the engine keeps them
+(JAX's ``eval_params``), the live weights otherwise.
 """
 
 from __future__ import annotations
@@ -24,7 +32,7 @@ from ..diffusion.loss import StandardDiffusionLoss
 from ..models.autoencoder import AutoencoderKL
 from ..models.unet import UNetModel
 from ..modules.distributions import DiagonalGaussian
-from ..modules.ema import ema_init, ema_update
+from ..modules.ema import ema_init, ema_swapped_in, ema_update
 from ..modules.encoders.embedding import GeneralConditioner
 from ..ops.dequant import dequant_image
 from .state import TrainState, global_norm
@@ -39,7 +47,7 @@ class DiffusionEngine:
                  scale_factor: float = 0.18215, input_key: str = "image", sampler: Any = None,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
-        self.sampler = sampler  # the config's sampler; engine.sample waits (ROADMAP Queue 1 item 5)
+        self.sampler = sampler
         self.model = model
         self.denoiser = denoiser
         self.loss_fn = loss_fn
@@ -76,15 +84,21 @@ class DiffusionEngine:
         moments = self.first_stage.encode(dequant_image(x))
         return self.scale_factor * DiagonalGaussian.from_moments(moments).sample(generator, eps=posterior_noise)
 
+    @torch.no_grad()
+    def decode_first_stage(self, z: torch.Tensor) -> torch.Tensor:
+        """scaled latents → images in [-1, 1] (NHWC) by the frozen VAE's decoder."""
+        if self.first_stage is None:
+            raise ValueError("no first stage to decode with")
+        return self.first_stage.decode(z / self.scale_factor)
+
+    def network_apply(self, x: torch.Tensor, c_noise: torch.Tensor, cond: dict) -> torch.Tensor:
+        return self.model(x, c_noise, cond.get("crossattn"), y=cond.get("vector"))
+
     def loss(self, batch: dict, latents: torch.Tensor, generator: Optional[torch.Generator] = None,
              t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Batch-mean loss (models/diffusion.py:199-233 forward path)."""
         cond = self.conditioner(batch)
-
-        def network_apply(x, c_noise, c):
-            return self.model(x, c_noise, c.get("crossattn"), y=c.get("vector"))
-
-        return self.loss_fn(network_apply, self.denoiser, cond, latents, generator, t=t, noise=noise).mean()
+        return self.loss_fn(self.network_apply, self.denoiser, cond, latents, generator, t=t, noise=noise).mean()
 
     def train_step(self, state: TrainState, batch: dict, t: Optional[torch.Tensor] = None,
                    noise: Optional[torch.Tensor] = None, posterior_noise: Optional[torch.Tensor] = None):
@@ -108,21 +122,65 @@ class DiffusionEngine:
         state.step += 1
         return state, {"loss": loss.detach(), "grad_norm": grad_norm}
 
-    @contextlib.contextmanager
     def ema_scope(self, state: TrainState):
         """The trainable parameters hold the EMA shadows inside the block
         (models/diffusion.py:247-257)."""
-        params = self.trainable_parameters()
-        saved = [p.detach().clone() for p in params]
-        with torch.no_grad():
-            for p, s in zip(params, state.ema.params):
-                p.copy_(s)
-        try:
-            yield
-        finally:
-            with torch.no_grad():
-                for p, s in zip(params, saved):
-                    p.copy_(s)
+        return ema_swapped_in(state.ema, self.trainable_parameters())
+
+    def eval_scope(self, state: TrainState):
+        """The weights sampling and plotting use: the EMA shadows when the
+        engine keeps them, else the live weights (engine.py:235-243)."""
+        if self.use_ema and state.ema is not None:
+            return self.ema_scope(state)
+        return contextlib.nullcontext()
+
+    def denoiser_fn(self) -> Callable:
+        """``denoise(x, sigma, cond)``: the D-output of the preconditioned UNet
+        (engine.py:249-258), with the module's current weights."""
+        def denoise(x, sigma, cond):
+            return self.denoiser(self.network_apply, x, sigma, cond, "D")
+
+        return denoise
+
+    @torch.no_grad()
+    def sample(self, cond: dict, uc: Optional[dict], shape: Sequence[int], num_steps: Optional[int] = None,
+               generator: Optional[torch.Generator] = None, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Latents of ``shape`` from the configured sampler (engine.py:260-289),
+        starting from ``noise`` or from a draw of ``generator``, which also
+        feeds the sampler's own draws."""
+        if self.sampler is None:
+            raise ValueError("no sampler configured")
+        if noise is None:
+            noise = torch.randn(tuple(shape), generator=generator, device=self.device)
+        return self.sampler(self.denoiser_fn(), noise, cond, uc, num_steps=num_steps, generator=generator)
+
+    @torch.no_grad()
+    def log_images(self, state: TrainState, batch: dict, num_img: int = 4,
+                   generator: Optional[torch.Generator] = None, captions: Optional[Sequence[str]] = None,
+                   num_steps: Optional[int] = None, posterior_noise: Optional[torch.Tensor] = None,
+                   noise: Optional[torch.Tensor] = None) -> dict:
+        """inputs / reconstructions / rendered captions (given ``captions``) /
+        samples (with a sampler) (engine.py:291-329, models/diffusion.py:315-420)
+        under ``eval_scope(state)``: numpy NHWC float32 images in [-1, 1]. The
+        encode's posterior noise and the sampler's initial noise are drawn
+        from ``generator`` unless given."""
+        x = dequant_image(batch[self.input_key][:num_img])
+        n = x.shape[0]
+        log = {"inputs": x.float().cpu().numpy()}
+        z = self.encode_first_stage(x, generator, posterior_noise)
+        log["reconstructions"] = self.decode_first_stage(z).float().cpu().numpy()
+        if captions is not None:
+            from ..utils.sgm import log_txt_as_img
+
+            log["conditioning"] = log_txt_as_img((x.shape[2], x.shape[1]), list(captions[:n]))
+        if self.sampler is not None:
+            small = {k: v[:n] if v.ndim >= 1 and v.shape[0] >= n else v for k, v in batch.items()
+                     if isinstance(v, torch.Tensor)}
+            with self.eval_scope(state):
+                c, uc = self.conditioner.get_unconditional_conditioning(small)
+                samples = self.sample(c, uc, z.shape, num_steps=num_steps, generator=generator, noise=noise)
+            log["samples"] = self.decode_first_stage(samples).float().cpu().numpy()
+        return log
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch: dict):

@@ -10,6 +10,9 @@ g/d steps on its schedule) → metrics to ``<root>/logs/metrics.jsonl``
 its metrics; each step runs inside a ``torch.profiler.record_function``
 span named ``STEP_SPAN``, which a profiler reads.
 
+``predict`` samples images for prompts with the engine's sampler and
+writes them as PNGs with a captioned grid.
+
 Not ported yet, and refused rather than skipped: resuming from
 ``<root>/checkpoints`` (ROADMAP Queue 1 item 12). The CLI refuses more than
 one device (item 10).
@@ -155,6 +158,9 @@ class Trainer:
         # opt-in (fast_dev_run implies it)
         self.allow_random_weights = allow_random_weights or fast_dev_run
         self._weights_loaded = False
+        # cadence state the callbacks read (StepType batch_idx/global_batch)
+        self.batch_idx = 0
+        self.epoch = 0
 
     # -- batch prep --------------------------------------------------------
 
@@ -239,6 +245,7 @@ class Trainer:
                     state, metrics = self._step(fn, state, prepped)
                     metrics["data_ms"] = data_ms
                     batch_idx += 1
+                    self.batch_idx, self.epoch = batch_idx, epoch
                     global_step = int(state.step)
                     if global_step % self.log_every == 0:
                         self.logger.log(metrics, global_step)
@@ -281,6 +288,41 @@ class Trainer:
         out["num_batches"] = float(n)
         self.logger.log(out, int(state.step))
         return out
+
+    @torch.no_grad()
+    def predict(self, prompts: Sequence[str], out_dir, size: int = 1024, num_steps: Optional[int] = None) -> list:
+        """Sample images for ``prompts`` with the engine's sampler, under its
+        EMA shadows when it keeps them, and write ``sample_###.png`` and a
+        captioned ``grid.png`` to ``out_dir`` (loop.py:456-514). SDXL's size
+        conditionings default to an uncropped ``size`` x ``size`` image; the
+        initial noise is drawn from the seed + 1."""
+        from ..data.png import write_png
+        from ..utils.image import save_image_grid
+
+        prompts = list(prompts)
+        n = len(prompts)
+        sizes = np.tile(np.array([[size, size]], np.float32), (n, 1))
+        batch = {self.caption_key: prompts, "original_size_as_tuple": sizes,
+                 "crop_coords_top_left": np.zeros((n, 2), np.float32), "target_size_as_tuple": sizes}
+        prepped = self.prepare_batch(batch)
+        state = self._start("predict")
+        engine = self.engine
+        with engine.eval_scope(state):
+            c, uc = engine.conditioner.get_unconditional_conditioning(prepped)
+            shape = (n, size // 8, size // 8, engine.model.in_channels)
+            latents = engine.sample(c, uc, shape, num_steps=num_steps,
+                                    generator=torch.Generator(self.device).manual_seed(self.seed + 1))
+        decoded = engine.decode_first_stage(latents).float().cpu().numpy()
+
+        out_dir = Path(out_dir)
+        out_dir.mkdir(parents=True, exist_ok=True)
+        paths = []
+        for i in range(n):
+            path = out_dir / f"sample_{i:03d}.png"
+            write_png(path, ((np.clip(decoded[i], -1, 1) + 1) * 127.5).astype(np.uint8))
+            paths.append(path)
+        save_image_grid(list(decoded), out_dir / "grid.png", captions=prompts)
+        return paths
 
     # -- checkpoints -------------------------------------------------------
 

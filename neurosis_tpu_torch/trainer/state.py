@@ -28,6 +28,7 @@ class VAETrainState:
     g_optimizer: torch.optim.Optimizer  # encoder and decoder
     d_optimizer: Optional[torch.optim.Optimizer]  # the discriminator, None without one
     generator: torch.Generator  # per-run source of the posterior draws
+    ema: Optional[EmaState] = None  # shadows of the encoder and decoder, with use_ema
 
 
 def global_norm(tensors) -> torch.Tensor:

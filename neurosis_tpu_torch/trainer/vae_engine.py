@@ -11,10 +11,11 @@ Two steps over disjoint trainable sets, alternated by
 The latent is a ``DiagonalGaussian`` posterior (KL regularization), sampled
 from the state's generator or from an explicit ``posterior_noise``. The
 discriminator's BatchNorm runs in train mode in both steps and updates its
-running statistics in place, as the JAX steps thread ``batch_stats``.
+running statistics in place, as the JAX steps thread ``batch_stats``. With
+``use_ema`` the generator step also updates EMA shadows of the encoder and
+decoder, which ``log_images`` shows beside the live weights.
 
-Not ported yet: VQ regularizers, the adaptive d_weight, EMA, ``eval_step``
-and ``log_images``.
+Not ported yet: VQ regularizers, the adaptive d_weight and ``eval_step``.
 """
 
 from __future__ import annotations
@@ -26,8 +27,11 @@ from torch import nn
 
 from .._device import DeviceLike, resolve_device
 from ..modules.distributions import DiagonalGaussian
+from ..modules.ema import ema_init, ema_swapped_in, ema_update
 from ..ops.dequant import dequant_image
 from .state import VAETrainState
+
+DIFF_BOOST = 3.0  # log_images' diff_boost brightens small errors by this factor (autoencoder.py:160)
 
 
 def _zero_grads(params) -> None:
@@ -40,7 +44,8 @@ class AutoencodingEngine:
                  g_optimizer: Callable[[list], torch.optim.Optimizer],
                  d_optimizer: Optional[Callable[[list], torch.optim.Optimizer]] = None,
                  kl_weight: float = 0.0, sample_posterior: bool = True,
-                 input_key: str = "image", disc_start: int = -1, device: DeviceLike = None):
+                 input_key: str = "image", disc_start: int = -1, use_ema: bool = False,
+                 device: DeviceLike = None):
         self.device = resolve_device(device)
         self.encoder, self.decoder, self.loss = encoder, decoder, loss
         self.g_optimizer, self.d_optimizer = g_optimizer, d_optimizer
@@ -48,6 +53,7 @@ class AutoencodingEngine:
         self.sample_posterior = sample_posterior
         self.input_key = input_key
         self.disc_start = disc_start
+        self.use_ema = use_ema
 
     @property
     def has_discriminator(self) -> bool:
@@ -64,7 +70,8 @@ class AutoencodingEngine:
         if self.has_discriminator and self.d_optimizer is not None:
             d_opt = self.d_optimizer(self.d_parameters())
         return VAETrainState(step=0, g_optimizer=self.g_optimizer(self.g_parameters()), d_optimizer=d_opt,
-                             generator=torch.Generator(self.device).manual_seed(seed))
+                             generator=torch.Generator(self.device).manual_seed(seed),
+                             ema=ema_init(self.g_parameters()) if self.use_ema else None)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
                 posterior_noise: Optional[torch.Tensor] = None):
@@ -100,6 +107,8 @@ class AutoencodingEngine:
             if discr is not None:
                 discr.requires_grad_(True)
         state.g_optimizer.step()
+        if state.ema is not None:
+            ema_update(state.ema, params)  # decay 0.9999, the JAX engine's
         state.step += 1
         return state, dict(log, total=total.detach())
 
@@ -117,6 +126,42 @@ class AutoencodingEngine:
         state.d_optimizer.step()
         state.step += 1
         return state, dict(log, total=d_loss.detach())
+
+    def ema_scope(self, state: VAETrainState):
+        """The encoder and decoder hold the EMA shadows inside the block
+        (autoencoder.py:264-277)."""
+        return ema_swapped_in(state.ema, self.g_parameters())
+
+    @torch.no_grad()
+    def log_images(self, state: VAETrainState, batch: dict, num_img: int = 4,
+                   generator: Optional[torch.Generator] = None,
+                   posterior_noise: Optional[torch.Tensor] = None) -> dict:
+        """inputs / reconstructions / diff maps, their ``_ema`` variants with
+        ``use_ema``, and the loss's discriminator-logit grids
+        (vae_engine.py:412-449, autoencoder.py:373-427): numpy NHWC float32
+        images in [-1, 1]. The posterior is sampled with ``posterior_noise``
+        or from ``generator``, the same draw for both sets of weights."""
+        x = dequant_image(batch[self.input_key])[:num_img]
+        drawn_from = generator.get_state() if generator is not None else None
+
+        def recon_and_diffs(suffix: str = "") -> dict:
+            if drawn_from is not None:
+                generator.set_state(drawn_from)
+            _, recons, _ = self.forward(x, generator, posterior_noise)
+            recons = recons.float()
+            diff = (0.5 * (recons.clamp(-1.0, 1.0) - x).abs()).clamp(0.0, 1.0)
+            return {f"reconstructions{suffix}": recons.cpu().numpy(),
+                    f"diff{suffix}": (2.0 * diff - 1.0).cpu().numpy(),
+                    f"diff_boost{suffix}": (2.0 * (DIFF_BOOST * diff).clamp(0.0, 1.0) - 1.0).cpu().numpy()}
+
+        log = {"inputs": x.float().cpu().numpy()}
+        log.update(recon_and_diffs())
+        if self.use_ema and state.ema is not None:
+            with self.ema_scope(state):
+                log.update(recon_and_diffs("_ema"))
+        if hasattr(self.loss, "log_images"):
+            log.update(self.loss.log_images(x, torch.as_tensor(log["reconstructions"], device=x.device)))
+        return log
 
     def train_step_schedule(self, batch_idx: int, global_step: int) -> int:
         """optimizer_idx (autoencoder.py:280-293): 0 before the discriminator

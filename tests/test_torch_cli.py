@@ -16,11 +16,13 @@
     with its widths cut (channels, tower widths, and the context and label
     widths that follow from them) and its depths, levels, heads and
     layouts as written.
-(d) The refusals: more than one device, image_logger:, model_checkpoint:,
-    trainer.profiler:, an existing checkpoints/ directory, predict, and no
-    CUDA without --device cpu.
-(e) The tiny fit in a process where jax, yaml, PIL, pandas, regex and
-    safetensors cannot be imported (the card's machine in miniature).
+(d) The refusals: more than one device, an image_logger: node with an
+    unknown step type, model_checkpoint:, trainer.profiler:, an existing
+    checkpoints/ directory (fit and predict), and no CUDA without
+    --device cpu.
+(e) The tiny fits (each with an image_logger: node) and predict in a
+    process where jax, yaml, PIL, pandas, regex and safetensors cannot be
+    imported (the card's machine in miniature).
 And chip_smoke.py's launch tables of its CLI phase against its fp32 tables.
 """
 
@@ -303,8 +305,8 @@ def test_configs_build_jax_names_and_shapes(config):
     (("  fast_dev_run: true\n", "  fast_dev_run: true\n  context_parallel: 2\n"), NotImplementedError, "item 10"),
     (("  fast_dev_run: true\n", "  fast_dev_run: true\n  profiler:\n    class_path: NeurosisProfiler\n"),
      NotImplementedError, "item 11"),
-    (("seed_everything: 42\n", "seed_everything: 42\nimage_logger:\n  every_n_train_steps: 10\n"),
-     NotImplementedError, "item 5"),
+    (("seed_everything: 42\n", "seed_everything: 42\nimage_logger:\n  log_step_type: every_epoch\n"),
+     ValueError, "not a valid StepType"),
     (("seed_everything: 42\n", "seed_everything: 42\nmodel_checkpoint:\n  every_n_train_steps: 10\n"),
      NotImplementedError, "item 12"),
 ])
@@ -322,8 +324,8 @@ def test_cli_refuses_resume_predict_and_a_missing_card(smoke, monkeypatch):
     (smoke / "root" / "checkpoints").mkdir(parents=True)
     with pytest.raises(NotImplementedError, match="item 12"):
         main(["fit", "-c", str(TINY), "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 5"):
-        main(["predict", "-c", str(TINY), "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="item 12"):  # predict reads no resumable run either
+        main(["predict", "-c", str(TINY), "--device", "cpu", "--size", "64", "--steps", "1"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["fit", "-c", str(TINY)])
@@ -359,14 +361,22 @@ def test_a_failed_step_leaves_a_crash_dump(smoke, monkeypatch):
 
 
 def test_cli_path_runs_without_the_packages_the_card_lacks(tmp_path):
+    """fit of both smoke configs, each with an image_logger: node, and
+    predict, where none of those packages imports; the logger's PNGs and
+    predict's are written."""
     folder = _write_folder(tmp_path / "data")
+    node = ("seed_everything: 42\n", "seed_everything: 42\nimage_logger:\n  every_n_train_steps: 1\n"
+            "  log_first_step: true\n  log_func_kwargs:\n    num_steps: 2\n")
+    tiny, vae = _edited(TINY, tmp_path / "il.yaml", node), _edited(VAE_TINY, tmp_path / "vae_il.yaml", node)
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'yaml', 'PIL', 'pandas', 'regex', 'safetensors'):\n"
         "    sys.modules[name] = None\n"
         "from neurosis_tpu_torch.trainer.cli import main\n"
-        f"assert main(['fit', '-c', {str(TINY)!r}, '--device', 'cpu']) == 0\n"
-        f"assert main(['fit', '-c', {str(VAE_TINY)!r}, '--device', 'cpu']) == 0\n"
+        f"assert main(['fit', '-c', {str(tiny)!r}, '--device', 'cpu']) == 0\n"
+        f"assert main(['fit', '-c', {str(vae)!r}, '--device', 'cpu']) == 0\n"
+        f"assert main(['predict', '-c', {str(TINY)!r}, '--device', 'cpu', '--size', '64', '--steps', '2', "
+        "'--prompt', 'a cat']) == 0\n"
         "print('ok')\n"
     )
     env = {k: v for k, v in os.environ.items() if k not in ("NEUROSIS_TOKENIZER_DIR",)}
@@ -375,6 +385,11 @@ def test_cli_path_runs_without_the_packages_the_card_lacks(tmp_path):
                          env=env)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().splitlines()[-1] == "ok"
+    assert "image logging failed" not in out.stderr
+    images = sorted(p.name for p in (tmp_path / "root" / "images" / "train").iterdir())
+    assert {"gs000001_e0000_b000001_samples_grid.png", "gs000001_e0000_b000001_diff_boost_00.png",
+            "gs000001_e0000_b000001_vis_logits_00.png"} <= set(images)
+    assert sorted(p.name for p in (tmp_path / "root" / "predictions").iterdir()) == ["grid.png", "sample_000.png"]
 
 
 # -- chip_smoke's CLI phase -----------------------------------------------------

@@ -79,6 +79,7 @@ def _entry_points():
 
     from neurosis_tpu_torch.models.text_encoder.clip import OpenCLIPTextTower
     from neurosis_tpu_torch.modules.encoders.embedding import FrozenCLIPEmbedder, FrozenOpenCLIPEmbedder2
+    from neurosis_tpu_torch.sampling import utils as sampling_utils
     from neurosis_tpu_torch.tools import overlap_bench
 
     dd = dict(ch=32, ch_mult=[1], num_res_blocks=1, z_channels=2)
@@ -104,13 +105,15 @@ def _entry_points():
         "AutoencoderLPIPSWithDiscr": (lambda **kw: AutoencoderLPIPSWithDiscr(disc_n_layers=1, **kw),
                                       lambda m: m.perceptual_loss.shift),
         "AutoencoderPerceptual": (lambda **kw: AutoencoderPerceptual(**kw), lambda m: m.perceptual_loss.scale),
+        "default_noise_sampler": (lambda **kw: sampling_utils.default_noise_sampler(None, (2, 3), **kw),
+                                  lambda t: t),
     }
 
 
 @pytest.mark.parametrize("name", ["DiscreteDenoiser", "DiscreteSigmaGenerator", "LegacyDDPMDiscretization", "Encoder", "Decoder",
                                   "AutoencoderKL", "LPIPS", "NLayerDiscriminator", "AutoencoderLPIPSWithDiscr",
                                   "AutoencoderPerceptual", "OpenCLIPTextTower", "FrozenCLIPEmbedder",
-                                  "FrozenOpenCLIPEmbedder2", "overlap_bench.make_inputs"])
+                                  "FrozenOpenCLIPEmbedder2", "overlap_bench.make_inputs", "default_noise_sampler"])
 def test_every_entry_point_resolves_its_device(monkeypatch, name):
     """Each constructor goes through resolve_device: CUDA unless asked, so
     without CUDA it raises instead of building on the CPU; device='cpu'

@@ -229,6 +229,31 @@ def test_five_embedder_conditioner():
     assert not zero["crossattn"].any() and not zero["vector"][:, :64].any() and zero["vector"][:, 64:].any()
 
 
+@pytest.mark.parametrize("force_uc,force_c", [((), ()), (("caption",), ()), (("original_size_as_tuple",),
+                                                                              ("crop_coords_top_left",))])
+def test_get_unconditional_conditioning(force_uc, force_c):
+    """(cond, uncond) of the five-embedder conditioner as JAX's: both text
+    embedders read the empty prompt's ids (one row, broadcast to the batch),
+    the size embedders keep their values; force_uc_zero_embeddings and
+    force_cond_zero_embeddings zero their embedders' outputs on one side."""
+    batch = _batch(np.random.RandomState(12))
+    batch["uncond_ids"] = _token_ids(np.random.RandomState(13), 1)
+    jbatch = _to_jax(batch)
+    jcond, p_cond, tcond = _conditioners(jbatch, 14)
+    want_c, want_uc = jcond.get_unconditional_conditioning({"params": p_cond}, jbatch,
+                                                           force_uc_zero_embeddings=force_uc,
+                                                           force_cond_zero_embeddings=force_c)
+    got_c, got_uc = tcond.get_unconditional_conditioning(_to_torch(batch), force_uc_zero_embeddings=force_uc,
+                                                         force_cond_zero_embeddings=force_c)
+    for got, want in ((got_c, want_c), (got_uc, want_uc)):
+        assert set(got) == set(want) == {"crossattn", "vector"}
+        assert rel_err(got["crossattn"].numpy(), want["crossattn"]) < 1e-5
+        assert float(np.abs(got["vector"].numpy() - np.asarray(want["vector"])).max()) < 5e-4
+    # the two rows of uncond's crossattn are the empty prompt's, the same row twice
+    assert torch.equal(got_uc["crossattn"][0], got_uc["crossattn"][1])
+    assert not torch.equal(got_uc["vector"][0], got_uc["vector"][1])  # the sizes differ
+
+
 def test_unet_sequential_label_embedding():
     from neurosis_tpu.models.unet import UNetModel as JUNet
     from neurosis_tpu_torch.models.unet import UNetModel
