@@ -12,7 +12,10 @@ sampling at 1024 px and its fp32 decode, the flash-overlap tool, and the
 entry point: python -m neurosis_tpu_torch fit on
 configs/sdxl/sdxl.example.yaml as written, on its bf16-mixed copy (also with
 an image logger) and on configs/vae/vae.example.yaml (also with an image
-logger), and python -m neurosis_tpu_torch predict on sdxl.example.yaml.
+logger), and python -m neurosis_tpu_torch predict on sdxl.example.yaml, and
+a training run of configs/sdxl/sdxl-te.example.yaml as written (fp32 UNet,
+both text towers trainable, 8-bit AdamW, the legacy cosine schedule) that
+saves a checkpoint and is resumed from it.
 
 Phases, each fatal on failure:
   1. environment: Python, torch and CUDA versions, the card's name and power limit;
@@ -83,7 +86,21 @@ Phases, each fatal on failure:
      steps and the first, 2 images, 4 sampler steps); fit of
      vae.example.yaml with one, 1 step. The image logger's launches are read
      apart from the steps' and held to their own tables, each PNG is read
-     back (names, sizes, not flat), every decode and reconstruction finite.
+     back (names, sizes, not flat), every decode and reconstruction finite;
+ 14. a run that lasts, in chiprun_out/cli/ after phase 13: fit of a copy of
+     sdxl-te.example.yaml with fast_dev_run false, max_steps 3 and a
+     model_checkpoint: node (every 2 steps, keep 1), its third step
+     profiled (device time, kernels by kind), the save at step 2 timed
+     (bytes, seconds, free disk); fit of the copy with max_steps 4 in the
+     same projects/, which resumes: the restored parameters' checksum is the
+     saved file's, the optimizer's count 2, each param group's lr its base x
+     sched(2), and it logs steps 3 and 4; one more 8-bit AdamW update timed
+     and profiled alone; 8-bit AdamW on the card against the CPU at a bigG
+     token embedding and a small leaf; each run's launches equal its steps
+     x cli_sdxl_te's tables (those of cli_sdxl_f32). The run directory,
+     with its checkpoint, is deleted afterwards.
+Phases 11, 13 and 14 load batches in 2 spawned prefetch worker processes
+(the CLI's default num_workers), which see no CUDA device.
 Then one JSON line of kernels, the nvidia-smi line and, last, the result line.
 Everything measured also goes to chiprun_out/chip_smoke.json.
 
@@ -260,6 +277,12 @@ def sampling_tables() -> dict:
     out["cli_vae_logger"] = ({}, dict(CLI_VAE_LOGGER_F32_FLASH_SHAPES), {}, {})
     return out
 
+# phase 14: sdxl-te.example.yaml as written through the CLI, saved at step 2 of a 3-step
+# run (keeping 1), then resumed for steps 3 and 4 in the same projects/
+TE_SAVE_STEPS, TE_RESUME_STEPS, TE_EVERY = 3, 4, 2
+# (c): one bigG token embedding (vocab x width) and one LayerNorm weight, under min_8bit_size
+ADAMW8BIT_SHAPES = ((49408, 1280), (1280,))
+
 # path -> (its key in the report, the unit its launch tables count)
 PATHS = {"sd15": ("slice", "SD1.5 train step"),
          "sd15_f32": ("sd15_f32", "SD1.5 train step, fp32 UNet (sd15.example.yaml as written, 256 px, batch 1)"),
@@ -270,6 +293,8 @@ PATHS = {"sd15": ("slice", "SD1.5 train step"),
                                           "python -m neurosis_tpu_torch fit"),
          "cli_sdxl_bf16": ("cli_sdxl_bf16", "SDXL train step of its bf16-mixed copy through the CLI"),
          "cli_vae": ("cli_vae", "generator step of vae.example.yaml as written (fp32) through the CLI"),
+         "cli_sdxl_te": ("cli_sdxl_te", "SDXL train step of sdxl-te.example.yaml as written (fp32 UNet, both "
+                                        "towers trainable, AdamW8bit, the legacy cosine schedule) through the CLI"),
          **{f"sdxl_sample{b}": (f"sdxl_sample{b}", f"one SDXL UNet call of CFG sampling, {b} image(s) at 1024 px "
                                                    f"(UNet batch {2 * b})") for b in SAMPLE_BATCHES},
          **{f"sdxl_decode{b}": (f"sdxl_decode{b}", f"the fp32 decode of {b} image(s) at 1024 px")
@@ -279,8 +304,9 @@ PATHS = {"sd15": ("slice", "SD1.5 train step"),
          "cli_logger": ("cli_logger", "one image-logger call of the bf16-mixed copy's fit (2 images: encode, 4 "
                                       "CFG steps, two decodes)"),
          "cli_vae_logger": ("cli_vae_logger", "one image-logger call of vae.example.yaml's fit (2 images)")}
-# a path whose shape tables are another's (the same step, reached another way)
-TABLES_OF = {"cli_sdxl_bf16": "sdxl"}
+# a path whose shape tables are another's (the same step, reached another way; the towers of
+# sdxl-te train, but at 77 tokens their attention is under the flash gate)
+TABLES_OF = {"cli_sdxl_bf16": "sdxl", "cli_sdxl_te": "cli_sdxl_f32"}
 
 # tolerances on max|kernel - plain| / max|plain|, same bf16 inputs on both sides
 TOL = {
@@ -1184,7 +1210,7 @@ def write_image_folder(torch, folder: Path, seed: int = 11) -> None:
 def step_profiles(torch, prof, span: str) -> list:
     """Each ``span`` of a profile: device busy ms (the union of the kernels
     that ran between the span's start and end; the trainer syncs the card at
-    both, so no other work overlaps a step), ms by kind, and kernel count."""
+    both, so no other work overlaps a step), ms and kernels by kind, and kernel count."""
     cuda = torch.autograd.DeviceType.CUDA
     events = prof.events()
     spans = sorted((e.time_range.start, e.time_range.end) for e in events
@@ -1193,29 +1219,35 @@ def step_profiles(torch, prof, span: str) -> list:
                      if e.device_type == cuda and not getattr(e, "is_user_annotation", False))
     out = []
     for s0, s1 in spans:
-        busy, end, kinds, n = 0.0, -math.inf, {}, 0
+        busy, end, kinds, counts, n = 0.0, -math.inf, {}, {}, 0
         for k0, k1, name in kernels:
             if k0 < s0 or k1 > s1:
                 continue
             n += 1
-            kinds[kernel_kind(name)] = kinds.get(kernel_kind(name), 0.0) + (k1 - k0) / 1e3
+            kind = kernel_kind(name)
+            kinds[kind] = kinds.get(kind, 0.0) + (k1 - k0) / 1e3
+            counts[kind] = counts.get(kind, 0) + 1
             if k1 > end:
                 busy += k1 - max(k0, end)
                 end = k1
-        out.append(dict(device_ms=busy / 1e3 if n else None, kinds_ms=kinds, launches=n))
+        out.append(dict(device_ms=busy / 1e3 if n else None, kinds_ms=kinds, kinds_launches=counts, launches=n))
     return out
 
 
 def run_cli(torch, rows: dict, config: Path, label: str, path: str, steps: int, profiled: bool,
-            logger: tuple = None) -> dict:
+            logger: tuple = None, first_step: int = 1, profile_step: int = None) -> dict:
     """``python -m neurosis_tpu_torch fit -c config`` in this process (its
-    main()), from the working directory (CLI_DIR) and a fresh projects/ there: rc 0, a finite
-    loss on each of ``steps`` lines of metrics.jsonl, and every kernel's
-    launches equal to ``steps`` x the path's tables; with ``profiled`` the
-    run is inside one torch.profiler window, which gives each step's device
-    time. With ``logger`` = (its path, calls), the launches inside the image
-    logger's calls are read apart and held to that path's tables x calls; a
-    call that raises fails the run (the logger itself would log and go on)."""
+    main()), from the working directory (CLI_DIR) and a fresh projects/ there
+    (``first_step`` > 1: the projects/ of the run it resumes): rc 0, a finite
+    loss on each of ``steps`` new lines of metrics.jsonl, their steps from
+    ``first_step`` on, and every kernel's launches equal to ``steps`` x the
+    path's tables; with ``profiled`` the run is inside one torch.profiler
+    window, which gives each step's device time, with ``profile_step`` the
+    k-th step of the run alone. With ``logger`` = (its path, calls), the
+    launches inside the image logger's calls are read apart and held to that
+    path's tables x calls; a call that raises fails the run (the logger
+    itself would log and go on)."""
+    import contextlib
     import gc
     import shutil
 
@@ -1224,9 +1256,12 @@ def run_cli(torch, rows: dict, config: Path, label: str, path: str, steps: int, 
     from neurosis_tpu_torch import ops
     from neurosis_tpu_torch.trainer import cli
     from neurosis_tpu_torch.trainer.callbacks import ImageLogger
-    from neurosis_tpu_torch.trainer.loop import STEP_SPAN
+    from neurosis_tpu_torch.trainer.loop import STEP_SPAN, Trainer
 
-    shutil.rmtree("projects", ignore_errors=True)
+    metrics_file = Path("projects/logs/metrics.jsonl")
+    if first_step == 1:
+        shutil.rmtree("projects", ignore_errors=True)
+    logged_before = len(metrics_file.read_text().splitlines()) if metrics_file.exists() else 0
     gc.collect()  # an earlier run's profile, freed before this run's host times
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1247,27 +1282,38 @@ def run_cli(torch, rows: dict, config: Path, label: str, path: str, steps: int, 
                 logged[k] += n - before[k]
 
     ImageLogger._log_images = counted
+    one_step, inner_step, step_calls = [], Trainer._step, []
+
+    def step(self, *args, **kwargs):
+        step_calls.append(1)
+        if len(step_calls) != profile_step:
+            return inner_step(self, *args, **kwargs)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as step_prof:
+            result = inner_step(self, *args, **kwargs)
+        one_step.append(step_prof)
+        return result
+
+    Trainer._step = step
     t0 = time.perf_counter()
     argv = ["fit", "-c", str(config)]
     try:
-        if profiled:
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                rc = cli.main(argv)
-                torch.cuda.synchronize()
-        else:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if profiled \
+                else contextlib.nullcontext() as prof:
             rc = cli.main(argv)
             torch.cuda.synchronize()
     finally:
         ImageLogger._log_images = inner
+        Trainer._step = inner_step
     seconds = time.perf_counter() - t0
     launches = {k: n - logged[k] for k, n in ops.launch_counts().items()}
     peak = torch.cuda.max_memory_allocated()
     if rc != 0:
         raise PhaseError(f"{label}: main() returned {rc}")
-    lines = [json.loads(x) for x in Path("projects/logs/metrics.jsonl").read_text().splitlines()]
+    lines = [json.loads(x) for x in metrics_file.read_text().splitlines()][logged_before:]
     loss_key = "total" if path == "cli_vae" else "loss"
-    if [r["step"] for r in lines] != list(range(1, steps + 1)):
-        raise PhaseError(f"{label}: metrics.jsonl has steps {[r['step'] for r in lines]}, not 1-{steps}")
+    if [r["step"] for r in lines] != list(range(first_step, first_step + steps)):
+        raise PhaseError(f"{label}: metrics.jsonl has new steps {[r['step'] for r in lines]}, not "
+                         f"{first_step}-{first_step + steps - 1}")
     if not all(math.isfinite(r[loss_key]) for r in lines):
         raise PhaseError(f"{label}: a loss is not finite: {[r[loss_key] for r in lines]}")
     for r in lines:
@@ -1284,14 +1330,15 @@ def run_cli(torch, rows: dict, config: Path, label: str, path: str, steps: int, 
         out.update(logger_launches=logged, images=Path("projects/images/train"))
     elif any(logged.values()) or calls:
         raise PhaseError(f"{label}: an image logger ran in a run without one: {calls}")
-    if profiled:
-        out["profiles"] = step_profiles(torch, prof, STEP_SPAN)
-        for i, p in enumerate(out["profiles"]):
+    if profiled or one_step:
+        out["profiles"] = step_profiles(torch, prof if profiled else one_step[0], STEP_SPAN)
+        for i, p in enumerate(out["profiles"], start=profile_step - 1 if one_step else 0):
             if p["device_ms"] is None:
                 print(f"{label} step {i + 1}: the profiler recorded no device kernels in the step: device time "
                       "not measured", flush=True)
                 continue
-            kinds = ", ".join(f"{k} {ms:.3f}" for k, ms in sorted(p["kinds_ms"].items(), key=lambda kv: -kv[1]))
+            kinds = ", ".join(f"{k} {ms:.3f} ms in {p['kinds_launches'][k]}"
+                              for k, ms in sorted(p["kinds_ms"].items(), key=lambda kv: -kv[1]))
             print(f"{label} step {i + 1}: device busy {p['device_ms']:.3f} ms in {p['launches']} kernels (host step "
                   f"{lines[i]['step_ms']:.1f} ms under the profiler); by kind: {kinds}", flush=True)
     return out
@@ -1632,6 +1679,218 @@ def run_predict(torch, rows: dict, config: Path) -> dict:
     return dict(launches=launches, seconds=seconds, peak_bytes=peak)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: a training run that lasts
+# ---------------------------------------------------------------------------
+
+
+def bits_checksum(torch, tensors) -> int:
+    """The sum of every fp32 word's bit pattern as an integer: exact, and
+    independent of the order and the device it is summed in."""
+    return sum(int(t.detach().reshape(-1).view(torch.int32).to(torch.int64).sum()) for t in tensors)
+
+
+def check_adamw8bit(torch, log: list) -> dict:
+    """(c) One update of AdamW8bit on the card and on the CPU from the same
+    leaf and grad: ADAMW8BIT_SHAPES, a bigG token embedding (8-bit state) and
+    a leaf under min_8bit_size (fp32 state). log10 and round on the card and
+    on the CPU can differ by an ulp, which moves a code by 1 at a rounding
+    boundary, so: codes within 1 and equal on at least 99.9%, scales within
+    1e-6 of their own, the dequantized moments within 1e-5 of their block's
+    scale where the codes agree and within one code step (13.8% of the value
+    for m, 9.5% for v) where they do not, fp32 moments within 1e-6 relative
+    and the parameters within 1e-5·lr of each other (the update itself uses
+    the fp32 moments; only the stored state is quantized). A second update
+    is not compared: a code moved by 1 moves m by 13.8%, and where the next
+    grad nearly cancels m the two sides' m can then differ in sign."""
+    from neurosis_tpu_torch.optimizers.adamw8bit import AdamW8bit, dequantize_signed, dequantize_unsigned
+
+    g = torch.Generator().manual_seed(14)
+    lr, out = 1e-3, {}
+    for shape in ADAMW8BIT_SHAPES:
+        p0 = torch.randn(shape, generator=g) * 0.02
+        grad = torch.randn(shape, generator=g) * 1e-3
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            p = torch.nn.Parameter(p0.clone().to(dev))
+            opt = AdamW8bit([p], learning_rate=lr, weight_decay=1e-2)
+            p.grad = grad.to(dev)
+            opt.step()
+            runs[dev] = (p.detach().cpu(), {k: v.cpu() for k, v in opt.state[p].items()})
+        (p_cpu, s_cpu), (p_gpu, s_gpu) = runs["cpu"], runs["cuda"]
+        label = f"AdamW8bit {shape}"
+        row = dict(shape=shape, param_err_over_lr=float((p_gpu - p_cpu).abs().max()) / lr)
+        if "mu_codes" in s_cpu:
+            for key, deq, step in (("mu", dequantize_signed, 10 ** (7 / 126) - 1),
+                                   ("nu", dequantize_unsigned, 10 ** (10 / 254) - 1)):
+                codes = (s_gpu[f"{key}_codes"].int() - s_cpu[f"{key}_codes"].int()).abs()
+                scale_err = float(((s_gpu[f"{key}_scale"] - s_cpu[f"{key}_scale"]).abs()
+                                   / s_cpu[f"{key}_scale"].clamp_min(1e-30)).max())
+                m_gpu = deq(s_gpu[f"{key}_codes"], s_gpu[f"{key}_scale"], shape).reshape(-1)
+                m_cpu = deq(s_cpu[f"{key}_codes"], s_cpu[f"{key}_scale"], shape).reshape(-1)
+                n = m_cpu.numel()
+                same = (codes.reshape(-1)[:n] == 0)
+                block = s_cpu[f"{key}_scale"].expand(-1, s_cpu[f"{key}_codes"].shape[1]).reshape(-1)[:n]
+                err_same = float(((m_gpu - m_cpu).abs() / block.clamp_min(1e-30))[same].max())
+                err_diff = float(((m_gpu - m_cpu).abs() / m_cpu.abs().clamp_min(1e-30))[~same].max()) \
+                    if bool((~same).any()) else 0.0
+                row[key] = dict(max_code_diff=int(codes.max()), code_diff_share=float((codes > 0).float().mean()),
+                                scale_rel_err=scale_err, deq_err_same=err_same, deq_rel_err_flipped=err_diff)
+                ok = (int(codes.max()) <= 1 and row[key]["code_diff_share"] <= 1e-3 and scale_err <= 1e-6
+                      and err_same <= 1e-5 and err_diff <= step * 1.001)
+                log.append(f"{label} {key}: codes differ by at most {int(codes.max())} on "
+                           f"{row[key]['code_diff_share']:.2e} of them, scales {scale_err:.2e}, dequantized "
+                           f"{err_same:.2e} of the block scale where equal, {err_diff:.3e} relative where not "
+                           f"(one step {step:.3f}) {'ok' if ok else 'FAILED'}")
+                print(log[-1], flush=True)
+                if not ok:
+                    raise PhaseError(f"{label}: the card's {key} state disagrees with the CPU's")
+        else:
+            for key in ("mu", "nu"):
+                rel = float(((s_gpu[key] - s_cpu[key]).abs() / s_cpu[key].abs().clamp_min(1e-30)).max())
+                row[key] = dict(rel_err=rel)
+                check(f"{label} fp32 {key}", rel, 1e-6, log)
+        check(f"{label} parameters, max |card - CPU| / lr", row["param_err_over_lr"], 1e-5, log)
+        out[str(shape)] = row
+    return out
+
+
+def run_te_phase(torch, rows: dict) -> dict:
+    """Phase 14, in CLI_DIR after phase 13 (its image folder): (a) fit of a
+    copy of sdxl-te.example.yaml that differs only in fast_dev_run false,
+    max_steps 3 and a model_checkpoint: node (every 2 steps, keep 1), its
+    third step profiled, the save at step 2 timed; (b) fit of the same with
+    max_steps 4 in the same projects/: it resumes at step 2 (its parameters'
+    checksum equal to the saved file's, the optimizer's count 2, each
+    group's lr its base x sched(2)) and logs steps 3 and 4; then one more
+    8-bit update on its last grads, timed and profiled; (c) check_adamw8bit;
+    (d) each run's kernel launches equal its steps x cli_sdxl_te's tables.
+    The run directory is deleted afterwards, also when the phase fails."""
+    import os
+    import shutil
+
+    from neurosis_tpu_torch.config.loader import load_config
+    from neurosis_tpu_torch.schedulers import legacy_cosine_annealing_warmup_restarts
+    from neurosis_tpu_torch.trainer.callbacks import STATE_FILE, CheckpointCallback, load_checkpoint
+    from neurosis_tpu_torch.trainer.loop import Trainer
+
+    repo = Path.cwd().resolve()
+    te = repo / "configs/sdxl/sdxl-te.example.yaml"
+    written = "  fast_dev_run: true  # disable to actually train\n"
+    text = te.read_text()
+    if text.count(written) != 1:
+        raise PhaseError(f"{te} no longer has the line {written!r}")
+    node = f"\nmodel_checkpoint:\n  every_n_train_steps: {TE_EVERY}\n  save_top_k: 1\n"
+    cfgs = {}
+    for n in (TE_SAVE_STEPS, TE_RESUME_STEPS):
+        cfgs[n] = (CLI_DIR / f"sdxl-te-{n}-steps.yaml").resolve()
+        cfgs[n].write_text(text.replace(written, f"  fast_dev_run: false\n  max_steps: {n}\n") + node)
+    want = load_config(te)
+    want["trainer"].update(fast_dev_run=False, max_steps=TE_SAVE_STEPS)
+    want["model_checkpoint"] = {"every_n_train_steps": TE_EVERY, "save_top_k": 1}
+    if load_config(cfgs[TE_SAVE_STEPS]) != want:
+        raise PhaseError("the copy of sdxl-te.example.yaml differs in more than its three keys")
+    # YAML 1.1 reads min_lr 3e-7 as a string; the builder casts it, and so does this check
+    sched = legacy_cosine_annealing_warmup_restarts(**{k: float(v) if isinstance(v, str) else v for k, v in
+                                                       want["model"]["init_args"]["scheduler"]["init_args"].items()})
+
+    started, resume_s = [], []
+    inner_start, inner_resume = Trainer._start, Trainer._maybe_resume
+
+    def start(self, what):
+        state = inner_start(self, what)
+        opt = state.optimizer
+        started.append(dict(trainer=self, state=state, step=int(state.step), count=opt.count,
+                            groups=[(g["base_lr"], g["lr"], g["schedule_count"], len(g["params"]))
+                                    for g in opt.param_groups],
+                            checksum=bits_checksum(torch, self.engine.trainable_parameters())))
+        return state
+
+    def resume(self, state):
+        t0 = time.perf_counter()
+        state = inner_resume(self, state)
+        torch.cuda.synchronize()
+        resume_s.append(time.perf_counter() - t0)
+        return state
+
+    out = {}
+    cwd, hash_env = os.getcwd(), os.environ.get("NEUROSIS_ALLOW_HASH_TOKENIZER")
+    os.chdir(CLI_DIR)
+    Trainer._start, Trainer._maybe_resume = start, resume
+    try:
+        os.environ["NEUROSIS_ALLOW_HASH_TOKENIZER"] = "1"
+        ckpt = Path("projects/checkpoints")
+        out["save_run"] = run_cli(torch, rows, cfgs[TE_SAVE_STEPS], "CLI fit sdxl-te (save)", "cli_sdxl_te",
+                                  TE_SAVE_STEPS, profiled=False, profile_step=TE_SAVE_STEPS)
+        first = started.pop()
+        saver = next(cb for cb in first["trainer"].callbacks if isinstance(cb, CheckpointCallback))
+        n_params = sum(p.numel() for p in first["trainer"].engine.trainable_parameters())
+        groups = [g[3] for g in first["groups"]]
+        del first
+        steps_saved = sorted(int(d.name) for d in ckpt.iterdir())
+        if steps_saved != [TE_EVERY]:
+            raise PhaseError(f"the save run left checkpoints {steps_saved}, not [{TE_EVERY}]")
+        path = ckpt / str(TE_EVERY) / STATE_FILE
+        disk = shutil.disk_usage(ckpt)
+        t0 = time.perf_counter()
+        payload = load_checkpoint(path)
+        file_sum = bits_checksum(torch, payload["params"].values())
+        sum_s = time.perf_counter() - t0
+        saved = dict(bytes=path.stat().st_size, save_s=saver.last_save_s, disk_free_after=disk.free,
+                     disk_total=disk.total, trainable_params=n_params, param_groups=groups,
+                     step=payload["step"], count=payload["opt_state"]["count"])
+        del payload
+        print(f"sdxl-te checkpoint at step {saved['step']}: {saved['bytes']} bytes in {saved['save_s']:.1f} s; "
+              f"{n_params} trainable parameters in groups of {groups}; disk free after {disk.free} of "
+              f"{disk.total} bytes; the file's checksum read in {sum_s:.1f} s", flush=True)
+        if saved["step"] != TE_EVERY or saved["count"] != TE_EVERY:
+            raise PhaseError(f"the checkpoint holds step {saved['step']}, count {saved['count']}")
+
+        out["resume_run"] = run_cli(torch, rows, cfgs[TE_RESUME_STEPS], "CLI fit sdxl-te (resume)", "cli_sdxl_te",
+                                    TE_RESUME_STEPS - TE_EVERY, profiled=False, first_step=TE_EVERY + 1)
+        second = started.pop()
+        lrs = [(base * float(sched(TE_EVERY)), lr, count) for base, lr, count, _n in second["groups"]]
+        resumed = dict(step=second["step"], count=second["count"], lrs=lrs, load_s=resume_s[-1],
+                       checksum_equal=second["checksum"] == file_sum)
+        print(f"sdxl-te resumed at step {second['step']} in {resume_s[-1]:.1f} s: optimizer count "
+              f"{second['count']}, lr (want, have, schedule count) {lrs}, parameters' checksum "
+              f"{'equal to' if resumed['checksum_equal'] else 'DIFFERENT from'} the file's", flush=True)
+        if not (resumed["checksum_equal"] and second["step"] == TE_EVERY and second["count"] == TE_EVERY
+                and all(want_lr == lr and c == TE_EVERY for want_lr, lr, c in lrs)):
+            raise PhaseError(f"the resumed run did not restore the saved state: {resumed}")
+        steps_saved = sorted(int(d.name) for d in ckpt.iterdir())
+        if steps_saved != [TE_RESUME_STEPS]:
+            raise PhaseError(f"the resumed run left checkpoints {steps_saved}, not [{TE_RESUME_STEPS}]")
+
+        # the 8-bit update alone, on the last step's grads
+        opt, state = second["state"].optimizer, second["state"]
+        del second
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.step()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        update = profile_fn(torch, opt.step, "sdxl-te AdamW8bit update", host_ms, top=10)
+        out["adamw8bit_update"] = dict(host_ms=host_ms, device_ms=update.get("device_ms"),
+                                       launches=update.get("launches"), kinds_ms=update.get("kinds_ms"))
+        print(f"sdxl-te AdamW8bit update alone: host {host_ms:.1f} ms, device busy {update.get('device_ms')} ms in "
+              f"{update.get('launches')} kernels", flush=True)
+        del opt, state
+        out["saved"], out["resumed"] = saved, resumed
+    finally:
+        Trainer._start, Trainer._maybe_resume = inner_start, inner_resume
+        shutil.rmtree("projects", ignore_errors=True)
+        os.chdir(cwd)
+        if hash_env is None:
+            os.environ.pop("NEUROSIS_ALLOW_HASH_TOKENIZER", None)
+        else:
+            os.environ["NEUROSIS_ALLOW_HASH_TOKENIZER"] = hash_env
+    out["adamw8bit_card_vs_cpu"] = check_adamw8bit(torch, [])
+    out["launches"] = {k: out["save_run"]["launches"][k] + out["resume_run"]["launches"][k]
+                       for k in out["save_run"]["launches"]}
+    return out
+
+
 def kernel_kind(name: str) -> str:
     """Which layer a device kernel belongs to, by its name."""
     low = name.lower()
@@ -1765,6 +2024,8 @@ def main() -> int:
         report.update(run_cli_phase(torch, rows))
         torch.cuda.empty_cache()
         report.update(run_cli_sampling(torch, rows))
+        torch.cuda.empty_cache()
+        report["cli_sdxl_te"] = run_te_phase(torch, rows)
         report["seconds"] = time.perf_counter() - t_start
         print(f"all phases: {report['seconds']:.1f} s", flush=True)
     except Exception as e:  # any failed phase ends the run without a result line

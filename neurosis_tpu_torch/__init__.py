@@ -14,6 +14,14 @@ wrapper runs its plain PyTorch version for CPU tensors and launches the
 kernel for CUDA tensors.
 """
 
-from ._device import resolve_device
-
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name: str):
+    # torch is imported on first use, not with the package: the data prefetch
+    # workers import the package's data modules and need numpy alone
+    if name == "resolve_device":
+        from ._device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -61,7 +61,18 @@ _PORTED = {
     _DS + "imagefolder.FolderVAEDataset": ("data.imagefolder", "FolderVAEDataset"),
     _DS + "imagefolder.FolderVAEModule": ("data.imagefolder", "FolderVAEDataset"),
     "neurosis.optimizers.Adafactor": ("optimizers.adafactor", "Adafactor"),
+    "neurosis.optimizers.AdafactorScheduler": ("optimizers.adafactor", "adafactor_relative_step_schedule"),
     "optax.adamw": ("optimizers.adamw", "adamw"),
+    "bitsandbytes.optim.AdamW8bit": ("optimizers.adamw8bit", "AdamW8bit"),
+    **{"neurosis.schedulers." + n: ("schedulers.schedules", f) for n, f in (
+        ("CosineWithWarmUp", "cosine_with_warmup"), ("CosineWithHardRestartsAndWarmUp", "cosine_with_hard_restarts"),
+        ("LambdaWarmUpCosineScheduler2", "lambda_warmup_cosine_scheduler2"),
+        ("LambdaLinearScheduler", "lambda_linear_scheduler"),
+        ("CosineAnnealingWarmupRestarts", "cosine_annealing_warmup_restarts"),
+        ("CosineDecayWithWarmup", "cosine_decay_with_warmup"), ("CosineWarmupSchedule", "cosine_warmup_schedule"),
+        ("CosineWarmupStagedSchedule", "cosine_warmup_schedule_staged"),
+        ("LinearWarmupSchedule", "linear_warmup_schedule"),
+        ("LegacyCosineAnnealingWarmupRestarts", "legacy_cosine_annealing_warmup_restarts"))},
     "DeviceStatsMonitor": ("trainer.callbacks", "DeviceStatsCallback"),
     "lightning.pytorch.callbacks.DeviceStatsMonitor": ("trainer.callbacks", "DeviceStatsCallback"),
     "lightning.pytorch.callbacks.ModelSummary": ("trainer.callbacks", "ModelSummaryCallback"),
@@ -76,19 +87,13 @@ _DIFFUSION_MATH = ["Denoiser", "VPreconditioning", "VPreconditioningWithEDMcNois
                    "sigma_sampling.EDMSampling"]
 _SIGMA_GENERATORS = ["EDMSigmaGenerator", "CosineScheduleSigmaGenerator", "TanScheduleSigmaGenerator",
                      "RectifiedFlowSigmaGenerator", "RectifiedFlowComfySigmaGenerator"]
-_SCHEDULERS = ["CosineWithWarmUp", "CosineWithHardRestartsAndWarmUp", "LambdaWarmUpCosineScheduler2",
-               "LambdaLinearScheduler", "CosineAnnealingWarmupRestarts", "CosineDecayWithWarmup",
-               "CosineWarmupSchedule", "CosineWarmupStagedSchedule", "LinearWarmupSchedule",
-               "LegacyCosineAnnealingWarmupRestarts"]
 _NOT_PORTED: Dict[str, str] = {}
 _NOT_PORTED.update({_D + n: "7 (the rest of the SD path's options)" for n in _DIFFUSION_MATH})
 _NOT_PORTED.update({_SS + n: "7 (the rest of the SD path's options)" for n in _SIGMA_GENERATORS})
 _NOT_PORTED.update({p: "7 (the rest of the SD path's options)" for p in (
     "neurosis.models.IdentityFirstStage", "neurosis.models.autoencoder.IdentityFirstStage")})
-_OPTIMIZERS_ITEM = "8 (sdxl-te: optimizers and schedulers)"
-_NOT_PORTED.update({p: _OPTIMIZERS_ITEM for p in (
-    ["bitsandbytes.optim.AdamW8bit", "neurosis.optimizers.AdafactorScheduler", "neurosis.optimizers.CAME",
-     "neurosis.optimizers.came.CAME"] + ["neurosis.schedulers." + n for n in _SCHEDULERS])})
+_OPTIMIZERS_ITEM = "8 (the optimizers CAME, hybrid and stacked)"
+_NOT_PORTED.update({p: _OPTIMIZERS_ITEM for p in ("neurosis.optimizers.CAME", "neurosis.optimizers.came.CAME")})
 _NOT_PORTED.update({p: "9 (the rest of the VAE-GAN stack)" for p in (
     [_D + "model.Model", "neurosis.models.AutoencoderKLInferenceWrapper",
      "neurosis.models.autoencoder.AutoencoderKLInferenceWrapper", "neurosis.models.AEIntegerWrapper",

@@ -7,7 +7,9 @@ undersized portrait buckets and the batch schedule keep the JAX package's
 order and its draws from ``np.random.default_rng(seed)``, so both packages
 give the same batches. Image sizes come from the PNG header, without
 decoding (other formats from Pillow). Samples are numpy NHWC; the trainer
-moves a batch to the device.
+moves a batch to the device. ``get_batch`` takes the generator a batch
+draws from, so prefetch workers give the batches of the main process
+(``data/prefetch.py``).
 """
 
 from __future__ import annotations
@@ -114,8 +116,11 @@ class ImageFolderDataset:
         return len(self.image_paths)
 
     def __getitem__(self, index: int) -> dict:
+        return self._item(index, self.rng)
+
+    def _item(self, index: int, rng: np.random.Generator) -> dict:
         bucket: AspectBucket = self.buckets[int(self.bucket_idx[index])]
-        image, crop = load_bucket_image_file(self.image_paths[index], bucket, rng=self.rng)
+        image, crop = load_bucket_image_file(self.image_paths[index], bucket, rng=rng)
         caption = clean_caption(
             self.captions[index],
             process_tags=self.process_tags,
@@ -123,7 +128,7 @@ class ImageFolderDataset:
             shuffle_keep=self.shuffle_keep,
             tag_sep=self.tag_sep,
             word_sep=self.word_sep,
-            rng=self.rng,
+            rng=rng,
         )
         return {
             self.image_key: image_to_array(image, self.image_dtype),
@@ -133,8 +138,10 @@ class ImageFolderDataset:
             "target_size_as_tuple": bucket.size,
         }
 
-    def get_batch(self, indices: Sequence[int]) -> dict:
-        return collate_dict_stack([self[i] for i in indices])
+    def get_batch(self, indices: Sequence[int], rng: Optional[np.random.Generator] = None) -> dict:
+        """The collated samples; their draws (crops, tag shuffles) come from
+        ``rng`` when given, else from the dataset's own generator."""
+        return collate_dict_stack([self._item(i, self.rng if rng is None else rng) for i in indices])
 
     def _get_osize(self, resolution, bucket: AspectBucket):
         if not self.clamp_orig:
@@ -216,8 +223,11 @@ class FolderSquareDataset:
         return len(self.paths)
 
     def __getitem__(self, index: int) -> dict:
+        return self._item(index, self.rng)
+
+    def _item(self, index: int, rng: np.random.Generator) -> dict:
         path = self.paths[index]
-        image, _ = load_crop_image_file(str(path), self.resolution, rng=self.rng)
+        image, _ = load_crop_image_file(str(path), self.resolution, rng=rng)
         caption_file = path.with_suffix(self.caption_ext)
         caption = caption_file.read_text(encoding="utf-8") if caption_file.exists() else ""
         caption = clean_caption(
@@ -227,12 +237,13 @@ class FolderSquareDataset:
             shuffle_keep=self.shuffle_keep,
             tag_sep=self.tag_sep,
             word_sep=self.word_sep,
-            rng=self.rng,
+            rng=rng,
         )
         return {self.image_key: image_to_array(image, self.image_dtype), self.caption_key: caption}
 
-    def get_batch(self, indices: Sequence[int]) -> dict:
-        return collate_dict_stack([self[i] for i in indices])
+    def get_batch(self, indices: Sequence[int], rng: Optional[np.random.Generator] = None) -> dict:
+        """The collated samples, their draws from ``rng`` when given."""
+        return collate_dict_stack([self._item(i, self.rng if rng is None else rng) for i in indices])
 
     def get_batch_iterator(self) -> Generator[list[int], None, None]:
         order = self.rng.permutation(len(self.paths))
@@ -243,7 +254,6 @@ class FolderSquareDataset:
 class FolderVAEDataset(FolderSquareDataset):
     """No-caption VAE variant (nocaption.py:19-78)."""
 
-    def __getitem__(self, index: int) -> dict:
-        path = self.paths[index]
-        image, _ = load_crop_image_file(str(path), self.resolution, rng=self.rng)
+    def _item(self, index: int, rng: np.random.Generator) -> dict:
+        image, _ = load_crop_image_file(str(self.paths[index]), self.resolution, rng=rng)
         return {self.image_key: image_to_array(image, self.image_dtype)}

@@ -68,6 +68,7 @@ class Dense(nn.Module):
         self.dtype = dtype
         self.zero_init = zero_init
         self.weight = nn.Parameter(torch.empty(out_features, in_features, device=device))
+        self.weight.jax_layout = (1, 0)  # JAX's kernel is (in, out): the axes that give it (AdamW8bit's blocks)
         self.bias = nn.Parameter(torch.empty(out_features, device=device)) if bias else None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -174,6 +175,7 @@ class Conv2d(nn.Module):
         self.zero_init = zero_init
         k = kernel_size
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels, k, k, device=device))
+        self.weight.jax_layout = (2, 3, 1, 0)  # OIHW → JAX's HWIO
         self.bias = nn.Parameter(torch.empty(out_channels, device=device)) if bias else None
 
     def reset_parameters(self, generator: torch.Generator) -> None:

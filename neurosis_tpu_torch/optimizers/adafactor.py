@@ -26,6 +26,13 @@ def relative_step(step: int, warmup_init: bool) -> float:
     return float(rel)
 
 
+def adafactor_relative_step_schedule(warmup_init: bool = False):
+    """``neurosis.optimizers.AdafactorScheduler``: the relative step as a
+    ``step -> lr`` schedule, for logging; the builder composes it with nothing,
+    since Adafactor applies it itself."""
+    return lambda step: relative_step(int(step), warmup_init)
+
+
 def _factored_dims(shape: tuple) -> Optional[tuple[int, int]]:
     """(d1, d0) torch axes of the second largest and the largest dim, picked
     as optax does (np.argsort, min_dim_size_to_factor=2) on the JAX layout."""
@@ -60,6 +67,14 @@ class Adafactor(torch.optim.Optimizer):
                         warmup_init=warmup_init)
         super().__init__(params, defaults)
         self.count = 0  # completed updates
+
+    def state_dict(self) -> dict:
+        """torch's, with ``count``, so a resumed run keeps its relative step."""
+        return dict(super().state_dict(), count=self.count)
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        super().load_state_dict(state_dict)
+        self.count = int(state_dict["count"])
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -96,4 +111,6 @@ class Adafactor(torch.optim.Optimizer):
         u = u * lr
         if group["scale_parameter"]:
             u = u * torch.sqrt(torch.clamp_min(torch.mean(p.float() ** 2), 1e-3**2))
+        if group["relative_step"] and group.get("lr_scale", 1.0) != 1.0:
+            u = u * group["lr_scale"]  # a group's own base_lr; a given lr is scaled already (build_optimizer)
         p.sub_(u.to(p.dtype))

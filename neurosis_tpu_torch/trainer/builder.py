@@ -22,6 +22,7 @@ from ..config.loader import _adapt_kwargs, _parameters, instantiate
 from ..config.registry import resolve_class_path
 from ..models.autoencoder import AutoencoderKL
 from ..modules.encoders.embedding import GeneralConditioner
+from ..schedulers import attach_schedule
 from .engine import DiffusionEngine
 
 logger = logging.getLogger(__name__)
@@ -63,15 +64,29 @@ def build_engine(model_node: dict, precision=None, device=None, generator: Optio
     return build(model_node, compute_dtype(precision), device, generator)
 
 
+def _numbers(kwargs: dict) -> dict:
+    """Numeric strings as floats: YAML 1.1 reads ``3e-5`` (no dot) as a
+    string, which the reference's CLI casts by the class's float annotation
+    (the JAX package passes it on, and its schedule then fails)."""
+    def number(v):
+        try:
+            return float(v) if isinstance(v, str) else v
+        except ValueError:
+            return v
+
+    return {k: number(v) for k, v in kwargs.items()}
+
+
 def build_optimizer(node: Optional[dict], scheduler_node: Optional[dict] = None) -> OptimizerFactory:
-    """optimizer node → ``params → torch.optim.Optimizer``. ``lr`` and
-    ``learning_rate`` are renamed to the one the class takes. The JAX-only
-    ``stacked:`` key (optax updates batched by shape group, the same math)
-    has nothing to change in a per-parameter torch optimizer, so it is not
-    read."""
-    if scheduler_node is not None:
-        raise NotImplementedError(f"scheduler {scheduler_node.get('class_path')!r}: LR schedules are not ported "
-                                  "yet: ROADMAP Queue 1 item 8")
+    """optimizer (and scheduler) nodes → ``params → torch.optim.Optimizer``.
+    ``lr`` and ``learning_rate`` are renamed to the one the class takes. The
+    JAX-only ``stacked:`` key (optax updates batched by shape group, the same
+    math) has nothing to change in a per-parameter torch optimizer, so it is
+    not read. ``params`` may be param groups: a group's ``lr_scale`` (a
+    trainable embedder's own base_lr over the engine's) multiplies its lr, as
+    JAX's ``optax.scale`` after the optimizer does. A scheduler other than
+    ``AdafactorScheduler`` (which composes nothing) sets each group's lr to
+    its base × ``sched(count)`` (``schedulers.attach_schedule``)."""
     if node is None:
         node = {"class_path": "optax.adamw", "init_args": {"learning_rate": 1e-4}}
     cls = resolve_class_path(node["class_path"])
@@ -80,8 +95,19 @@ def build_optimizer(node: Optional[dict], scheduler_node: Optional[dict] = None)
     for given, wanted in (("lr", "learning_rate"), ("learning_rate", "lr")):
         if given in kwargs and given not in takes and wanted in takes:
             kwargs[wanted] = kwargs.pop(given)
-    kwargs = _adapt_kwargs(cls, kwargs)
-    return lambda params: cls(params, **kwargs)
+    kwargs = _adapt_kwargs(cls, _numbers(kwargs))
+    sched = None
+    if scheduler_node is not None and "AdafactorScheduler" not in scheduler_node.get("class_path", ""):
+        sched = instantiate(dict(scheduler_node, init_args=_numbers(scheduler_node.get("init_args") or {})))
+
+    def factory(params) -> torch.optim.Optimizer:
+        opt = cls(params, **kwargs)
+        for group in opt.param_groups:
+            if group.get("lr") is not None and "lr_scale" in group:
+                group["lr"] = group["lr"] * group["lr_scale"]
+        return attach_schedule(opt, sched) if sched is not None else opt
+
+    return factory
 
 
 def build_conditioner(node: dict, context: dict) -> tuple[GeneralConditioner, list[int]]:
@@ -121,10 +147,10 @@ def build_autoencoding_engine(model_node: dict, dtype=None, device=None, generat
 
     args = dict(model_node.get("init_args") or {})
     for key, what in (("regularizer_config", "regularizers other than the KL posterior"),
-                      ("ckpt_path", "loading a VAE checkpoint"), ("scheduler", "LR schedules")):
+                      ("ckpt_path", "loading a VAE checkpoint")):
         if args.get(key):
             raise NotImplementedError(f"{key}: {what} for the VAE trainer are not ported yet: ROADMAP Queue 1 "
-                                      f"item {'8' if key == 'scheduler' else '9'}")
+                                      "item 9")
     context = {"device": device, "generator": generator}
     dd = dict(args.get("ddconfig") or {})
     double_z = dd.pop("double_z", True)
@@ -144,7 +170,7 @@ def build_autoencoding_engine(model_node: dict, dtype=None, device=None, generat
     decoder = Decoder(out_ch=dd.get("out_ch", 3), **common)
     loss = instantiate(args["loss"], context) if isinstance(args.get("loss"), dict) \
         else AutoencoderPerceptual(**context)
-    g_opt = build_optimizer(args.get("optimizer"))
+    g_opt = build_optimizer(args.get("optimizer"), args.get("scheduler"))  # JAX: the scheduler is G's
     d_opt = build_optimizer(args["disc_optimizer"]) if args.get("disc_optimizer") \
         else (lambda params: torch.optim.Adam(params, lr=1e-4))  # optax.adam(1e-4), the JAX default
     disc_start = getattr(loss, "disc_start", -1)
@@ -178,12 +204,16 @@ def build_diffusion_engine(model_node: dict, dtype=None, device=None, generator=
     first_stage = build_first_stage(args.get("first_stage_model"), context)
     optimizer = build_optimizer(args.get("optimizer"), args.get("scheduler"))
 
-    # per-module LR param groups (models/diffusion.py:261-296) come with the
-    # configs that set them (sdxl-te, whose optimizer and scheduler wait too)
+    # per-module LR param groups (models/diffusion.py:261-296): the UNet trains
+    # at base_lr; each trainable embedder with its own base_lr is a param group
+    # at base_lr_i / base_lr of the optimizer's lr (JAX: optax.scale of the update)
     emb_nodes = (args["conditioner"].get("init_args") or {}).get("emb_models", [])
-    if args.get("base_lr") and any((emb_nodes[i].get("init_args") or {}).get("base_lr") is not None
-                                   for i in trainable_idx):
-        raise NotImplementedError("per-embedder base_lr param groups are not ported yet: ROADMAP Queue 1 item 8")
+    base_lr = args.get("base_lr")
+    lr_scales = {}
+    for i in trainable_idx if base_lr else []:
+        emb_lr = (emb_nodes[i].get("init_args") or {}).get("base_lr")
+        if emb_lr is not None:
+            lr_scales[i] = float(emb_lr) / float(base_lr)
 
     engine = DiffusionEngine(
         model=unet,
@@ -197,6 +227,7 @@ def build_diffusion_engine(model_node: dict, dtype=None, device=None, generator=
         input_key=args.get("input_key", "image"),
         use_ema=bool(args.get("use_ema", False)),
         trainable_embedders=tuple(trainable_idx),
+        lr_scales=lr_scales,
         device=device,
     )
     engine.ckpt_path = args.get("ckpt_path")

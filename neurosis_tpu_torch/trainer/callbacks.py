@@ -1,7 +1,13 @@
 """The trainer callbacks the configs name (port of the part of
 neurosis_tpu/trainer/callbacks.py they use): device memory stats, the model
-summary and the image logger. The checkpoint callback is not ported yet
-(ROADMAP Queue 1 item 12); the CLI refuses configs that ask for it.
+summary, the image logger and checkpoints.
+
+Checkpoints are the port's own format, not the JAX package's orbax trees:
+one directory a step under ``dirpath`` (default ``<root>/checkpoints``), as
+orbax's manager lays them out, holding ``state.pt``, a ``torch.save`` of
+JAX's ``_state_payload`` (``params``, ``step``, ``opt_state``, ``ema_params``,
+``ema_num_updates``) readable with ``torch.load(weights_only=True)``.
+``load_checkpoint`` reads one back into an engine's state.
 
 Hooks: on_fit_start(trainer, state), on_train_batch_end(trainer, state,
 batch, metrics, step), on_fit_end(trainer, state).
@@ -10,6 +16,9 @@ batch, metrics, step), on_fit_end(trainer, state).
 from __future__ import annotations
 
 import logging
+import os
+import shutil
+import time
 from enum import Enum
 from pathlib import Path
 from typing import Optional, Sequence
@@ -228,3 +237,148 @@ class ImageLogger:
                 wb.log({f"{self.split}/table": wandb.Table(columns=cols, data=rows)}, step=step)
         except Exception:
             logger.exception("wandb image logging failed")
+
+
+# -- checkpoints -----------------------------------------------------------------
+
+CHECKPOINT_FORMAT = "neurosis_tpu_torch/1"
+STATE_FILE = "state.pt"
+
+
+def is_remote_url(path) -> bool:
+    """True for fsspec URLs (gs://, s3://, memory://, ...), not local paths."""
+    return bool(path) and "://" in str(path) and not str(path).startswith("file://")
+
+
+def _named_params(engine) -> list:
+    """(name, parameter) of what a checkpoint holds: the diffusion engine's
+    trainable parameters, or every parameter of the VAE trainer's encoder,
+    decoder and loss (JAX's ``VAETrainState.params``, the frozen LPIPS trunk
+    included)."""
+    if hasattr(engine, "named_trainable_parameters"):
+        return engine.named_trainable_parameters()
+    return [(f"{top}.{n}", p) for top, module in engine_modules(engine).items() for n, p in module.named_parameters()]
+
+
+def _ema_names(engine) -> list:
+    """Names of the EMA shadows, in their order (the trainable parameters,
+    or the VAE's encoder and decoder)."""
+    if hasattr(engine, "named_trainable_parameters"):
+        return [n for n, _ in engine.named_trainable_parameters()]
+    return [f"{top}.{n}" for top in ("encoder", "decoder") for n, _ in getattr(engine, top).named_parameters()]
+
+
+def state_payload(engine, state) -> dict:
+    """JAX's ``_state_payload``: params, step, the optimizer's state (the
+    diffusion engine's; JAX's VAETrainState keeps ``g_opt_state``, which its
+    payload does not save, so the VAE trainer's optimizers are not saved
+    either), and the EMA shadows with their update count."""
+    payload = {"format": CHECKPOINT_FORMAT, "step": int(state.step),
+               "params": {n: p.detach() for n, p in _named_params(engine)}}
+    if getattr(state, "optimizer", None) is not None:
+        payload["opt_state"] = state.optimizer.state_dict()
+    if getattr(state, "ema", None) is not None:
+        payload["ema_params"] = dict(zip(_ema_names(engine), state.ema.params))
+        payload["ema_num_updates"] = int(state.ema.num_updates)
+    return payload
+
+
+def _load_tensors(dst: list, src: dict, what: str) -> None:
+    """Copy ``src`` ({name: tensor}) into the (name, tensor) pairs of ``dst``;
+    names and shapes must agree."""
+    names = [n for n, _ in dst]
+    if sorted(names) != sorted(src):
+        missing, extra = sorted(set(names) - set(src)), sorted(set(src) - set(names))
+        raise ValueError(f"checkpoint {what} do not match the engine's: missing {missing[:5]}, unexpected "
+                         f"{extra[:5]}")
+    with torch.no_grad():
+        for n, t in dst:
+            if tuple(src[n].shape) != tuple(t.shape):
+                raise ValueError(f"checkpoint {what} {n} has shape {tuple(src[n].shape)}, not {tuple(t.shape)}")
+            t.copy_(src[n])
+
+
+def load_state_payload(engine, state, payload: dict):
+    """Restore a payload of ``state_payload`` in place: parameters, step,
+    optimizer state and EMA. The state's generator is not restored: the JAX
+    package saves no rng and restarts it from the seed, and so does the port."""
+    if payload.get("format") != CHECKPOINT_FORMAT:
+        raise ValueError(f"not a checkpoint of the port (format {payload.get('format')!r})")
+    _load_tensors(_named_params(engine), payload["params"], "parameters")
+    state.step = int(payload["step"])
+    if "opt_state" in payload and getattr(state, "optimizer", None) is not None:
+        state.optimizer.load_state_dict(payload["opt_state"])
+    if "ema_params" in payload and getattr(state, "ema", None) is not None:
+        _load_tensors(list(zip(_ema_names(engine), state.ema.params)), payload["ema_params"], "EMA shadows")
+        state.ema.num_updates = int(payload["ema_num_updates"])
+    return state
+
+
+def checkpoint_steps(root: Path) -> list:
+    """Steps saved under ``root``, oldest first. A step directory without the
+    port's state file (the JAX package's orbax trees, or another format)
+    raises, so a run never starts fresh beside a checkpoint it cannot read."""
+    steps = []
+    for d in Path(root).iterdir() if Path(root).is_dir() else []:
+        if not (d.is_dir() and d.name.isdigit()):
+            continue  # e.g. a <step>.tmp of an interrupted save
+        if not (d / STATE_FILE).is_file():
+            orbax = any((d / m).exists() for m in ("_CHECKPOINT_METADATA", "_METADATA", "default"))
+            raise ValueError(f"{d} holds no {STATE_FILE}: "
+                             + ("it is an orbax checkpoint of the JAX package, which the port cannot read"
+                                if orbax else "not a checkpoint of the port"))
+        steps.append(int(d.name))
+    return sorted(steps)
+
+
+def load_checkpoint(path: Path) -> dict:
+    """A ``state.pt`` read with ``weights_only`` into host memory, memory-mapped
+    (a large one is not read at once; loading moves each tensor to its
+    parameter's device); an unreadable file raises."""
+    try:
+        return torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+    except Exception as e:
+        raise ValueError(f"cannot read checkpoint {path}: {e}") from e
+
+
+class CheckpointCallback:
+    """State checkpointing (ModelCheckpoint's role): every
+    ``every_n_train_steps`` steps the state goes to ``<dirpath>/<step>/state.pt``,
+    written under ``<step>.tmp`` and then renamed, so an interrupted save
+    leaves the earlier ones readable; only the newest ``keep`` are kept.
+    Remote ``dirpath``s (``checkpoint/blob.py``) are not ported."""
+
+    def __init__(self, dirpath: Optional[str] = None, every_n_train_steps: int = 1000, keep: int = 3):
+        if is_remote_url(dirpath):
+            raise NotImplementedError(f"model_checkpoint dirpath {dirpath!r}: remote checkpoints "
+                                      "(checkpoint/blob.py) are not ported yet: ROADMAP Queue 1 item 11")
+        self.dirpath = dirpath
+        self.every_n = every_n_train_steps
+        self.keep = keep
+        self.last_save_s: Optional[float] = None  # seconds of the last save, for the caller's records
+
+    def root(self, trainer) -> Path:
+        return Path(self.dirpath or (Path(trainer.root_dir) / "checkpoints")).absolute()
+
+    def save(self, trainer, state, step: int) -> Path:
+        t0 = time.perf_counter()
+        root = self.root(trainer)
+        root.mkdir(parents=True, exist_ok=True)
+        tmp, final = root / f"{step}.tmp", root / str(step)
+        shutil.rmtree(tmp, ignore_errors=True)
+        tmp.mkdir()
+        with open(tmp / STATE_FILE, "wb") as f:
+            torch.save(state_payload(trainer.engine, state), f)
+            f.flush()
+            os.fsync(f.fileno())
+        shutil.rmtree(final, ignore_errors=True)
+        os.rename(tmp, final)
+        for old in checkpoint_steps(root)[:-self.keep]:
+            shutil.rmtree(root / str(old))
+        self.last_save_s = time.perf_counter() - t0
+        logger.info(f"saved checkpoint at step {step} to {final} in {self.last_save_s:.1f} s")
+        return final
+
+    def on_train_batch_end(self, trainer, state, batch, metrics, step: int):
+        if step % self.every_n == 0:
+            self.save(trainer, state, step)

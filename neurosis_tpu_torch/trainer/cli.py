@@ -12,11 +12,17 @@ port's counterpart of ``JAX_PLATFORMS=cpu``: without it and without CUDA the
 CLI raises. ``predict`` samples the prompts with the model's ``sampler:``
 into ``--out`` (default ``<root>/predictions``).
 
+The ``model_checkpoint:`` node saves the run's state every
+``every_n_train_steps`` (keeping ``save_top_k``) under ``dirpath`` or
+``<root>/checkpoints``, and a run started in the same root resumes from its
+latest step. ``data.init_args.num_workers`` (default 2) batches load ahead
+in spawned worker processes (``prefetch_mode`` or ``NEUROSIS_PREFETCH``:
+``process`` or ``thread``; 0 loads them in this process).
+
 Config nodes the port cannot honour yet raise ``NotImplementedError`` naming
-their ROADMAP Queue 1 item, never pass in silence: ``model_checkpoint:``
-(12), ``trainer.profiler:`` (11), more than one device, ``strategy: fsdp``
-or ``context_parallel`` (10). ``data.num_workers`` prefetch is item 13:
-batches load in this process.
+their ROADMAP Queue 1 item, never pass in silence: ``trainer.profiler:``
+(11), a remote checkpoint ``dirpath`` (11), more than one device,
+``strategy: fsdp`` or ``context_parallel`` (10).
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import sys
 from pathlib import Path
 
@@ -79,12 +86,9 @@ def _wandb_config(trainer_cfg: dict):
 
 def _refuse_unported(cfg: dict, trainer_cfg: dict) -> None:
     """Raise on every node the port cannot honour yet (see the module doc)."""
-    for node, item, what in (
-        (cfg.get("model_checkpoint"), 12, "model_checkpoint: (the port's checkpoint saving and resume)"),
-        (trainer_cfg.get("profiler"), 11, "trainer.profiler: (NeurosisProfiler on torch.profiler)"),
-    ):
-        if node:
-            raise NotImplementedError(f"{what} is not ported yet: ROADMAP Queue 1 item {item}")
+    if trainer_cfg.get("profiler"):
+        raise NotImplementedError("trainer.profiler: (NeurosisProfiler on torch.profiler) is not ported yet: "
+                                  "ROADMAP Queue 1 item 11")
     devices = trainer_cfg.get("devices")
     strategy = str(trainer_cfg.get("strategy", "") or "")
     fsdp = int(trainer_cfg.get("fsdp", 0) or 0)
@@ -132,7 +136,7 @@ def _callbacks(trainer_cfg: dict) -> list:
         elif cp.endswith("ModelSummary"):
             callbacks.append(ModelSummaryCallback(max_depth=ia.get("max_depth", 2)))
         elif cp.endswith("LearningRateMonitor"):
-            pass  # no LR schedule is ported; the LR is the optimizer's own
+            pass  # the schedule's lr is each param group's "lr", in the optimizer's state
         else:
             try:
                 callbacks.append(resolve_class_path(cp)(**ia))
@@ -159,10 +163,16 @@ def _build(args):
     engine = build_engine(cfg["model"], precision=trainer_cfg.get("precision"), device=device,
                           generator=torch.Generator(device).manual_seed(seed))
     dataset = instantiate(cfg["data"]) if "data" in cfg else None
-    workers = ((cfg.get("data") or {}).get("init_args") or {}).get("num_workers")
-    if workers:
-        logger.info(f"data.num_workers={workers}: batches load in this process (prefetch is ROADMAP Queue 1 "
-                    "item 13)")
+    callbacks = _callbacks(trainer_cfg)
+    if cfg.get("image_logger"):
+        callbacks.append(_image_logger(cfg["image_logger"]))
+    if cfg.get("model_checkpoint"):
+        from .callbacks import CheckpointCallback
+
+        mc = dict(cfg["model_checkpoint"])
+        callbacks.append(CheckpointCallback(dirpath=mc.get("dirpath"),
+                                            every_n_train_steps=mc.get("every_n_train_steps", 1000),
+                                            keep=mc.get("save_top_k", mc.get("keep", 3)) or 3))
 
     fast_dev = trainer_cfg.get("fast_dev_run", False)
     if getattr(args, "fast_dev_run", None) is not None:
@@ -177,20 +187,29 @@ def _build(args):
         default_root_dir=trainer_cfg.get("default_root_dir", "./projects"),
         seed=seed,
         fast_dev_run=bool(fast_dev),
-        callbacks=_callbacks(trainer_cfg) + ([_image_logger(cfg["image_logger"])] if cfg.get("image_logger")
-                                             else []),
+        callbacks=callbacks,
         wandb_config=_wandb_config(trainer_cfg),
         allow_random_weights=trainer_cfg.get("allow_random_weights", False),
     )
     return cfg, engine, dataset, trainer
 
 
-def _batch_factory(dataset):
-    """Dataset → per-epoch batch iterable, loaded in this process."""
+def _batch_factory(cfg: dict, dataset):
+    """Dataset → per-epoch batch iterable (cli.py:220-252): index batches
+    from ``get_batch_iterator()``, loaded by ``data.init_args.num_workers``
+    (default 2) prefetch workers, or in this process for 0."""
+    from ..data.prefetch import get_batch, make_prefetcher, seeded_batches
+
+    init_args = (cfg.get("data") or {}).get("init_args") or {}
+    num_workers = int(init_args.get("num_workers", 2) or 0)
+    mode = os.environ.get("NEUROSIS_PREFETCH") or init_args.get("prefetch_mode", "process")
 
     def batches():
-        for idx_batch in dataset.get_batch_iterator():
-            yield dataset.get_batch(idx_batch)
+        if num_workers > 0:
+            yield from make_prefetcher(mode)(dataset, dataset.get_batch_iterator(), num_workers=num_workers)
+        else:
+            for indices, seed in seeded_batches(dataset, dataset.get_batch_iterator()):
+                yield get_batch(dataset, indices, seed)
 
     return batches
 
@@ -199,7 +218,7 @@ def run_fit(args) -> int:
     cfg, engine, dataset, trainer = _build(args)
     if dataset is None:
         raise ValueError("fit requires a `data:` node in the config")
-    state = trainer.fit(_batch_factory(dataset))
+    state = trainer.fit(_batch_factory(cfg, dataset))
     logger.info(f"fit complete at step {int(state.step)}")
     return 0
 
@@ -215,7 +234,7 @@ def run_eval(args, split: str) -> int:
         dataset = instantiate(cfg["data_test"])
     if dataset is None:
         raise ValueError(f"{'validate' if split == 'val' else 'test'} requires a `data:` node in the config")
-    metrics = trainer.validate(_batch_factory(dataset), max_batches=args.max_batches)
+    metrics = trainer.validate(_batch_factory(cfg, dataset), max_batches=args.max_batches)
     logger.info(f"{split}: " + ", ".join(f"{k}={v:.5f}" for k, v in metrics.items()))
     print(json.dumps({f"{split}/{k}": v for k, v in metrics.items()}))
     return 0

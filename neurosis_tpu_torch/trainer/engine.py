@@ -45,7 +45,7 @@ class DiffusionEngine:
                  use_ema: bool = False, ema_decay: float = 0.9999, latents_key: str = "latents",
                  trainable_embedders: Sequence[int] = (), first_stage: Optional[AutoencoderKL] = None,
                  scale_factor: float = 0.18215, input_key: str = "image", sampler: Any = None,
-                 device: DeviceLike = None):
+                 lr_scales: Optional[dict] = None, device: DeviceLike = None):
         self.device = resolve_device(device)
         self.sampler = sampler
         self.model = model
@@ -59,20 +59,34 @@ class DiffusionEngine:
         self.first_stage = first_stage.requires_grad_(False) if first_stage is not None else None
         self.scale_factor = scale_factor
         self.input_key = input_key
+        self.lr_scales = dict(lr_scales or {})  # trainable embedder index -> its base_lr over the engine's
         for i, emb in enumerate(conditioner.embedders):
             emb.requires_grad_(i in set(trainable_embedders))
 
+    def named_trainable_parameters(self) -> list:
+        """(name, parameter): the UNet's as ``model.*``, then the trainable
+        embedders' as ``conditioner.*`` (JAX's ``state.params``)."""
+        return [("model." + n, p) for n, p in self.model.named_parameters()] + \
+            [("conditioner." + n, p) for n, p in self.conditioner.named_parameters() if p.requires_grad]
+
     def trainable_parameters(self) -> list:
         """UNet parameters, then those of the trainable embedders."""
-        params = list(self.model.parameters())
-        params += [p for p in self.conditioner.parameters() if p.requires_grad]
-        return params
+        return [p for _, p in self.named_trainable_parameters()]
+
+    def param_groups(self) -> list:
+        """The optimizer's param groups: everything at the optimizer's lr, and
+        one group (with its ``lr_scale``) per embedder that has its own base_lr."""
+        embedders = self.conditioner.embedders
+        scaled = [{"params": [p for p in embedders[i].parameters() if p.requires_grad], "lr_scale": s}
+                  for i, s in sorted(self.lr_scales.items())]
+        default = list(self.model.parameters()) + [p for i, emb in enumerate(embedders) if i not in self.lr_scales
+                                                   for p in emb.parameters() if p.requires_grad]
+        return [{"params": default}] + [g for g in scaled if g["params"]]
 
     def init(self, seed: int = 0) -> TrainState:
-        params = self.trainable_parameters()
         generator = torch.Generator(self.device).manual_seed(seed)
-        ema = ema_init(params) if self.use_ema else None
-        return TrainState(step=0, optimizer=self.optimizer(params), ema=ema, generator=generator)
+        ema = ema_init(self.trainable_parameters()) if self.use_ema else None
+        return TrainState(step=0, optimizer=self.optimizer(self.param_groups()), ema=ema, generator=generator)
 
     @torch.no_grad()
     def encode_first_stage(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
@@ -115,7 +129,7 @@ class DiffusionEngine:
             p.grad = None
         loss = self.loss(batch, latents, state.generator, t=t, noise=noise)
         loss.backward()
-        grad_norm = global_norm([p.grad for p in params])
+        grad_norm = global_norm([p.grad for p in params if p.grad is not None])  # JAX: an unused one's is 0
         state.optimizer.step()
         if state.ema is not None:
             ema_update(state.ema, params, self.ema_decay)

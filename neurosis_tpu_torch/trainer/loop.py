@@ -13,13 +13,17 @@ span named ``STEP_SPAN``, which a profiler reads.
 ``predict`` samples images for prompts with the engine's sampler and
 writes them as PNGs with a captioned grid.
 
-Not ported yet, and refused rather than skipped: resuming from
-``<root>/checkpoints`` (ROADMAP Queue 1 item 12). The CLI refuses more than
-one device (item 10).
+A run resumes from the latest step under ``<root>/checkpoints`` (the
+port's format, ``callbacks.CheckpointCallback``): parameters, optimizer
+state (with the schedule's count), EMA and step. The random generator
+restarts from the seed, as in the JAX package, which saves no rng. A
+checkpoint that cannot be read raises rather than start fresh beside it.
+The CLI refuses more than one device (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -31,7 +35,7 @@ from typing import Any, Callable, Iterable, Optional, Sequence
 import numpy as np
 import torch
 
-from .callbacks import engine_modules
+from .callbacks import STATE_FILE, checkpoint_steps, engine_modules, load_checkpoint, load_state_payload
 
 logger = logging.getLogger(__name__)
 
@@ -185,26 +189,37 @@ class Trainer:
             torch.cuda.synchronize(self.device)
 
     def _start(self, what: str):
-        """The engine's state, the checkpoint loaded into it, and the refusal
-        of a resume the port cannot read."""
+        """The engine's state, the checkpoint loaded into it, then the run's
+        latest saved state over both."""
         state = self.engine.init(self.seed)
         if getattr(self.engine, "ckpt_path", None):
             self._load_ckpt(state)
-        self._maybe_resume()
+        state = self._maybe_resume(state)
         if what != "fit":
             self._require_loaded_weights(what)
         return state
 
+    @contextlib.contextmanager
     def _batches(self, batch_iter_factory):
-        """(prepared batch, host batch, data ms) of each batch of one epoch."""
+        """(prepared batch, host batch, data ms) of each batch of one epoch;
+        the epoch's iterator is closed on leaving, which stops its prefetch
+        workers."""
         it = iter(batch_iter_factory())
-        while True:
-            t0 = time.perf_counter()
-            batch = next(it, None)
-            if batch is None:
-                return
-            prepped = self.prepare_batch(batch)
-            yield prepped, batch, (time.perf_counter() - t0) * 1e3
+
+        def gen():
+            while True:
+                t0 = time.perf_counter()
+                batch = next(it, None)
+                if batch is None:
+                    return
+                prepped = self.prepare_batch(batch)
+                yield prepped, batch, (time.perf_counter() - t0) * 1e3
+
+        try:
+            yield gen()
+        finally:
+            if hasattr(it, "close"):
+                it.close()
 
     def _step(self, fn, state, prepped) -> tuple[Any, dict]:
         """One step inside the profiler span, synced, with its host ms."""
@@ -230,30 +245,31 @@ class Trainer:
         try:
             while global_step < self.max_steps and (self.max_epochs is None or epoch < self.max_epochs):
                 batch_idx = 0
-                for prepped, batch, data_ms in self._batches(batch_iter_factory):
-                    if state is None:
-                        state = self._start("fit")
+                with self._batches(batch_iter_factory) as batches:
+                    for prepped, batch, data_ms in batches:
+                        if state is None:
+                            state = self._start("fit")
+                            for cb in self.callbacks:
+                                if hasattr(cb, "on_fit_start"):
+                                    cb.on_fit_start(self, state)
+                        if vae:  # alternating G/D steps (models/autoencoder.py:280-293)
+                            idx = self.engine.train_step_schedule(batch_idx, state.step)
+                            use_d = idx == 1 and state.d_optimizer is not None
+                            fn = self.engine.d_step if use_d else self.engine.g_step
+                        else:
+                            fn = self.engine.train_step
+                        state, metrics = self._step(fn, state, prepped)
+                        metrics["data_ms"] = data_ms
+                        batch_idx += 1
+                        self.batch_idx, self.epoch = batch_idx, epoch
+                        global_step = int(state.step)
+                        if global_step % self.log_every == 0:
+                            self.logger.log(metrics, global_step)
                         for cb in self.callbacks:
-                            if hasattr(cb, "on_fit_start"):
-                                cb.on_fit_start(self, state)
-                    if vae:  # alternating G/D steps (models/autoencoder.py:280-293)
-                        idx = self.engine.train_step_schedule(batch_idx, state.step)
-                        use_d = idx == 1 and state.d_optimizer is not None
-                        fn = self.engine.d_step if use_d else self.engine.g_step
-                    else:
-                        fn = self.engine.train_step
-                    state, metrics = self._step(fn, state, prepped)
-                    metrics["data_ms"] = data_ms
-                    batch_idx += 1
-                    self.batch_idx, self.epoch = batch_idx, epoch
-                    global_step = int(state.step)
-                    if global_step % self.log_every == 0:
-                        self.logger.log(metrics, global_step)
-                    for cb in self.callbacks:
-                        if hasattr(cb, "on_train_batch_end"):
-                            cb.on_train_batch_end(self, state, batch, metrics, global_step)
-                    if global_step >= self.max_steps:
-                        break
+                            if hasattr(cb, "on_train_batch_end"):
+                                cb.on_train_batch_end(self, state, batch, metrics, global_step)
+                        if global_step >= self.max_steps:
+                            break
                 epoch += 1
         except Exception:
             # ExceptionHandler parity: dump state for post-mortem
@@ -273,15 +289,16 @@ class Trainer:
         state = None
         sums: dict = {}
         n = 0
-        for prepped, _, _ in self._batches(batch_iter_factory):
-            if max_batches is not None and n >= max_batches:
-                break
-            if state is None:
-                state = self._start("validate")
-            state, metrics = self.engine.eval_step(state, prepped)
-            for k, v in metrics.items():
-                sums[k] = sums.get(k, 0.0) + float(v)
-            n += 1
+        with self._batches(batch_iter_factory) as batches:
+            for prepped, _, _ in batches:
+                if max_batches is not None and n >= max_batches:
+                    break
+                if state is None:
+                    state = self._start("validate")
+                state, metrics = self.engine.eval_step(state, prepped)
+                for k, v in metrics.items():
+                    sums[k] = sums.get(k, 0.0) + float(v)
+                n += 1
         if n == 0:
             return {}
         out = {k: v / n for k, v in sums.items()}
@@ -346,14 +363,22 @@ class Trainer:
             "Trainer(allow_random_weights=True) / fast_dev_run for smoke tests."
         )
 
-    def _maybe_resume(self):
-        """The JAX package resumes from the orbax trees under
-        ``<root>/checkpoints``, which the port cannot read; rather than start
-        fresh beside them, refuse."""
+    def _maybe_resume(self, state):
+        """Restore the latest step under ``<root>/checkpoints`` in place
+        (loop.py:567-613): parameters, optimizer state, EMA and step, and
+        mark the weights loaded. The generator is not restored (JAX saves no
+        rng either). Where JAX logs a failed resume and starts fresh, this
+        raises, so that a later save cannot rotate away a checkpoint it
+        could not read."""
         ckpt_dir = (self.root_dir / "checkpoints").absolute()
-        if ckpt_dir.exists():
-            raise NotImplementedError(f"{ckpt_dir} exists: resuming a run is not ported yet (ROADMAP Queue 1 "
-                                      "item 12); move it away to start a new run")
+        steps = checkpoint_steps(ckpt_dir)
+        if not steps:
+            return state
+        path = ckpt_dir / str(steps[-1]) / STATE_FILE
+        load_state_payload(self.engine, state, load_checkpoint(path))
+        self._weights_loaded = True
+        logger.info(f"resumed from checkpoint step {steps[-1]} ({path})")
+        return state
 
     def _crash_dump(self, state):
         try:

@@ -17,12 +17,15 @@
     widths that follow from them) and its depths, levels, heads and
     layouts as written.
 (d) The refusals: more than one device, an image_logger: node with an
-    unknown step type, model_checkpoint:, trainer.profiler:, an existing
-    checkpoints/ directory (fit and predict), and no CUDA without
-    --device cpu.
+    unknown step type, a remote model_checkpoint dirpath, trainer.profiler:,
+    a checkpoints/ directory of orbax trees (fit and predict), and no CUDA
+    without --device cpu.
 (e) The tiny fits (each with an image_logger: node) and predict in a
     process where jax, yaml, PIL, pandas, regex and safetensors cannot be
     imported (the card's machine in miniature).
+(f) sdxl-te.example.yaml against the JAX CLI's builder: in
+    tests/test_torch_cli_te.py (a file of its own, so that the test runner's
+    workers, which take whole files, run it beside this one).
 And chip_smoke.py's launch tables of its CLI phase against its fp32 tables.
 """
 
@@ -285,10 +288,6 @@ def test_configs_build_jax_names_and_shapes(config):
 
     cfg = _cut(load_config(ROOT / config))
     precision = (cfg.get("trainer") or {}).get("precision")
-    if config.endswith("sdxl-te.example.yaml"):  # AdamW8bit and its scheduler wait for item 8
-        with pytest.raises(NotImplementedError, match="item 8"):
-            build_engine(cfg["model"], precision, device="meta", generator=torch.Generator())
-        return
     engine = build_engine(cfg["model"], precision, device="meta", generator=torch.Generator())
     got = {}
     for top, module in engine_modules(engine).items():
@@ -307,8 +306,8 @@ def test_configs_build_jax_names_and_shapes(config):
      NotImplementedError, "item 11"),
     (("seed_everything: 42\n", "seed_everything: 42\nimage_logger:\n  log_step_type: every_epoch\n"),
      ValueError, "not a valid StepType"),
-    (("seed_everything: 42\n", "seed_everything: 42\nmodel_checkpoint:\n  every_n_train_steps: 10\n"),
-     NotImplementedError, "item 12"),
+    (("seed_everything: 42\n", "seed_everything: 42\nmodel_checkpoint:\n  dirpath: gs://bucket/run\n"),
+     NotImplementedError, "item 11"),
 ])
 def test_cli_refuses_what_it_cannot_honour(smoke, edit, error, match):
     from neurosis_tpu_torch.trainer.cli import main
@@ -319,12 +318,15 @@ def test_cli_refuses_what_it_cannot_honour(smoke, edit, error, match):
 
 
 def test_cli_refuses_resume_predict_and_a_missing_card(smoke, monkeypatch):
+    """A checkpoints/ directory of the JAX package's orbax trees is not read
+    as a resume, and not started fresh beside either: fit and predict raise."""
     from neurosis_tpu_torch.trainer.cli import main
 
-    (smoke / "root" / "checkpoints").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    (smoke / "root" / "checkpoints" / "5" / "default").mkdir(parents=True)
+    (smoke / "root" / "checkpoints" / "5" / "_CHECKPOINT_METADATA").write_text("{}")
+    with pytest.raises(ValueError, match="orbax checkpoint of the JAX package"):
         main(["fit", "-c", str(TINY), "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 12"):  # predict reads no resumable run either
+    with pytest.raises(ValueError, match="orbax checkpoint of the JAX package"):
         main(["predict", "-c", str(TINY), "--device", "cpu", "--size", "64", "--steps", "1"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -417,6 +419,7 @@ def test_chip_smoke_cli_tables_are_its_fp32_tables():
     assert per_path["cli_vae"] == {"fwd_f32": 2, "bwd_f32": 2}
     assert "sdxl_f32" not in per_path  # those rows are phase 11's now
     assert cs.TABLES_OF["cli_sdxl_bf16"] == "sdxl" and set(cs.PATHS) >= {"cli_sdxl_f32", "cli_sdxl_bf16", "cli_vae"}
+    assert cs.TABLES_OF["cli_sdxl_te"] == "cli_sdxl_f32" and "cli_sdxl_te" in cs.PATHS  # sdxl-te: the fp32 UNet's
     buckets = WDXLBucketList()
     assert all(buckets.bucket(w / h).size == (1024, 1024) and min(w, h) >= 1024 for w, h in cs.CLI_IMAGE_SIZES)
     assert len(cs.CLI_IMAGE_SIZES) == 8

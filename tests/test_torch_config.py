@@ -187,7 +187,8 @@ def test_instantiate_threads_device_and_generator():
 def test_build_optimizer_names_and_refusals():
     """optimizer nodes → params → torch optimizers: ``lr`` and
     ``learning_rate`` reach the one the class takes, the JAX-only
-    ``stacked:`` key changes nothing, a scheduler raises (item 8)."""
+    ``stacked:`` key changes nothing, a scheduler sets the lr from its
+    first value, AdamW8bit builds, and a group's lr_scale scales its lr."""
     from neurosis_tpu_torch.optimizers.adafactor import Adafactor
     from neurosis_tpu_torch.trainer.builder import build_optimizer
 
@@ -202,7 +203,12 @@ def test_build_optimizer_names_and_refusals():
     opt = build_optimizer({"class_path": "neurosis.optimizers.Adafactor",
                            "init_args": {"scale_parameter": True, "relative_step": True, "warmup_init": True}})(params)
     assert isinstance(opt, Adafactor) and opt.defaults["warmup_init"]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        build_optimizer(None, {"class_path": "neurosis.schedulers.CosineWithWarmUp"})
-    with pytest.raises(NotImplementedError, match="item 8"):
-        build_optimizer({"class_path": "bitsandbytes.optim.AdamW8bit", "init_args": {"lr": 1e-4}})
+    opt = build_optimizer(None, {"class_path": "neurosis.schedulers.CosineWithWarmUp",
+                                 "init_args": {"num_warmup_steps": 4, "num_training_steps": 10}})(params)
+    assert [g["lr"] for g in opt.param_groups] == [0.0]  # warmup from 0, as the JAX builder composes it
+    params[0].grad = torch.ones(3, 2)
+    opt.step()
+    assert opt.param_groups[0]["lr"] == 1e-4 * 0.25 and opt.param_groups[0]["schedule_count"] == 1
+    opt = build_optimizer({"class_path": "bitsandbytes.optim.AdamW8bit", "init_args": {"lr": 1e-4}})(
+        [{"params": params}, {"params": [torch.nn.Parameter(torch.zeros(2))], "lr_scale": 0.5}])
+    assert type(opt).__name__ == "AdamW8bit" and [g["lr"] for g in opt.param_groups] == [1e-4, 0.5e-4]
