@@ -15,7 +15,8 @@ an image logger) and on configs/vae/vae.example.yaml (also with an image
 logger), and python -m neurosis_tpu_torch predict on sdxl.example.yaml, and
 a training run of configs/sdxl/sdxl-te.example.yaml as written (fp32 UNet,
 both text towers trainable, 8-bit AdamW, the legacy cosine schedule) that
-saves a checkpoint and is resumed from it.
+saves a checkpoint and is resumed from it, and the SD training path's
+options (objectives, remat policies, caption dropout, loss hooks).
 
 Phases, each fatal on failure:
   1. environment: Python, torch and CUDA versions, the card's name and power limit;
@@ -98,7 +99,21 @@ Phases, each fatal on failure:
      and profiled alone; 8-bit AdamW on the card against the CPU at a bigG
      token embedding and a small leaf; each run's launches equal its steps
      x cli_sdxl_te's tables (those of cli_sdxl_f32). The run directory,
-     with its checkpoint, is deleted afterwards.
+     with its checkpoint, is deleted afterwards;
+ 15. the training path's options, in chiprun_out/cli/ after phase 14 (its
+     captions rewritten as tags the tag hook counts): one train step of a
+     small engine of each objective (v over the tan zero-terminal-SNR table
+     with min-SNR and noise offset under remat names/dots_names, EDM,
+     rectified flow XL and comfy with L1, the UNet variants in fp32) on the
+     card against the CPU, and the memory-saving GroupNorm against its plain
+     version on the card; then, through the CLI, fit of a v-prediction copy
+     of the bf16 SDXL config (3 steps, remat [none, none, dots_names],
+     caption dropout, noise offset, min-SNR, the tag hook, Adafactor momentum
+     and decay, an image logger at step 2; third step profiled), of the
+     bf16 copy with only that remat policy (2 steps profiled: the remat pair
+     with phase 11's), and of EDM and rectified-flow copies of
+     sd15.example.yaml (2 steps; the latter with an rf_safeguard logger),
+     each run's launches held to its tables (REMAT_TABLES for the policy).
 Phases 11, 13 and 14 load batches in 2 spawned prefetch worker processes
 (the CLI's default num_workers), which see no CUDA device.
 Then one JSON line of kernels, the nvidia-smi line and, last, the result line.
@@ -258,14 +273,14 @@ LOGGER_IMAGES, LOGGER_STEPS = 2, 4
 # its mid attention (32x32 latents) in the encoder and the decoder
 CLI_VAE_LOGGER_F32_FLASH_SHAPES = {(2, 1, 1024, 1024, 512): 2}
 FORWARD_ONLY = ("sdxl_sample1", "sdxl_sample4", "sdxl_decode1", "sdxl_decode4", "cli_predict", "cli_logger",
-                "cli_vae_logger")
+                "cli_vae_logger", "cli_sd15_logger")
 
 
 def sampling_tables() -> dict:
     """{path: (bf16 flash, fp32 flash, conv3x3, gn_silu_conv3x3)} launches per
     unit of each sampling path: sdxl_sample<b> one UNet call for b images,
     sdxl_decode<b> one decode of b images, cli_predict one predict run,
-    cli_logger and cli_vae_logger one image-logger call."""
+    cli_logger, cli_vae_logger and cli_sd15_logger one image-logger call."""
     out = {}
     for b in SAMPLE_BATCHES:
         out[f"sdxl_sample{b}"] = (*sdxl_unet_call(2 * b)[:1], {}, *sdxl_unet_call(2 * b)[1:])
@@ -275,6 +290,7 @@ def sampling_tables() -> dict:
     flash, conv, gn = (scaled(t, LOGGER_STEPS) for t in sdxl_unet_call(2 * LOGGER_IMAGES))
     out["cli_logger"] = (flash, {(LOGGER_IMAGES,) + DECODE_F32_SHAPE: 3}, conv, gn)  # encode, two decodes
     out["cli_vae_logger"] = ({}, dict(CLI_VAE_LOGGER_F32_FLASH_SHAPES), {}, {})
+    out["cli_sd15_logger"] = ({}, dict(SD15_LOGGER_F32_FLASH_SHAPES), {}, {})
     return out
 
 # phase 14: sdxl-te.example.yaml as written through the CLI, saved at step 2 of a 3-step
@@ -282,6 +298,38 @@ def sampling_tables() -> dict:
 TE_SAVE_STEPS, TE_RESUME_STEPS, TE_EVERY = 3, 4, 2
 # (c): one bigG token embedding (vocab x width) and one LayerNorm weight, under min_8bit_size
 ADAMW8BIT_SHAPES = ((49408, 1280), (1280,))
+
+# phase 15: the SD training path's options. A v-prediction zero-terminal-SNR
+# fine-tune of the bf16-mixed SDXL copy with remat_policy [none, none, dots_names]
+# (configs/sdxl/sdxl-tpu-v5e.yaml:37): its rows are phase 9's, but a transformer
+# block's flash forward is launched again in the backward only where its level's
+# policy recomputes it (full, dots, dots_all: the kernel is no matmul, so only
+# names and dots_names keep its output); the SDXL UNet's attention rows are level 1
+# (64x64 = 4096 queries) and level 2 with the middle (32x32 = 1024)
+VPRED_REMAT = ("none", "none", "dots_names")
+RECOMPUTING_POLICIES = ("full", "dots", "dots_all")
+SDXL_ATTN_LEVEL = {4096: 1, 1024: 2}
+
+
+def remat_flash_table(table: dict, policy, level_of: dict) -> dict:
+    """A (forward, backward) flash table of a fully recomputed path under
+    ``policy`` (one per level): a row's forward runs once more in the
+    backward where its level's policy recomputes, else once."""
+    return {sh: (bwd * (2 if policy[level_of[sh[2]]] in RECOMPUTING_POLICIES else 1), bwd)
+            for sh, (_fwd, bwd) in table.items()}
+
+
+# a path whose flash forwards differ from its base path's rows (TABLES_OF) by its remat policy
+REMAT_TABLES = {path: remat_flash_table(SDXL_FLASH_SHAPES, VPRED_REMAT, SDXL_ATTN_LEVEL)
+                for path in ("cli_sdxl_vpred", "cli_sdxl_remat")}
+VPRED_STEPS, VPRED_PROFILED_STEP, OPTION_STEPS = 3, 3, 2
+# one image-logger call of the rectified-flow SD1.5 copy (256 px, batch 1: one image): the
+# fp32 encode, the UNet at CFG batch 2 for each step of the comfy table (no trailing zero:
+# LOGGER_STEPS entries, one step fewer), level 0's 5 transformer blocks past the flash
+# gate, and the reconstruction and the samples decoded
+RF_LOGGER_CALLS = LOGGER_STEPS - 1
+SD15_LOGGER_F32_FLASH_SHAPES = {(2, 8, 1024, 1024, 40): 5 * RF_LOGGER_CALLS, (2, 8, 1024, 77, 40): 5 * RF_LOGGER_CALLS,
+                                (1, 1, 1024, 1024, 512): 3}
 
 # path -> (its key in the report, the unit its launch tables count)
 PATHS = {"sd15": ("slice", "SD1.5 train step"),
@@ -303,10 +351,23 @@ PATHS = {"sd15": ("slice", "SD1.5 train step"),
                                         "(fp32 UNet, CFG 7.5), 2 prompts, 4 steps, 1024 px"),
          "cli_logger": ("cli_logger", "one image-logger call of the bf16-mixed copy's fit (2 images: encode, 4 "
                                       "CFG steps, two decodes)"),
-         "cli_vae_logger": ("cli_vae_logger", "one image-logger call of vae.example.yaml's fit (2 images)")}
+         "cli_vae_logger": ("cli_vae_logger", "one image-logger call of vae.example.yaml's fit (2 images)"),
+         "cli_sdxl_vpred": ("cli_sdxl_vpred", "SDXL train step of the v-prediction zero-terminal-SNR copy (bf16-mixed, "
+                                              "remat [none, none, dots_names], UCG, noise offset, min-SNR, the tag "
+                                              "hook, Adafactor beta1 and decay) through the CLI"),
+         "cli_sdxl_remat": ("cli_sdxl_remat", "SDXL train step of the bf16-mixed copy with remat [none, none, "
+                                              "dots_names] and nothing else changed, through the CLI"),
+         "cli_vpred_logger": ("cli_vpred_logger", "one image-logger call of the v-prediction copy's fit (2 images, 4 "
+                                                  "Euler CFG steps over the tan table)"),
+         "cli_sd15_edm": ("cli_sd15_edm", "SD1.5 train step of sd15.example.yaml's EDM copy through the CLI"),
+         "cli_sd15_rf": ("cli_sd15_rf", "SD1.5 train step of sd15.example.yaml's rectified-flow copy (comfy, L1) "
+                                        "through the CLI"),
+         "cli_sd15_logger": ("cli_sd15_logger", "one image-logger call of the rectified-flow copy's fit (1 image, "
+                                                "rf_safeguard)")}
 # a path whose shape tables are another's (the same step, reached another way; the towers of
 # sdxl-te train, but at 77 tokens their attention is under the flash gate)
-TABLES_OF = {"cli_sdxl_bf16": "sdxl", "cli_sdxl_te": "cli_sdxl_f32"}
+TABLES_OF = {"cli_sdxl_bf16": "sdxl", "cli_sdxl_te": "cli_sdxl_f32", "cli_sdxl_vpred": "sdxl", "cli_sdxl_remat": "sdxl",
+             "cli_vpred_logger": "cli_logger", "cli_sd15_edm": "sd15_f32", "cli_sd15_rf": "sd15_f32"}
 
 # tolerances on max|kernel - plain| / max|plain|, same bf16 inputs on both sides
 TOL = {
@@ -973,11 +1034,15 @@ SDXL_BIGG = dict(width=1280, layers=32, heads=20)
 def step_totals(rows: dict, path: str) -> dict:
     """Per kernel, from one path's shape tables and phase 3's times: launches
     per step (or pair) of that path, their summed time and summed bound (and
-    the fp32 rows' FFMA bound beside it)."""
+    the fp32 rows' FFMA bound beside it); a path of REMAT_TABLES takes its
+    own bf16 forward counts over its base path's rows."""
     out = {}
+    remat = REMAT_TABLES.get(path)
     path = TABLES_OF.get(path, path)
     for name, rs in rows.items():
         rs = [r for r in rs if r["path"] == path]
+        if remat is not None and name == "flash_fwd":
+            rs = [dict(r, per_step=remat[tuple(int(x) for x in r["shape"].split()[0].split("x"))][0]) for r in rs]
         out[name] = dict(launches=sum(r["per_step"] for r in rs), ms=sum(r["per_step"] * r["ms"] for r in rs),
                          bound_ms=sum(r["per_step"] * r["bound_ms"] for r in rs))
         if any("ffma_bound_ms" in r for r in rs):
@@ -1891,6 +1956,306 @@ def run_te_phase(torch, rows: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the SD training path's options
+# ---------------------------------------------------------------------------
+
+
+def _edit(text: str, edits: list, source: str) -> str:
+    """``text`` with each (old, new) replaced; each old must occur once."""
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise PhaseError(f"{source} no longer has {old!r} once")
+        text = text.replace(old, new)
+    return text
+
+
+def phase15_configs(repo: Path) -> dict:
+    """{name: YAML text} of phase 15's copies: ``sdxl-vpred`` (the bf16-mixed
+    SDXL copy as a v-prediction zero-terminal-SNR fine-tune: VPreconditioning
+    over TanZeroSNRDiscretization in the denoiser, the σ sampler and the
+    sampler, min-SNR-γ 5 over EDMWeighting with v_pred, noise offset 0.0357
+    at chance 1 (at JAX's default chance 0 the offset would never be drawn),
+    caption dropout 0.1 on CLIP-L and bigG, remat [none, none, dots_names],
+    Adafactor beta1 0.9 and weight decay 0.01, configs/hook/loss_scale.example.yml's
+    forward_hooks under model:, max_steps 3 and an image logger at step 2),
+    ``sdxl-remat`` (phase 11's two-step bf16 copy with that remat policy and
+    nothing else, the remat pair's other half), ``sd15-edm`` and ``sd15-rf``
+    (sd15.example.yaml as written, 2 steps, with
+    the EDM objective, and with the comfy rectified-flow objective, L1, and an
+    image logger at step 2 whose sampler has rf_safeguard)."""
+    sdxl, sd15 = (repo / "configs/sdxl/sdxl.example.yaml").read_text(), (repo / "configs/sd15/sd15.example.yaml").read_text()
+    hook = (repo / "configs/hook/loss_scale.example.yml").read_text()
+    hooks = hook[hook.index("    forward_hooks:\n"):]
+    ddpm = "class_path: neurosis.modules.diffusion.LegacyDDPMDiscretization"
+    tan = "class_path: neurosis.modules.diffusion.TanZeroSNRDiscretization"
+    logger = ("\nimage_logger:\n  every_n_train_steps: 2\n  max_images: {n}\n  log_first_step: false\n"
+              "  log_func_kwargs:\n    num_steps: {steps}\n")
+    vpred = _edit(sdxl, [
+        ("  fast_dev_run: true  # disable to actually train\n",
+         f"  fast_dev_run: false\n  max_steps: {VPRED_STEPS}\n  precision: bf16-mixed\n"),
+        ("    use_ema: false\n", "    use_ema: false\n" + hooks),
+        ("        use_checkpoint: true\n",
+         "        use_checkpoint: true\n        remat_policy: [" + ", ".join(VPRED_REMAT) + "]\n"),
+        ("          class_path: neurosis.modules.diffusion.EpsPreconditioning\n",
+         "          class_path: neurosis.modules.diffusion.VPreconditioning\n"),
+        ("              is_trainable: false\n          # crossattn + vector",
+         "              is_trainable: false\n              ucg_rate: 0.1\n          # crossattn + vector"),
+        ("              legacy: false\n", "              legacy: false\n              ucg_rate: 0.1\n"),
+        ("        warmup_init: true\n", "        warmup_init: true\n        beta1: 0.9\n        weight_decay: 0.01\n"),
+        ("        loss_weighting:\n          class_path: neurosis.modules.diffusion.EpsWeighting\n",
+         "        noise_offset: 0.0357\n        noise_offset_chance: 1.0\n        loss_weighting:\n"
+         "          class_path: neurosis.modules.diffusion.MinSNRGammaModifier\n          init_args:\n"
+         "            gamma: 5.0\n            v_pred: true\n            weighting:\n"
+         "              class_path: neurosis.modules.diffusion.EDMWeighting\n"),
+    ], "sdxl.example.yaml").replace(ddpm, tan) + logger.format(n=LOGGER_IMAGES, steps=LOGGER_STEPS)
+    two = ("  fast_dev_run: true\n", f"  fast_dev_run: false\n  max_steps: {OPTION_STEPS}\n")
+    denoiser = ("      class_path: neurosis.modules.diffusion.DiscreteDenoiser\n      init_args:\n        num_idx: 1000\n"
+                "        preconditioning:\n          class_path: neurosis.modules.diffusion.EpsPreconditioning\n"
+                f"        discretization:\n          {ddpm}\n")
+    weighting = "        loss_weighting:\n          class_path: neurosis.modules.diffusion.EpsWeighting\n"
+    sampling = ("          class_path: neurosis.modules.diffusion.sigma_sampling.DiscreteSampling\n          init_args:\n"
+                f"            num_idx: 1000\n            discretization:\n              {ddpm}\n")
+
+    def continuous(pre: str) -> str:
+        return f"      class_path: neurosis.modules.diffusion.Denoiser\n      init_args:\n        preconditioning:\n" \
+               f"          class_path: neurosis.modules.diffusion.{pre}\n"
+
+    edm = _edit(sd15, [two, (denoiser, continuous("EDMPreconditioning")),
+                       (weighting, weighting.replace("EpsWeighting", "EDMWeighting")),
+                       (sampling, "          class_path: neurosis.modules.diffusion.sigma_sampling.EDMSampling\n")],
+                "sd15.example.yaml")
+    rf = _edit(sd15, [two, (denoiser, continuous("RectifiedFlowComfyPreconditioning")),
+                      (weighting, "        objective_type: rf\n        loss_type: l1\n"
+                                  + weighting.replace("EpsWeighting", "RectifiedFlowComfyWeighting")),
+                      (sampling, "          class_path: neurosis.modules.diffusion.sampling.sigma_generators."
+                                 "RectifiedFlowComfySigmaGenerator\n"),
+                      ("        num_steps: 50\n        discretization:\n" f"          {ddpm}\n",
+                       "        num_steps: 50\n        rf_safeguard: true\n        discretization:\n"
+                       "          class_path: neurosis.modules.diffusion.RectifiedFlowComfyDiscretization\n")],
+               "sd15.example.yaml") + logger.format(n=1, steps=LOGGER_STEPS)
+    remat = _edit(sdxl, [("  fast_dev_run: true  # disable to actually train\n",
+                          "  fast_dev_run: false\n  max_steps: 2\n  precision: bf16-mixed\n"),
+                         ("        use_checkpoint: true\n",
+                          "        use_checkpoint: true\n        remat_policy: [" + ", ".join(VPRED_REMAT) + "]\n")],
+                  "sdxl.example.yaml")
+    return {"sdxl-vpred": vpred, "sdxl-remat": remat, "sd15-edm": edm, "sd15-rf": rf}
+
+
+OPTION_ENGINES = ("v", "edm", "rf_xl", "rf_comfy", "unet_variants")
+# the UNet variants' engine: fp32 (the fp32 flash kernels), scale-shift norm, ResBlock
+# up/down sampling, 2 ResBlocks a level with one attention block at level 0, and a
+# class-count label embedding fed the batch's class ids through the loss's input_keys
+VARIANT_UNET = dict(SMALL_UNET, num_res_blocks=2, use_scale_shift_norm=True, resblock_updown=True,
+                    num_attention_blocks=[1, 1], num_classes=10)
+
+
+def make_option_engine(torch, device, seed: int, kind: str):
+    """A small engine of one objective of the SD path: ``v`` (v-prediction
+    over the tan zero-terminal-SNR table, min-SNR-γ over EDM weighting, noise
+    offset, remat names and dots_names), ``edm``, ``rf_xl`` and ``rf_comfy``
+    (objective rf; comfy with L1), each with a bf16 UNet of SMALL_UNET's
+    dims, and ``unet_variants`` (VARIANT_UNET in fp32, eps over LegacyDDPM)."""
+    from neurosis_tpu_torch.diffusion import discretization as dz
+    from neurosis_tpu_torch.diffusion import preconditioning as pc
+    from neurosis_tpu_torch.diffusion import sigma_generators as sg
+    from neurosis_tpu_torch.diffusion import weighting as wt
+    from neurosis_tpu_torch.diffusion.denoiser import Denoiser, DiscreteDenoiser
+    from neurosis_tpu_torch.diffusion.loss import StandardDiffusionLoss
+    from neurosis_tpu_torch.models.unet import UNetModel
+    from neurosis_tpu_torch.modules.encoders.embedding import FrozenCLIPEmbedder, GeneralConditioner
+    from neurosis_tpu_torch.optimizers.adafactor import Adafactor
+    from neurosis_tpu_torch.trainer.engine import DiffusionEngine
+
+    g = torch.Generator(device).manual_seed(seed)
+    unet = dict(VARIANT_UNET) if kind == "unet_variants" else dict(SMALL_UNET)
+    if kind == "v":
+        unet["remat_policy"] = ["dots_names", "names"]
+    model = UNetModel(**unet, use_checkpoint=True, dtype=None if kind == "unet_variants" else torch.bfloat16,
+                      device=device, generator=g)
+    loss_kw = {}
+    if kind == "v":
+        tan = dz.TanZeroSNRDiscretization()
+        denoiser = DiscreteDenoiser(pc.VPreconditioning(), 1000, tan, device=device)
+        gen, weight = sg.DiscreteSigmaGenerator(tan, 1000, device=device), \
+            wt.MinSNRGammaModifier(wt.EDMWeighting(), 5.0, v_pred=True)
+        loss_kw = dict(noise_offset=0.0357, noise_offset_chance=1.0)
+    elif kind == "edm":
+        denoiser, gen, weight = Denoiser(pc.EDMPreconditioning()), sg.EDMSigmaGenerator(), wt.EDMWeighting()
+    elif kind == "rf_xl":
+        denoiser, gen, weight = Denoiser(pc.RectifiedFlowXLPreconditioning()), sg.RectifiedFlowSigmaGenerator(), \
+            wt.RectifiedFlowWeighting()
+        loss_kw = dict(objective_type="rf")
+    elif kind == "rf_comfy":
+        denoiser, gen, weight = Denoiser(pc.RectifiedFlowComfyPreconditioning()), \
+            sg.RectifiedFlowComfySigmaGenerator(), wt.RectifiedFlowComfyWeighting()
+        loss_kw = dict(objective_type="rf", loss_type="l1")
+    else:
+        ddpm = dz.LegacyDDPMDiscretization()
+        denoiser = DiscreteDenoiser(pc.EpsPreconditioning(), 1000, ddpm, device=device)
+        gen, weight = sg.DiscreteSigmaGenerator(ddpm, 1000, device=device), wt.EpsWeighting()
+        loss_kw = dict(input_keys=["y"])
+    return DiffusionEngine(
+        model=model, denoiser=denoiser, loss_fn=StandardDiffusionLoss(gen, weight, **loss_kw),
+        conditioner=GeneralConditioner([FrozenCLIPEmbedder(**SMALL_CLIP, device=device, generator=g)]),
+        optimizer=lambda params: Adafactor(params, scale_parameter=True, relative_step=True, warmup_init=True,
+                                           beta1=0.9, weight_decay=0.01),
+        use_ema=False, device=device, log_sigmas=True)
+
+
+def reference_options(torch, log: list) -> dict:
+    """Phase 15 (a): one train step of each OPTION_ENGINES engine on the card
+    against the same step on the CPU (plain versions there), with the same
+    t, noise and offset; bf16 UNets to 2e-2 (loss) and 5e-2 (grad norm),
+    the fp32 one to 1e-3 and 1e-2. Each step launches every kernel its UNet
+    takes (the fp32 one: the fp32 flash kernels). Then ops.groupnorm's
+    function against GroupNorm32's plain path on the card, forward and
+    grads, at an SDXL level-1 shape in fp32 (1e-5) and bf16 (2e-2)."""
+    from neurosis_tpu_torch import ops
+
+    out = {}
+    for kind in OPTION_ENGINES:
+        engines = {device: make_option_engine(torch, device, 1, kind) for device in ("cpu", "cuda")}
+        g = torch.Generator("cpu").manual_seed(2)
+        for p_cpu, p_gpu in zip(engines["cpu"].model.parameters(), engines["cuda"].model.parameters()):
+            with torch.no_grad():
+                p_cpu.add_(0.02 * torch.randn(p_cpu.shape, generator=g))
+                p_gpu.copy_(p_cpu)
+        for p_cpu, p_gpu in zip(engines["cpu"].conditioner.parameters(), engines["cuda"].conditioner.parameters()):
+            with torch.no_grad():
+                p_gpu.copy_(p_cpu)
+        batch = make_batch(torch, "cpu", 2, 32, 3)
+        batch["y"] = torch.tensor([3, 7])
+        t = torch.tensor([0.3, 0.8])
+        noise = torch.randn(batch["latents"].shape, generator=torch.Generator("cpu").manual_seed(4))
+        offset = torch.randn(2, 32, 1, 1, generator=torch.Generator("cpu").manual_seed(5))
+        before, metrics = ops.launch_counts(), {}
+        for device, eng in engines.items():
+            state = eng.init(seed=0)
+            _, m = eng.train_step(state, {k: v.to(device) for k, v in batch.items()}, t=t.to(device),
+                                  noise=noise.to(device), offset=offset.to(device))
+            metrics[device] = {k: float(v) for k, v in m.items()}
+        launched = {k: ops.launch_counts()[k] - before[k] for k in before}
+        label = f"phase 15 {kind} engine"
+        print(f"{label} step launches: {launched}", flush=True)
+        fp32 = kind == "unet_variants"
+        want = ("flash_fwd_f32", "flash_bwd_f32") if fp32 else ("flash_fwd", "flash_bwd", "conv3x3", "gn_silu_conv3x3")
+        missing = [k for k in want if not launched[k]]
+        if missing:
+            raise PhaseError(f"the {label} did not launch {missing}: {launched}")
+        for key, tol in (("loss", 1e-3 if fp32 else 2e-2), ("grad_norm", 1e-2 if fp32 else 5e-2)):
+            cpu, gpu = metrics["cpu"][key], metrics["cuda"][key]
+            check(f"{label} {key}: cuda {gpu:.6g} vs cpu {cpu:.6g}", abs(gpu - cpu) / abs(cpu), tol, log)
+        if not all(math.isfinite(v) for m in metrics.values() for v in m.values()):
+            raise PhaseError(f"{label}: a metric is not finite: {metrics}")
+        out[kind] = dict(metrics=metrics, launches=launched)
+        del engines
+        torch.cuda.empty_cache()
+    out["groupnorm"] = check_groupnorm(torch, log)
+    return out
+
+
+def check_groupnorm(torch, log: list) -> dict:
+    """ops.groupnorm.group_norm against GroupNorm32's plain path on the card."""
+    from neurosis_tpu_torch.modules.layers import GroupNorm32
+    from neurosis_tpu_torch.ops.groupnorm import group_norm
+
+    out = {}
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        g = torch.Generator("cuda").manual_seed(9)
+        norm = GroupNorm32(640, 32, device="cuda")
+        with torch.no_grad():
+            norm.weight.copy_(1.0 + 0.1 * torch.randn(640, generator=g, device="cuda"))
+            norm.bias.copy_(0.1 * torch.randn(640, generator=g, device="cuda"))
+        x = (2.0 * torch.randn(2, 64, 64, 640, generator=g, device="cuda") + 0.5).to(dtype)
+        dy = torch.randn(2, 64, 64, 640, generator=g, device="cuda").to(dtype)
+        results = []
+        for fn in (lambda xi: norm(xi), lambda xi: group_norm(xi, norm.weight, norm.bias, 32, norm.eps)):
+            xi = x.clone().requires_grad_(True)
+            norm.zero_grad()
+            y = fn(xi)
+            y.backward(dy)
+            results.append((y.detach(), xi.grad, norm.weight.grad.clone(), norm.bias.grad.clone()))
+        tag = "fp32" if dtype == torch.float32 else "bf16"
+        worst = 0.0
+        for what, got, want in zip(("y", "dx", "dscale", "dbias"), results[1], results[0]):
+            err, rel = rel_err(got, want)
+            check(f"groupnorm function {tag} {what}", rel, tol, log, err)
+            worst = max(worst, rel)
+        out[tag] = worst
+    return out
+
+
+def write_tagged_captions(folder: Path) -> None:
+    """The image folder's captions as space-separated tags that the tag hook
+    of configs/hook/loss_scale.example.yml counts and rewards: artist and
+    character tags (counted), masterpiece and lowres (rewarded)."""
+    tags = ["artist:alpha", "artist:beta", "character:gamma", "masterpiece", "lowres", "outdoors", "portrait"]
+    for i, txt in enumerate(sorted(folder.glob("*.txt"))):
+        txt.write_text(" ".join(tags[j % len(tags)] for j in range(i, i + 3 + i % 3)))
+
+
+def run_options_phase(torch, rows: dict, report: dict, log: list) -> dict:
+    """Phase 15, in CLI_DIR after phase 14 (its image folder, its captions
+    rewritten as tags): (a) reference_options; (b) fit of phase15_configs'
+    sdxl-vpred copy for 3 steps, the third profiled, its image logger's call
+    at step 2 read apart (cli_logger's tables), every step's metrics line
+    with the tag hook's train/tag_loss_scale_mean and finite losses, the
+    launches held to REMAT_TABLES' table; (c) the remat pair: fit of the
+    sdxl-remat copy, 2 steps profiled, its second step's device time and
+    peak memory beside phase 11's profiled bf16 copy under full remat (the
+    same config but the policy); (d) fits of
+    the sd15-edm and sd15-rf copies for 2 steps each (sd15_f32's tables; the
+    rf copy's logger call held to cli_sd15_logger's)."""
+    import os
+
+    from neurosis_tpu_torch.config.loader import load_config
+
+    out = {"reference_options": reference_options(torch, log)}
+    write_tagged_captions(CLI_DIR / "data" / "dataset" / "folder")
+    paths = {}
+    for name, text in phase15_configs(Path.cwd().resolve()).items():
+        paths[name] = (CLI_DIR / f"{name}.yaml").resolve()
+        paths[name].write_text(text)
+        load_config(paths[name])  # reads back
+    cwd, hash_env = os.getcwd(), os.environ.get("NEUROSIS_ALLOW_HASH_TOKENIZER")
+    os.chdir(CLI_DIR)
+    try:
+        os.environ["NEUROSIS_ALLOW_HASH_TOKENIZER"] = "1"
+        run = run_cli(torch, rows, paths["sdxl-vpred"], "CLI fit sdxl v-prediction copy", "cli_sdxl_vpred",
+                      VPRED_STEPS, profiled=False, logger=("cli_vpred_logger", 1), profile_step=VPRED_PROFILED_STEP)
+        out["cli_sdxl_vpred"], out["cli_vpred_logger"] = run, dict(launches=run.pop("logger_launches"))
+        run.pop("images")
+        scales = [r.get("train/tag_loss_scale_mean") for r in run["metrics"]]
+        if not all(isinstance(v, float) and math.isfinite(v) for v in scales):
+            raise PhaseError(f"the v-prediction run's metrics lack the tag hook's loss scale: {scales}")
+        print(f"v-prediction run: tag loss scale means {scales}", flush=True)
+        out["cli_sdxl_remat"] = run_cli(torch, rows, paths["sdxl-remat"], "CLI fit sdxl bf16 remat [none, none, "
+                                        "dots_names], profiled", "cli_sdxl_remat", 2, profiled=True)
+        out["cli_sd15_edm"] = run_cli(torch, rows, paths["sd15-edm"], "CLI fit sd15 EDM copy", "cli_sd15_edm",
+                                      OPTION_STEPS, profiled=False)
+        run = run_cli(torch, rows, paths["sd15-rf"], "CLI fit sd15 rectified-flow copy", "cli_sd15_rf",
+                      OPTION_STEPS, profiled=False, logger=("cli_sd15_logger", 1))
+        run.pop("images")
+        out["cli_sd15_rf"], out["cli_sd15_logger"] = run, dict(launches=run.pop("logger_launches"))
+    finally:
+        os.chdir(cwd)
+        if hash_env is None:
+            os.environ.pop("NEUROSIS_ALLOW_HASH_TOKENIZER", None)
+        else:
+            os.environ["NEUROSIS_ALLOW_HASH_TOKENIZER"] = hash_env
+    pair = {}
+    for name, run in (("full", report["cli_sdxl_bf16_profiled"]), ("none_none_dots_names", out["cli_sdxl_remat"]),
+                      ("vpred", out["cli_sdxl_vpred"])):
+        p = run["profiles"][-1]
+        pair[name] = dict(device_ms=p["device_ms"], launches=p["launches"], kinds_ms=p["kinds_ms"],
+                          peak_bytes=run["peak_bytes"])
+        print(f"remat pair, {name}: {p['device_ms']} ms device in {p['launches']} kernels, peak {run['peak_bytes']} "
+              "bytes", flush=True)
+    out["remat_pair"] = pair
+    return out
+
+
 def kernel_kind(name: str) -> str:
     """Which layer a device kernel belongs to, by its name."""
     low = name.lower()
@@ -2026,6 +2391,8 @@ def main() -> int:
         report.update(run_cli_sampling(torch, rows))
         torch.cuda.empty_cache()
         report["cli_sdxl_te"] = run_te_phase(torch, rows)
+        torch.cuda.empty_cache()
+        report.update(run_options_phase(torch, rows, report, log))
         report["seconds"] = time.perf_counter() - t_start
         print(f"all phases: {report['seconds']:.1f} s", flush=True)
     except Exception as e:  # any failed phase ends the run without a result line

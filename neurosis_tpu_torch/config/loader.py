@@ -9,6 +9,14 @@ config) and ``${oc.env:NAME,default}``.
 ``instantiate`` threads a ``device`` and a ``generator`` into every class
 whose signature takes them, so the σ tables, the UNet and the towers are
 built on the run's device from the run's seeded generator.
+
+An argument the port's class does not take is dropped only where the JAX
+package's class does not take it either (the reference's torch-only
+arguments, such as ``verbose``). Where JAX's class takes it
+(``reference_args.JAX_ONLY_ARGS``), a value equal to JAX's default passes
+(the class does what that default does) and any other raises
+``NotImplementedError`` naming the ROADMAP item that ports it: a config is
+never trained as something else in silence.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ import re
 from pathlib import Path
 from typing import Any, Mapping
 
+from .reference_args import JAX_ONLY_ARGS, refusal_item
 from .registry import resolve_class_path
 from .yaml_reader import safe_load
 
@@ -93,7 +102,7 @@ def instantiate(node: Any, context: Mapping[str, Any] = None, **overrides) -> An
         for name in _THREADED:
             if name in context and name not in kwargs and params is not None and name in params:
                 kwargs[name] = context[name]
-        kwargs = _adapt_kwargs(cls, kwargs)
+        kwargs = _adapt_kwargs(cls, kwargs, node["class_path"])
         return cls(**kwargs)
     if isinstance(node, dict):
         return {k: instantiate(v, context) for k, v in node.items()}
@@ -103,28 +112,49 @@ def instantiate(node: Any, context: Mapping[str, Any] = None, **overrides) -> An
 
 
 def _parameters(cls):
-    """The keyword names ``cls`` takes, or None when it takes any."""
-    try:
-        if dataclasses.is_dataclass(cls):
-            return {f.name for f in dataclasses.fields(cls)}
-        sig = inspect.signature(cls)
-    except (ValueError, TypeError):
-        return None
-    if any(p.kind == p.VAR_KEYWORD for p in sig.parameters.values()):
-        return None
-    return set(sig.parameters)
+    """The keyword names ``cls`` takes, or None when it takes any. A class
+    whose ``__init__`` passes ``**kwargs`` on takes what the base that
+    names its arguments takes; ``**kwargs`` that no base names are the
+    class's own (any keyword)."""
+    if dataclasses.is_dataclass(cls):
+        return {f.name for f in dataclasses.fields(cls)}
+    funcs = [b.__dict__["__init__"] for b in cls.__mro__ if "__init__" in b.__dict__] \
+        if isinstance(cls, type) else [cls]
+    names = set()
+    for fn in funcs:
+        if fn is object.__init__:
+            return None if names or fn is not funcs[0] else set()
+        try:
+            params = inspect.signature(fn).parameters
+        except (ValueError, TypeError):
+            return None
+        names |= {n for n, p in params.items() if p.kind not in (p.VAR_KEYWORD, p.VAR_POSITIONAL)}
+        if not any(p.kind == p.VAR_KEYWORD for p in params.values()):
+            return names - {"self"}
+    return None
 
 
-def _adapt_kwargs(cls, kwargs: dict) -> dict:
-    """Drop the arguments ``cls`` does not take, as the JAX package does
-    (torch-only arguments of the reference such as ``verbose``); each one
-    dropped is logged."""
+def _normal(v: Any) -> Any:
+    """YAML lists and tuples compare alike."""
+    return tuple(_normal(x) for x in v) if isinstance(v, (list, tuple)) else v
+
+
+def _adapt_kwargs(cls, kwargs: dict, path: str = "") -> dict:
+    """Drop the arguments neither ``cls`` nor JAX's class at ``path`` takes
+    (logged); pass one JAX takes at its default; refuse one JAX takes at any
+    other value."""
     fields = _parameters(cls)
     if fields is None:
         return kwargs
-    dropped = sorted(k for k in kwargs if k not in fields)
-    for k in dropped:
-        kwargs.pop(k)
+    jax_only = JAX_ONLY_ARGS.get(path, {})
+    dropped = []
+    for k in sorted(k for k in kwargs if k not in fields):
+        value = kwargs.pop(k)
+        if k not in jax_only:
+            dropped.append(k)
+        elif _normal(value) != _normal(jax_only[k]):
+            raise NotImplementedError(f"{path} {k}={value!r} (the JAX package's default is {jax_only[k]!r}) is not "
+                                      f"ported yet: ROADMAP Queue 1 item {refusal_item(k)}")
     if dropped:
         logger.warning(f"{getattr(cls, '__name__', cls)} takes no {dropped}: dropped")
     return kwargs

@@ -76,22 +76,27 @@ _PORTED = {
     "DeviceStatsMonitor": ("trainer.callbacks", "DeviceStatsCallback"),
     "lightning.pytorch.callbacks.DeviceStatsMonitor": ("trainer.callbacks", "DeviceStatsCallback"),
     "lightning.pytorch.callbacks.ModelSummary": ("trainer.callbacks", "ModelSummaryCallback"),
+    _D + "Denoiser": ("diffusion.denoiser", "Denoiser"),
+    **{_D + n: ("diffusion.preconditioning", n) for n in (
+        "VPreconditioning", "VPreconditioningWithEDMcNoise", "EDMPreconditioning", "RectifiedFlowXLPreconditioning",
+        "RectifiedFlowComfyPreconditioning")},
+    **{_D + n: ("diffusion.weighting", n) for n in (
+        "UnitWeighting", "EDMWeighting", "RectifiedFlowWeighting", "RectifiedFlowComfyWeighting",
+        "MinSNRGammaModifier")},
+    **{_D + n: ("diffusion.discretization", n) for n in (
+        "EDMcDiscretization", "EDMcSimpleDiscretization", "EDMDiscretization", "TanZeroSNRDiscretization",
+        "RectifiedFlowDiscretization", "RectifiedFlowComfyDiscretization")},
+    _D + "sigma_sampling.EDMSampling": ("diffusion.sigma_generators", "EDMSigmaGenerator"),
+    **{_SS + n: ("diffusion.sigma_generators", n) for n in (
+        "EDMSigmaGenerator", "CosineScheduleSigmaGenerator", "TanScheduleSigmaGenerator",
+        "RectifiedFlowSigmaGenerator", "RectifiedFlowComfySigmaGenerator")},
+    "neurosis.models.IdentityFirstStage": ("models.autoencoder", "IdentityFirstStage"),
+    "neurosis.models.autoencoder.IdentityFirstStage": ("models.autoencoder", "IdentityFirstStage"),
+    **{_DS + "processing." + n: ("hooks.tag_loss", n) for n in ("TagFrequencyHook", "TagFreqScale", "TagRewards")},
 }
 
 # paths the JAX registry knows and the port has not ported, by ROADMAP Queue 1 item
-_DIFFUSION_MATH = ["Denoiser", "VPreconditioning", "VPreconditioningWithEDMcNoise", "EDMPreconditioning",
-                   "RectifiedFlowXLPreconditioning", "RectifiedFlowComfyPreconditioning", "UnitWeighting",
-                   "EDMWeighting", "RectifiedFlowWeighting", "RectifiedFlowComfyWeighting", "MinSNRGammaModifier",
-                   "EDMcDiscretization", "EDMcSimpleDiscretization", "EDMDiscretization",
-                   "TanZeroSNRDiscretization", "RectifiedFlowDiscretization", "RectifiedFlowComfyDiscretization",
-                   "sigma_sampling.EDMSampling"]
-_SIGMA_GENERATORS = ["EDMSigmaGenerator", "CosineScheduleSigmaGenerator", "TanScheduleSigmaGenerator",
-                     "RectifiedFlowSigmaGenerator", "RectifiedFlowComfySigmaGenerator"]
 _NOT_PORTED: Dict[str, str] = {}
-_NOT_PORTED.update({_D + n: "7 (the rest of the SD path's options)" for n in _DIFFUSION_MATH})
-_NOT_PORTED.update({_SS + n: "7 (the rest of the SD path's options)" for n in _SIGMA_GENERATORS})
-_NOT_PORTED.update({p: "7 (the rest of the SD path's options)" for p in (
-    "neurosis.models.IdentityFirstStage", "neurosis.models.autoencoder.IdentityFirstStage")})
 _OPTIMIZERS_ITEM = "8 (the optimizers CAME, hybrid and stacked)"
 _NOT_PORTED.update({p: _OPTIMIZERS_ITEM for p in ("neurosis.optimizers.CAME", "neurosis.optimizers.came.CAME")})
 _NOT_PORTED.update({p: "9 (the rest of the VAE-GAN stack)" for p in (
@@ -107,8 +112,7 @@ _NOT_PORTED.update({p: "11 (the rest)" for p in (
      _ENC + "classed.ClassEmbedder", _ENC + "classed.ClassEmbedderForMultiCond", _ENC + "metadata.GaussianEncoder",
      _ENC + "embedding.SpatialRescaler", _ENC + "lowscale.LowScaleEncoder",
      _AE + "losses.AutoencoderDreamsim", "neurosis.trainer.profile.NeurosisProfiler",
-     "neurosis.trainer.profile.profiler.NeurosisProfiler", "NeurosisProfiler",
-     _DS + "processing.TagFrequencyHook", _DS + "processing.TagFreqScale", _DS + "processing.TagRewards"]
+     "neurosis.trainer.profile.profiler.NeurosisProfiler", "NeurosisProfiler"]
     + [_DS + m + "." + c + k for m in ("mongo", "mongo.aspect", "mongo.nobucket", "mongo.nocaption")
        for c in ("MongoAspect", "MongoSquare", "MongoVAE") for k in ("Dataset", "Module")])})
 

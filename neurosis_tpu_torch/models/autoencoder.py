@@ -1,5 +1,5 @@
-"""AutoencoderKL: the VAE with its quant convs (port of
-neurosis_tpu/models/autoencoder.py).
+"""AutoencoderKL: the VAE with its quant convs, and IdentityFirstStage (port
+of neurosis_tpu/models/autoencoder.py).
 
 Children ``encoder``, ``decoder``, ``quant_conv`` and ``post_quant_conv``
 carry the sgm checkpoint names. ``encode`` returns the moments
@@ -54,3 +54,22 @@ class AutoencoderKL(nn.Module):
         """Encode, then decode the posterior mean."""
         mean, _ = self.encode(x).chunk(2, dim=-1)
         return self.decode(mean)
+
+
+class IdentityFirstStage:
+    """Pass-through first stage for pixel-space diffusion
+    (models/autoencoder.py:645-660): encode and decode are the identity. The
+    builder reads its class path and sets the engine's
+    ``identity_first_stage``, which still applies ``scale_factor``."""
+
+    def __init__(self, input_key: str = "jpg", **_):
+        self.input_key = input_key
+
+    def get_input(self, batch: dict):
+        return batch[self.input_key]
+
+    def encode(self, x, *args, **kwargs):
+        return x
+
+    def decode(self, x, *args, **kwargs):
+        return x

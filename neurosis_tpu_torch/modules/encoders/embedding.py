@@ -2,13 +2,21 @@
 neurosis_tpu/modules/encoders/embedding.py).
 
 Tokenization happens on the host: text embedders read
-``batch[f"{input_key}_ids"]`` (int [B, 77]); numeric embedders read
-``batch[input_key]``. Outputs route by rank: 2 → 'vector', 3 → 'crossattn',
-4/5 → 'concat' (NHWC channel axis), concatenated in embedder order (SDXL:
-CLIP-L 768 ⊕ bigG 1280 → 2048 on 'crossattn'; pooled 1280 ⊕ 3×512 → 2816 on
-'vector'). Unconditional-guidance dropout (UCG) is ported at rate 0, the
-configs': an embedder with ``ucg_rate > 0`` raises. Extended prompt chunks
-(ids [B, chunks, 77]) are not ported and raise.
+``batch[f"{input_key}_ids"]`` (int [B, 77], or [B, chunks, 77] for extended
+prompts: the chunks run through the tower as one batch, their outputs are
+concatenated on the sequence axis and the pooled vector is chunk 0's);
+numeric embedders read ``batch[input_key]``. Outputs route by rank: 2 →
+'vector', 3 → 'crossattn', 4/5 → 'concat' (NHWC channel axis), concatenated
+in embedder order (SDXL: CLIP-L 768 ⊕ bigG 1280 → 2048 on 'crossattn';
+pooled 1280 ⊕ 3×512 → 2816 on 'vector').
+
+Unconditional-guidance dropout (UCG, ``ucg_rate``) as the JAX package does it
+(embedding.py:241-295): a text embedder swaps the whole batch to
+``batch["uncond_ids"]`` with probability ucg_rate (one draw an embedder); a
+numeric embedder zeroes each sample's output with that probability (one
+Bernoulli mask an output). The draws come from the generator a caller passes
+(training); without one, as in sampling and evaluation, no UCG applies (the
+reference's ``zero_ucg``).
 """
 
 from __future__ import annotations
@@ -29,14 +37,17 @@ KEY2CATDIM = {"vector": 1, "crossattn": 2, "concat": -1}
 class AbstractEmbModel(nn.Module):
     """Base embedder: names the batch entry it reads and emits a tuple of
     conditioning tensors. Frozen unless ``is_trainable``: its parameters do
-    not require grad."""
+    not require grad. ``base_lr`` (the builder's per-embedder learning rate)
+    and ``emb_name`` are kept, as in JAX."""
 
-    def __init__(self, input_key: str, ucg_rate: float = 0.0, is_trainable: bool = False):
+    def __init__(self, input_key: str, ucg_rate: float = 0.0, is_trainable: bool = False,
+                 base_lr: Optional[float] = None, emb_name: Optional[str] = None):
         super().__init__()
-        if ucg_rate > 0.0:
-            raise NotImplementedError(f"ucg_rate={ucg_rate}: this port covers ucg_rate=0")
         self.input_key = input_key
+        self.ucg_rate = ucg_rate
         self.is_trainable = is_trainable
+        self.base_lr = base_lr
+        self.emb_name = emb_name
 
     def token_key(self) -> Optional[str]:
         """Batch key of this embedder's tokenized input (None: it reads
@@ -49,10 +60,21 @@ class _TextEmbedder(AbstractEmbModel):
         return f"{self.input_key}_ids"
 
     @staticmethod
-    def _check_ids(input_ids: torch.Tensor) -> None:
+    def _flat(input_ids: torch.Tensor) -> tuple[torch.Tensor, int]:
+        """[B, T] ids as they are, or [B, chunks, T] as [B·chunks, T]; and the chunk count."""
+        if input_ids.ndim == 3:
+            return input_ids.reshape(-1, input_ids.shape[-1]), input_ids.shape[1]
         if input_ids.ndim != 2:
-            raise NotImplementedError(f"token ids must be [B, T], got {tuple(input_ids.shape)}: "
-                                      "extended prompts are not ported")
+            raise ValueError(f"token ids must be [B, T] or [B, chunks, T], got {tuple(input_ids.shape)}")
+        return input_ids, 0
+
+    @staticmethod
+    def _unchunk(z: torch.Tensor, pooled: torch.Tensor, chunks: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """The chunks' outputs side by side on the sequence axis; chunk 0's pooled vector."""
+        if not chunks:
+            return z, pooled
+        b = z.shape[0] // chunks
+        return z.reshape(b, chunks * z.shape[1], z.shape[-1]), pooled.reshape(b, chunks, -1)[:, 0]
 
 
 class FrozenCLIPEmbedder(_TextEmbedder):
@@ -60,14 +82,20 @@ class FrozenCLIPEmbedder(_TextEmbedder):
     'hidden' | 'penultimate'; hidden and penultimate select
     ``hidden_states[idx + 1]`` (0 = embeddings), idx = ``layer_idx``
     (negative counts from the end) or 10 for penultimate. ``version`` (the
-    reference's HF model name) is taken and unused, as the JAX field is."""
+    reference's HF model name) is taken and unused, as the JAX field is.
+    ``always_return_pooled`` adds the pooled vector as a second output;
+    ``extended_chunks`` > 1 has the trainer tokenize prompts in that many
+    chunks."""
 
     def __init__(self, input_key: str = "caption", ucg_rate: float = 0.0, is_trainable: bool = False,
                  max_length: int = 77, layer: str = "last", layer_idx: Optional[int] = None,
                  vocab_size: int = 49408, width: int = 768, layers: int = 12, heads: int = 12,
                  version: Optional[str] = None, dtype: Optional[torch.dtype] = None, device: DeviceLike = None,
-                 generator: Optional[torch.Generator] = None):
-        super().__init__(input_key, ucg_rate, is_trainable)
+                 generator: Optional[torch.Generator] = None, always_return_pooled: bool = False,
+                 extended_chunks: int = 0, base_lr: Optional[float] = None, emb_name: Optional[str] = None):
+        super().__init__(input_key, ucg_rate, is_trainable, base_lr, emb_name)
+        self.always_return_pooled = always_return_pooled
+        self.extended_chunks = extended_chunks
         if layer not in ("last", "pooled", "hidden", "penultimate"):
             raise ValueError(f"unknown layer {layer!r}")
         if layer == "hidden" and layer_idx is None:
@@ -81,15 +109,16 @@ class FrozenCLIPEmbedder(_TextEmbedder):
         self.requires_grad_(is_trainable)
 
     def forward(self, input_ids: torch.Tensor) -> tuple:
-        self._check_ids(input_ids)
-        out = self.transformer(input_ids)
+        flat, chunks = self._flat(input_ids)
+        out = self.transformer(flat)
         if self.layer == "last":
             z = out["last_hidden_state"]
         elif self.layer == "pooled":
             z = out["pooler_output"][:, None, :]
         else:
             z = out["hidden_states"][self.hidden_idx + 1]
-        return (z,)
+        z, pooled = self._unchunk(z, out["pooler_output"], chunks)
+        return (z, pooled) if self.always_return_pooled else (z,)
 
 
 class FrozenOpenCLIPEmbedder2(_TextEmbedder):
@@ -98,15 +127,18 @@ class FrozenOpenCLIPEmbedder2(_TextEmbedder):
     token times text_projection. ``legacy`` returns ln_final's output for
     'last' (and the penultimate as it is) and never the pooled vector.
     ``arch`` and ``version`` (the reference's open_clip names) are taken and
-    unused, as the JAX fields are; the widths say the architecture."""
+    unused, as the JAX fields are; the widths say the architecture.
+    ``extended_chunks`` as ``FrozenCLIPEmbedder``'s."""
 
     def __init__(self, input_key: str = "caption", ucg_rate: float = 0.0, is_trainable: bool = False,
                  max_length: int = 77, layer: str = "penultimate", always_return_pooled: bool = False,
                  legacy: bool = False, vocab_size: int = 49408, width: int = 1280, layers: int = 32,
                  heads: int = 20, arch: str = "ViT-bigG-14", version: Optional[str] = None,
                  dtype: Optional[torch.dtype] = None, device: DeviceLike = None,
-                 generator: Optional[torch.Generator] = None):
-        super().__init__(input_key, ucg_rate, is_trainable)
+                 generator: Optional[torch.Generator] = None, extended_chunks: int = 0,
+                 base_lr: Optional[float] = None, emb_name: Optional[str] = None):
+        super().__init__(input_key, ucg_rate, is_trainable, base_lr, emb_name)
+        self.extended_chunks = extended_chunks
         if layer not in ("last", "penultimate"):
             raise ValueError(f"unknown layer {layer!r}")
         self.layer = layer
@@ -117,14 +149,13 @@ class FrozenOpenCLIPEmbedder2(_TextEmbedder):
         self.requires_grad_(is_trainable)
 
     def forward(self, input_ids: torch.Tensor) -> tuple:
-        self._check_ids(input_ids)
-        out = self.model(input_ids)
-        if self.legacy:
+        flat, chunks = self._flat(input_ids)
+        out = self.model(flat)
+        if self.legacy:  # the JAX package returns the legacy output unchunked too
             return (out["last_ln"] if self.layer == "last" else out["penultimate"],)
         z = out["last"] if self.layer == "last" else out["penultimate"]
-        if self.always_return_pooled:
-            return (z, out["pooled"])
-        return (z,)
+        z, pooled = self._unchunk(z, out["pooled"], chunks)
+        return (z, pooled) if self.always_return_pooled else (z,)
 
 
 class ConcatTimestepEmbedderND(AbstractEmbModel):
@@ -132,8 +163,8 @@ class ConcatTimestepEmbedderND(AbstractEmbModel):
     ``outdim`` Fourier features, concatenated → [B, n·outdim] 'vector'."""
 
     def __init__(self, outdim: int = 256, input_key: str = "caption", ucg_rate: float = 0.0,
-                 is_trainable: bool = False):
-        super().__init__(input_key, ucg_rate, is_trainable)
+                 is_trainable: bool = False, base_lr: Optional[float] = None, emb_name: Optional[str] = None):
+        super().__init__(input_key, ucg_rate, is_trainable, base_lr, emb_name)
         self.outdim = outdim
 
     def forward(self, x: torch.Tensor) -> tuple:
@@ -151,15 +182,33 @@ class GeneralConditioner(nn.Module):
         super().__init__()
         self.embedders = nn.ModuleList(embedders)
 
-    def forward(self, batch: dict, force_zero_embeddings: Sequence[str] = ()) -> dict:
+    def forward(self, batch: dict, force_zero_embeddings: Sequence[str] = (),
+                generator: Optional[torch.Generator] = None, ucg: Optional[Sequence[torch.Tensor]] = None) -> dict:
+        """The conditioning of ``batch``. UCG draws come from ``generator``, or
+        in order from ``ucg`` (a 0-d bool swap per text embedder, a [B] bool
+        keep mask per numeric output, JAX's order); with neither, no UCG."""
+        draws = iter(ucg) if ucg is not None else None
+        active = generator is not None or draws is not None
         output: dict[str, torch.Tensor] = {}
         for embedder in self.embedders:
             tkey = embedder.token_key()
-            inputs = batch[embedder.input_key if tkey is None else tkey]
+            rate = embedder.ucg_rate if active else 0.0
+            if tkey is not None:
+                inputs = batch[tkey]
+                if rate > 0.0:
+                    swap = next(draws) if draws is not None else \
+                        torch.rand((), generator=generator, device=inputs.device) < rate
+                    inputs = torch.where(swap.to(inputs.device), batch["uncond_ids"].expand(inputs.shape), inputs)
+            else:
+                inputs = batch[embedder.input_key]
             for emb in embedder(inputs):
                 out_key = OUTPUT_DIM2KEYS[emb.ndim]
                 if embedder.input_key in force_zero_embeddings:
                     emb = torch.zeros_like(emb)
+                elif rate > 0.0 and tkey is None:
+                    keep = next(draws) if draws is not None else \
+                        torch.rand(emb.shape[0], generator=generator, device=emb.device) < 1.0 - rate
+                    emb = emb * keep.to(emb.device).reshape((-1,) + (1,) * (emb.ndim - 1)).to(emb.dtype)
                 if out_key in output:
                     output[out_key] = torch.cat([output[out_key], emb], dim=KEY2CATDIM[out_key])
                 else:
@@ -169,8 +218,8 @@ class GeneralConditioner(nn.Module):
     def get_unconditional_conditioning(self, batch_c: dict, batch_uc: Optional[dict] = None,
                                        force_uc_zero_embeddings: Sequence[str] = (),
                                        force_cond_zero_embeddings: Sequence[str] = ()) -> tuple[dict, dict]:
-        """(cond, uncond) for CFG sampling (embedding.py:165-183). Without
-        ``batch_uc`` the uncond batch is ``batch_c`` with each text
+        """(cond, uncond) for CFG sampling (embedding.py:165-183), without UCG.
+        Without ``batch_uc`` the uncond batch is ``batch_c`` with each text
         embedder's ids replaced by ``batch_c['uncond_ids']`` broadcast to the
         batch (the JAX package's per-key uncond ids serve the T5 embedder,
         which is not ported); numeric inputs keep their values."""

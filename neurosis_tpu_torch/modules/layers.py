@@ -13,6 +13,7 @@ an explicit ``torch.Generator``.
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
@@ -21,6 +22,7 @@ from torch import nn
 
 from .._device import DeviceLike, resolve_device
 from ..ops.conv3x3 import conv3x3, conv3x3_supported, gn_silu_conv3x3
+from ..ops.groupnorm import group_norm
 
 # flax lecun_normal draws a normal truncated at ±2σ, rescaled to keep var 1/fan_in
 _TRUNC_STD = 0.87962566103423978
@@ -101,11 +103,29 @@ class Embed(nn.Module):
         return F.embedding(ids, self.weight)
 
 
+def gn_custom_vjp_enabled() -> bool:
+    """``NEUROSIS_GN_VJP=1`` routes GroupNorm32 through the memory-saving
+    ``ops.groupnorm.group_norm`` (the JAX package's gate, off by default)."""
+    return os.environ.get("NEUROSIS_GN_VJP", "0").lower() in ("1", "true")
+
+
+def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each element with probability 1 − p (a draw
+    from ``generator``) and scale it by 1/(1 − p). No generator means
+    deterministic, as JAX's ``deterministic=True``: x itself."""
+    if p <= 0.0 or generator is None:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+
+
 class GroupNorm32(nn.Module):
     """GroupNorm on NHWC x in fp32 with flax's statistics,
     var = max(0, E[x²] − E[x]²); returns x's dtype. ``fold=True`` returns
     the per-(batch, channel) affine (a, b) with gn(x) = x·a + b instead, for
-    the fused GroupNorm+SiLU→conv kernel."""
+    the fused GroupNorm+SiLU→conv kernel. Under ``NEUROSIS_GN_VJP=1`` a 4-D
+    x goes through ``ops.groupnorm.group_norm``, which saves x and the
+    per-(batch, group) statistics for the backward instead of an fp32 copy."""
 
     def __init__(self, num_channels: int, num_groups: int = 32, eps: float = 1e-5, device: DeviceLike = None):
         super().__init__()
@@ -121,6 +141,8 @@ class GroupNorm32(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor, fold: bool = False):
+        if not fold and x.ndim == 4 and gn_custom_vjp_enabled():
+            return group_norm(x, self.weight, self.bias, self.num_groups, self.eps)
         bsz, c = x.shape[0], x.shape[-1]
         g = self.num_groups
         xg = x.float().reshape(bsz, -1, g, c // g)
@@ -209,25 +231,37 @@ def nearest_upsample_2x(x: torch.Tensor) -> torch.Tensor:
     return x[:, :, None, :, None, :].expand(b, h, 2, w, 2, c).reshape(b, h * 2, w * 2, c)
 
 
-class Upsample(nn.Module):
-    """Nearest 2× upsample + 3×3 conv (openaimodel.py:96-143)."""
+def avg_pool_2x(x: torch.Tensor) -> torch.Tensor:
+    """NHWC 2×2 average pool, stride 2 (flax ``avg_pool``: an odd edge is dropped)."""
+    b, h, w, c = x.shape
+    x = x[:, : h // 2 * 2, : w // 2 * 2]
+    return x.reshape(b, h // 2, 2, w // 2, 2, c).sum(dim=(2, 4)) / 4
 
-    def __init__(self, channels: int, out_channels: Optional[int] = None,
+
+class Upsample(nn.Module):
+    """Nearest 2× upsample, then a 3×3 conv with ``use_conv`` (openaimodel.py:96-143)."""
+
+    def __init__(self, channels: int, use_conv: bool = True, out_channels: Optional[int] = None,
                  dtype: Optional[torch.dtype] = None, device: DeviceLike = None):
         super().__init__()
-        self.conv = Conv2d(channels, out_channels or channels, 3, dtype=dtype, device=device)
+        self.conv = Conv2d(channels, out_channels or channels, 3, dtype=dtype, device=device) if use_conv else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(nearest_upsample_2x(x))
+        x = nearest_upsample_2x(x)
+        return x if self.conv is None else self.conv(x)
 
 
 class Downsample(nn.Module):
-    """Stride-2 3×3 conv (openaimodel.py:146-199)."""
+    """Stride-2 3×3 conv, or with ``use_conv=False`` a 2×2 average pool
+    (openaimodel.py:146-199)."""
 
-    def __init__(self, channels: int, out_channels: Optional[int] = None,
+    def __init__(self, channels: int, use_conv: bool = True, out_channels: Optional[int] = None,
                  dtype: Optional[torch.dtype] = None, device: DeviceLike = None):
         super().__init__()
-        self.op = Conv2d(channels, out_channels or channels, 3, stride=2, padding=1, dtype=dtype, device=device)
+        if not use_conv and (out_channels or channels) != channels:
+            raise ValueError("an average-pool Downsample keeps its channels")
+        self.op = Conv2d(channels, out_channels or channels, 3, stride=2, padding=1, dtype=dtype,
+                         device=device) if use_conv else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.op(x)
+        return avg_pool_2x(x) if self.op is None else self.op(x)

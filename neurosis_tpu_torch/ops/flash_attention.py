@@ -342,8 +342,30 @@ flash_bwd_f32.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# autograd entry
+# the dispatcher op and the autograd entry
 # ---------------------------------------------------------------------------
+
+# The forward is a dispatcher op (``torch.ops.neurosis.flash_fwd``), so a
+# selective-checkpoint policy can name its outputs and keep them: a launch
+# through ctypes alone is invisible to it, and the recompute would run the
+# kernel again (modules/attention.py's ``names`` remat policies). The op runs
+# its wrapper on CPU and CUDA tensors. The Meta dispatch key takes the fake
+# version, which gives shapes alone under tracing and, on meta tensors, runs
+# the wrapper too, so the package tests' meta walk reaches the (stubbed)
+# launch. The backward runs outside the checkpoint's forward and calls its
+# wrapper directly.
+
+
+@torch.library.custom_op("neurosis::flash_fwd", mutates_args=(), device_types=("cpu", "cuda"))
+def flash_fwd_op(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    return flash_fwd(qs, k, v)
+
+
+@flash_fwd_op.register_fake
+def _(qs, k, v):
+    if qs.device.type == "meta":
+        return flash_fwd(qs, k, v)
+    return torch.empty_like(qs), qs.new_empty(qs.shape[:-1], dtype=torch.float32)
 
 
 class _Flash(torch.autograd.Function):
@@ -351,7 +373,7 @@ class _Flash(torch.autograd.Function):
     def forward(ctx, q, k, v):
         scale = 1.0 / math.sqrt(q.shape[-1])  # the true head dim: the wrappers pad after this
         qs = (q * (scale * LOG2_E)).to(q.dtype)
-        o, lse = flash_fwd(qs, k, v)
+        o, lse = flash_fwd_op(qs, k, v)
         ctx.save_for_backward(qs, k, v, o, lse)
         ctx.scale = scale
         return o

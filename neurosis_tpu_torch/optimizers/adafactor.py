@@ -5,8 +5,10 @@ The update is optax.adafactor's, which the JAX package wraps, not
 torch.optim.Adafactor's (their maths differ): factored second moments with
 decay 1 − (t+1)^−0.8, block-RMS clipping, the relative step
 min(1e-2, 1/√t) (warmup_init: min(1e-6·t, 1/√t)) and, with
-``scale_parameter``, the parameter's own RMS (at least 1e-3) as a scale.
-Every 2-D or larger parameter is factored over its two largest axes,
+``scale_parameter``, the parameter's own RMS (at least 1e-3) as a scale;
+then, as optax chains them, ``beta1`` momentum (an fp32 EMA of the update,
+not debiased) and ``weight_decay`` (the parameter times the rate, added
+after the learning rate, so not scaled by it). Every 2-D or larger parameter is factored over its two largest axes,
 chosen in the JAX layout (HWIO for convolutions) so the factoring matches.
 """
 
@@ -49,8 +51,7 @@ def _factored_dims(shape: tuple) -> Optional[tuple[int, int]]:
 
 
 class Adafactor(torch.optim.Optimizer):
-    """Config surface of the reference's Adafactor; momentum (beta1) and
-    weight decay are not part of this port yet and raise."""
+    """Config surface of the reference's Adafactor."""
 
     def __init__(self, params, lr: Optional[float] = None, eps: tuple = (1e-30, 1e-3),
                  clip_threshold: float = 1.0, decay_rate: float = -0.8, beta1: Optional[float] = None,
@@ -60,11 +61,9 @@ class Adafactor(torch.optim.Optimizer):
             raise ValueError("Cannot combine manual `lr` and `relative_step=True` options")
         if warmup_init and not relative_step:
             raise ValueError("`warmup_init=True` requires `relative_step=True`")
-        if beta1 is not None or weight_decay > 0.0:
-            raise NotImplementedError("Adafactor momentum and weight decay are not ported yet")
         defaults = dict(lr=lr, eps=eps[0], clip_threshold=clip_threshold, decay_rate=abs(decay_rate),
                         scale_parameter=scale_parameter, relative_step=relative_step,
-                        warmup_init=warmup_init)
+                        warmup_init=warmup_init, beta1=beta1, weight_decay=weight_decay)
         super().__init__(params, defaults)
         self.count = 0  # completed updates
 
@@ -111,6 +110,15 @@ class Adafactor(torch.optim.Optimizer):
         u = u * lr
         if group["scale_parameter"]:
             u = u * torch.sqrt(torch.clamp_min(torch.mean(p.float() ** 2), 1e-3**2))
-        if group["relative_step"] and group.get("lr_scale", 1.0) != 1.0:
-            u = u * group["lr_scale"]  # a group's own base_lr; a given lr is scaled already (build_optimizer)
+        # a group's own base_lr scales the whole update (JAX: optax.scale after the
+        # optimizer); a given lr is scaled already (build_optimizer), and with it u
+        lr_scale = group.get("lr_scale", 1.0)
+        if group["beta1"] is not None:
+            if "m" not in state:
+                state["m"] = torch.zeros_like(u)
+            u = state["m"].mul_(group["beta1"]).add_(u, alpha=1.0 - group["beta1"]).clone()
+        if group["relative_step"] and lr_scale != 1.0:
+            u = u * lr_scale
+        if group["weight_decay"] > 0.0:
+            u = u + (group["weight_decay"] * lr_scale) * p.float()
         p.sub_(u.to(p.dtype))

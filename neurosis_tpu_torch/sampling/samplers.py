@@ -22,6 +22,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..diffusion.discretization import RectifiedFlowComfyDiscretization
 from ..utils import append_dims
 from .guidance import Guider, IdentityGuider
 from .utils import (
@@ -37,14 +38,21 @@ DenoiseFn = Callable[[torch.Tensor, torch.Tensor, dict], torch.Tensor]
 
 
 class BaseDiffusionSampler:
-    """prepare: σ table, x·√(1+σ₀²), an fp32 carry (sampling.py:50-91)."""
+    """prepare: σ table, x·√(1+σ₀²) (x·σ₀ over the comfy rectified-flow
+    table), an fp32 carry (sampling.py:50-91). ``rf_safeguard``, read only
+    over ``RectifiedFlowComfyDiscretization``, rescales a denoised sample
+    whose std of denoised/(1−σ) leaves [0.5, 1.5] to unit std
+    (sampling.py:79-89). ``device`` is taken and unused, as in JAX: the
+    sampler works on the device of the noise it is given."""
 
     def __init__(self, discretization, guider: Optional[Guider] = None, num_steps: Optional[int] = None,
-                 verbose: bool = False):
+                 verbose: bool = False, rf_safeguard: bool = False, device=None):
         self.discretization = discretization
         self.guider = guider if guider is not None else IdentityGuider()
         self.num_steps = num_steps
         self.verbose = verbose
+        self._comfy_rf = isinstance(discretization, RectifiedFlowComfyDiscretization)
+        self.rf_safeguard = rf_safeguard and self._comfy_rf
 
     def prepare(self, x: torch.Tensor, cond: dict, uc: Optional[dict], num_steps: Optional[int]):
         num_steps = num_steps if num_steps is not None else self.num_steps
@@ -53,12 +61,22 @@ class BaseDiffusionSampler:
         self._sigmas_np = self.discretization.table(num_steps)
         sigmas = torch.as_tensor(self._sigmas_np, device=x.device)
         uc = uc if uc is not None else cond
-        x = x * float(np.sqrt(1.0 + self._sigmas_np[0] ** 2))
+        if self._comfy_rf:
+            x = x * float(self._sigmas_np[0])
+        else:
+            x = x * float(np.sqrt(1.0 + self._sigmas_np[0] ** 2))
         return x.float(), sigmas, cond, uc
 
     def denoise(self, x: torch.Tensor, denoiser: DenoiseFn, sigma: torch.Tensor, cond: dict, uc: dict):
         xin, sin, cin = self.guider.prepare_inputs(x, sigma, cond, uc)
-        return self.guider(denoiser(xin, sin, cin), sigma)
+        denoised = self.guider(denoiser(xin, sin, cin), sigma)
+        if self.rf_safeguard:
+            alpha = 1.0 - append_dims(sigma, x.ndim)
+            std = torch.std(denoised / alpha, dim=tuple(range(1, denoised.ndim)), correction=0)
+            bad = (std < 0.5) | (std > 1.5)
+            scale = torch.where(bad, 1.0 / torch.clamp_min(std, 1e-6), torch.ones_like(std))
+            denoised = denoised * append_dims(scale, denoised.ndim)
+        return denoised
 
     @staticmethod
     def s_in(x: torch.Tensor) -> torch.Tensor:

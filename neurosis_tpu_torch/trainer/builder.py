@@ -95,7 +95,7 @@ def build_optimizer(node: Optional[dict], scheduler_node: Optional[dict] = None)
     for given, wanted in (("lr", "learning_rate"), ("learning_rate", "lr")):
         if given in kwargs and given not in takes and wanted in takes:
             kwargs[wanted] = kwargs.pop(given)
-    kwargs = _adapt_kwargs(cls, _numbers(kwargs))
+    kwargs = _adapt_kwargs(cls, _numbers(kwargs), node["class_path"])
     sched = None
     if scheduler_node is not None and "AdafactorScheduler" not in scheduler_node.get("class_path", ""):
         sched = instantiate(dict(scheduler_node, init_args=_numbers(scheduler_node.get("init_args") or {})))
@@ -122,11 +122,15 @@ def build_conditioner(node: dict, context: dict) -> tuple[GeneralConditioner, li
 
 
 def build_first_stage(node: Optional[dict], context: dict) -> Optional[AutoencoderKL]:
-    """The frozen fp32 AutoencoderKL. Its own ``ckpt_path`` is not read (nor
-    by the JAX package): the engine's checkpoint fills ``first_stage_model.*``."""
+    """The frozen fp32 AutoencoderKL, or None for ``IdentityFirstStage``
+    (the engine then runs in pixel space). Its own ``ckpt_path`` is not read
+    (nor by the JAX package): the engine's checkpoint fills
+    ``first_stage_model.*``."""
     if node is None:
         return None
-    resolve_class_path(node.get("class_path") or "")  # IdentityFirstStage raises: not ported
+    resolve_class_path(node.get("class_path") or "")  # a path the port does not know raises
+    if "IdentityFirstStage" in (node.get("class_path") or ""):
+        return None
     args = node.get("init_args") or {}
     ddconfig = args.get("ddconfig")
     if ddconfig is None:
@@ -189,11 +193,9 @@ def build_autoencoding_engine(model_node: dict, dtype=None, device=None, generat
 
 
 def build_diffusion_engine(model_node: dict, dtype=None, device=None, generator=None) -> DiffusionEngine:
-    """The reference `model:` YAML node → DiffusionEngine."""
+    """The reference `model:` YAML node → DiffusionEngine, with its
+    ``forward_hooks`` as ``engine.loss_hooks`` (the loop calls them)."""
     args = dict(model_node.get("init_args") or {})
-    for key, item in (("forward_hooks", "11 (loss hooks)"), ("log_sigmas", "7 (the per-sample loss breakdown)")):
-        if args.get(key):
-            raise NotImplementedError(f"{key} is not ported yet: ROADMAP Queue 1 item {item}")
     context = {"device": device, "generator": generator}
 
     unet = instantiate(args["model"], context, dtype=dtype)
@@ -229,6 +231,9 @@ def build_diffusion_engine(model_node: dict, dtype=None, device=None, generator=
         trainable_embedders=tuple(trainable_idx),
         lr_scales=lr_scales,
         device=device,
+        identity_first_stage="IdentityFirstStage" in ((args.get("first_stage_model") or {}).get("class_path") or ""),
+        log_sigmas=bool(args.get("log_sigmas", False)),
     )
     engine.ckpt_path = args.get("ckpt_path")
+    engine.loss_hooks = [instantiate(h, context) for h in args.get("forward_hooks", []) or []]
     return engine

@@ -31,7 +31,8 @@ logger = logging.getLogger(__name__)
 
 def engine_modules(engine) -> dict:
     """The engine's top-level modules by name."""
-    names = ("model", "conditioner", "first_stage") if hasattr(engine, "conditioner") else \
+    names = ("model", "conditioner", "first_stage", "first_stage_encoder", "first_stage_decoder") \
+        if hasattr(engine, "conditioner") else \
         ("encoder", "decoder", "loss")
     return {n: getattr(engine, n) for n in names if getattr(engine, n, None) is not None}
 

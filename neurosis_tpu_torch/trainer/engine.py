@@ -2,13 +2,21 @@
 
 ``init(seed)`` builds the optimizer over the trainable parameters, the EMA
 shadows and the run's generator; ``train_step(state, batch)`` runs
-[frozen encode →] conditioner → loss → backward → Adafactor → EMA and
+[frozen encode →] conditioner → loss → backward → optimizer → EMA and
 updates the module parameters in place. The latents are
 ``batch['latents']`` (NHWC, already scaled) when the batch has them, else
 the frozen first stage encodes ``batch[input_key]`` (uint8 or [-1, 1]
 images, NHWC): moments → posterior sample → ·scale_factor, without grad
-(models/diffusion.py:187-197). ``eval_step`` is the loss alone, without
-grad or update, and under the EMA shadows too when ``use_ema`` is set.
+(models/diffusion.py:187-197). The first stage is an ``AutoencoderKL``, a
+separate encoder and decoder (``first_stage_encoder``/``_decoder``), or
+none at all for pixel-space diffusion (``identity_first_stage``: the
+images themselves, ·scale_factor). In training the run's generator feeds
+the conditioner's UCG draws and the UNet's dropout; a per-sample
+``batch['loss_scale']`` (a loss hook's) multiplies the loss, and with
+``log_sigmas`` the step also reports ``loss_s0``, ``loss_smax`` and
+``loss_smin`` (models/diffusion.py:216-232). ``eval_step`` is the loss
+alone, without grad, update, UCG or dropout, and under the EMA shadows too
+when ``use_ema`` is set.
 
 Sampling (models/diffusion.py:298-445): ``denoiser_fn`` is the
 preconditioned UNet as the sampler calls it, ``sample`` draws (or takes)
@@ -27,10 +35,11 @@ from typing import Any, Callable, Optional, Sequence
 import torch
 
 from .._device import DeviceLike, resolve_device
-from ..diffusion.denoiser import DiscreteDenoiser
+from ..diffusion.denoiser import Denoiser
 from ..diffusion.loss import StandardDiffusionLoss
 from ..models.autoencoder import AutoencoderKL
 from ..models.unet import UNetModel
+from ..models.vae import Decoder, Encoder
 from ..modules.distributions import DiagonalGaussian
 from ..modules.ema import ema_init, ema_swapped_in, ema_update
 from ..modules.encoders.embedding import GeneralConditioner
@@ -39,14 +48,21 @@ from .state import TrainState, global_norm
 
 
 class DiffusionEngine:
-    def __init__(self, model: UNetModel, denoiser: DiscreteDenoiser, loss_fn: StandardDiffusionLoss,
+    def __init__(self, model: UNetModel, denoiser: Denoiser, loss_fn: StandardDiffusionLoss,
                  conditioner: GeneralConditioner,
                  optimizer: Callable[[list], torch.optim.Optimizer],
                  use_ema: bool = False, ema_decay: float = 0.9999, latents_key: str = "latents",
                  trainable_embedders: Sequence[int] = (), first_stage: Optional[AutoencoderKL] = None,
                  scale_factor: float = 0.18215, input_key: str = "image", sampler: Any = None,
-                 lr_scales: Optional[dict] = None, device: DeviceLike = None):
+                 lr_scales: Optional[dict] = None, device: DeviceLike = None,
+                 first_stage_encoder: Optional[Encoder] = None, first_stage_decoder: Optional[Decoder] = None,
+                 identity_first_stage: bool = False, log_sigmas: bool = False):
         self.device = resolve_device(device)
+        self.first_stage_encoder = first_stage_encoder.requires_grad_(False) if first_stage_encoder else None
+        self.first_stage_decoder = first_stage_decoder.requires_grad_(False) if first_stage_decoder else None
+        self.identity_first_stage = identity_first_stage
+        self.log_sigmas = log_sigmas
+        self.loss_hooks: list = []
         self.sampler = sampler
         self.model = model
         self.denoiser = denoiser
@@ -101,25 +117,53 @@ class DiffusionEngine:
     @torch.no_grad()
     def decode_first_stage(self, z: torch.Tensor) -> torch.Tensor:
         """scaled latents → images in [-1, 1] (NHWC) by the frozen VAE's decoder."""
-        if self.first_stage is None:
-            raise ValueError("no first stage to decode with")
-        return self.first_stage.decode(z / self.scale_factor)
+        if self.identity_first_stage:
+            return z / self.scale_factor
+        if self.first_stage is not None:
+            return self.first_stage.decode(z / self.scale_factor)
+        if self.first_stage_decoder is not None:
+            return self.first_stage_decoder(z / self.scale_factor)
+        raise ValueError("no first stage to decode with")
 
-    def network_apply(self, x: torch.Tensor, c_noise: torch.Tensor, cond: dict) -> torch.Tensor:
-        return self.model(x, c_noise, cond.get("crossattn"), y=cond.get("vector"))
+    def network_apply(self, x: torch.Tensor, c_noise: torch.Tensor, cond: dict,
+                      generator: Optional[torch.Generator] = None, **extra) -> torch.Tensor:
+        """The UNet on (x, c_noise) with the conditioning; the loss's
+        ``input_keys`` arrive as ``extra`` (a ``y`` among them takes the place
+        of ``cond['vector']``, so class labels can reach a class-count UNet);
+        dropout draws from ``generator``."""
+        kwargs = {"y": cond.get("vector"), **extra}
+        return self.model(x, c_noise, cond.get("crossattn"), generator=generator, **kwargs)
 
     def loss(self, batch: dict, latents: torch.Tensor, generator: Optional[torch.Generator] = None,
-             t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Batch-mean loss (models/diffusion.py:199-233 forward path)."""
-        cond = self.conditioner(batch)
-        return self.loss_fn(self.network_apply, self.denoiser, cond, latents, generator, t=t, noise=noise).mean()
+             t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
+             offset: Optional[torch.Tensor] = None, ucg: Optional[Sequence[torch.Tensor]] = None):
+        """(batch-mean loss, metrics) (models/diffusion.py:199-233 forward
+        path): the conditioner's UCG and the UNet's dropout draw from
+        ``generator`` (none: neither applies); ``t``, ``noise``, ``offset``
+        and ``ucg`` stand in for the draws."""
+        cond = self.conditioner(batch, generator=generator, ucg=ucg)
+
+        def network_apply(x, c_noise, c, **extra):
+            return self.network_apply(x, c_noise, c, generator, **extra)
+
+        per_sample = self.loss_fn(network_apply, self.denoiser, cond, latents, generator, t=t, noise=noise,
+                                  batch=batch, offset=offset)
+        if "loss_scale" in batch:  # per-sample multipliers from loss hooks
+            per_sample = per_sample * batch["loss_scale"].to(per_sample.dtype)
+        loss = per_sample.mean()
+        metrics = {"loss": loss.detach()}
+        if self.log_sigmas:
+            d = per_sample.detach()
+            metrics.update(loss_s0=d[0], loss_smax=d.max(), loss_smin=d.min())
+        return loss, metrics
 
     def train_step(self, state: TrainState, batch: dict, t: Optional[torch.Tensor] = None,
-                   noise: Optional[torch.Tensor] = None, posterior_noise: Optional[torch.Tensor] = None):
-        """One optimization step; returns (state, {'loss', 'grad_norm'}) with
-        the metrics as 0-d device tensors. ``t``, ``noise`` and
-        ``posterior_noise`` override the generator's draws (tests hold the
-        port against JAX with them)."""
+                   noise: Optional[torch.Tensor] = None, posterior_noise: Optional[torch.Tensor] = None,
+                   offset: Optional[torch.Tensor] = None, ucg: Optional[Sequence[torch.Tensor]] = None):
+        """One optimization step; returns (state, {'loss', 'grad_norm'[, the
+        log_sigmas metrics]}) with the metrics as 0-d device tensors. ``t``,
+        ``noise``, ``posterior_noise``, ``offset`` and ``ucg`` override the
+        generator's draws (tests hold the port against JAX with them)."""
         if self.latents_key in batch:
             latents = batch[self.latents_key]
         else:
@@ -127,14 +171,14 @@ class DiffusionEngine:
         params = self.trainable_parameters()
         for p in params:
             p.grad = None
-        loss = self.loss(batch, latents, state.generator, t=t, noise=noise)
+        loss, metrics = self.loss(batch, latents, state.generator, t=t, noise=noise, offset=offset, ucg=ucg)
         loss.backward()
         grad_norm = global_norm([p.grad for p in params if p.grad is not None])  # JAX: an unused one's is 0
         state.optimizer.step()
         if state.ema is not None:
             ema_update(state.ema, params, self.ema_decay)
         state.step += 1
-        return state, {"loss": loss.detach(), "grad_norm": grad_norm}
+        return state, dict(metrics, grad_norm=grad_norm)
 
     def ema_scope(self, state: TrainState):
         """The trainable parameters hold the EMA shadows inside the block
@@ -198,16 +242,19 @@ class DiffusionEngine:
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch: dict):
-        """The loss for ``validate``: no grad, no update. With ``use_ema`` the
-        same draws of t and noise also give ``loss_ema`` under the shadows."""
+        """The loss for ``validate``: no grad, no update, no UCG, no dropout.
+        With ``use_ema`` the same draws of t, noise and offset also give the
+        ``*_ema`` metrics under the shadows."""
         if self.latents_key in batch:
             latents = batch[self.latents_key]
         else:
             latents = self.encode_first_stage(batch[self.input_key], state.generator)
         t = torch.rand(latents.shape[0], generator=state.generator, device=latents.device)
         noise = torch.randn(latents.shape, generator=state.generator, device=latents.device, dtype=latents.dtype)
-        metrics = {"loss": self.loss(batch, latents, t=t, noise=noise)}
+        offset = self.loss_fn.draw_offset(latents, state.generator)
+        _, metrics = self.loss(batch, latents, t=t, noise=noise, offset=offset)
         if self.use_ema and state.ema is not None:
             with self.ema_scope(state):
-                metrics["loss_ema"] = self.loss(batch, latents, t=t, noise=noise)
+                _, ema_metrics = self.loss(batch, latents, t=t, noise=noise, offset=offset)
+            metrics.update({f"{k}_ema": v for k, v in ema_metrics.items()})
         return state, metrics

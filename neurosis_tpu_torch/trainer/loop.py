@@ -10,6 +10,11 @@ g/d steps on its schedule) → metrics to ``<root>/logs/metrics.jsonl``
 its metrics; each step runs inside a ``torch.profiler.record_function``
 span named ``STEP_SPAN``, which a profiler reads.
 
+An engine's loss hooks (``forward_hooks``) run at JAX's places
+(loop.py:361-385): ``pre_hook`` on the host batch before it is tokenized
+and moved (a ``loss_scale`` it adds reaches the loss), ``batch_hook`` on the
+step's metrics before they are logged.
+
 ``predict`` samples images for prompts with the engine's sampler and
 writes them as PNGs with a captioned grid.
 
@@ -168,14 +173,26 @@ class Trainer:
 
     # -- batch prep --------------------------------------------------------
 
+    def _caption_chunks(self) -> int:
+        """The most ``extended_chunks`` among the engine's text embedders of
+        the caption (0 or 1: plain 77-token prompts)."""
+        embedders = getattr(getattr(self.engine, "conditioner", None), "embedders", ()) or ()
+        return max([int(getattr(e, "extended_chunks", 0) or 0) for e in embedders
+                    if getattr(e, "input_key", None) == self.caption_key] + [0])
+
     def prepare_batch(self, batch: dict) -> dict:
         """Host batch → tensors on the device: captions tokenized (int64 ids,
-        plus the empty prompt's as ``uncond_ids``), numeric fields as tensors,
-        strings dropped."""
+        [B, chunks, 77] when an embedder takes extended prompts and the
+        tokenizer can chunk, plus the empty prompt's as ``uncond_ids``),
+        numeric fields as tensors, strings dropped."""
         out = {}
+        chunks = self._caption_chunks()
         for k, v in batch.items():
             if k == self.caption_key and isinstance(v, (list, tuple)):
-                out[f"{k}_ids"] = self.tokenizer(list(v))
+                if chunks > 1 and hasattr(self.tokenizer, "tokenize_extended"):
+                    out[f"{k}_ids"] = self.tokenizer.tokenize_extended(list(v), chunks)
+                else:
+                    out[f"{k}_ids"] = self.tokenizer(list(v))
             elif isinstance(v, np.ndarray):
                 out[k] = v
             elif isinstance(v, (list, tuple)) and v and isinstance(v[0], (int, float)):
@@ -200,18 +217,23 @@ class Trainer:
         return state
 
     @contextlib.contextmanager
-    def _batches(self, batch_iter_factory):
-        """(prepared batch, host batch, data ms) of each batch of one epoch;
-        the epoch's iterator is closed on leaving, which stops its prefetch
+    def _batches(self, batch_iter_factory, hooks: Sequence[Any] = ()):
+        """(prepared batch, host batch, data ms) of each batch of one epoch,
+        each host batch through the ``pre_hook`` of ``hooks`` first; the
+        epoch's iterator is closed on leaving, which stops its prefetch
         workers."""
         it = iter(batch_iter_factory())
 
         def gen():
+            batch_idx = 0
             while True:
                 t0 = time.perf_counter()
                 batch = next(it, None)
                 if batch is None:
                     return
+                for hook in hooks:
+                    batch = hook.pre_hook(self, self.engine, batch, batch_idx)
+                batch_idx += 1
                 prepped = self.prepare_batch(batch)
                 yield prepped, batch, (time.perf_counter() - t0) * 1e3
 
@@ -245,7 +267,8 @@ class Trainer:
         try:
             while global_step < self.max_steps and (self.max_epochs is None or epoch < self.max_epochs):
                 batch_idx = 0
-                with self._batches(batch_iter_factory) as batches:
+                hooks = getattr(self.engine, "loss_hooks", ())
+                with self._batches(batch_iter_factory, hooks) as batches:
                     for prepped, batch, data_ms in batches:
                         if state is None:
                             state = self._start("fit")
@@ -260,6 +283,9 @@ class Trainer:
                             fn = self.engine.train_step
                         state, metrics = self._step(fn, state, prepped)
                         metrics["data_ms"] = data_ms
+                        loss = metrics.get("loss")
+                        for hook in hooks:
+                            loss, metrics = hook.batch_hook(self.engine, batch, loss, metrics)
                         batch_idx += 1
                         self.batch_idx, self.epoch = batch_idx, epoch
                         global_step = int(state.step)

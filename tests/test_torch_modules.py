@@ -199,5 +199,6 @@ def test_conditioner_crossattn():
     assert rel_err(got["crossattn"].numpy(), want["crossattn"]) < 1e-5
     zero = m({"caption_ids": torch.tensor(ids)}, force_zero_embeddings=("caption",))
     assert not zero["crossattn"].any()
-    with pytest.raises(NotImplementedError, match="ucg_rate"):  # UCG draws are not ported
-        FrozenCLIPEmbedder(ucg_rate=0.1, width=64, layers=1, heads=2, device=CPU)
+    ucg = GeneralConditioner([FrozenCLIPEmbedder(ucg_rate=0.1, width=64, layers=2, heads=2, device=CPU)])
+    load_into(ucg, p)  # without a generator (sampling, evaluation) UCG draws nothing
+    assert torch.equal(ucg({"caption_ids": torch.tensor(ids)})["crossattn"], got["crossattn"])

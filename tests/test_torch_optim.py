@@ -77,8 +77,8 @@ def test_adafactor_refuses_what_is_not_ported():
     p = [torch.zeros(2, 2, requires_grad=True)]
     with pytest.raises(ValueError):
         Adafactor(p, lr=1e-3, relative_step=True)
-    with pytest.raises(NotImplementedError):
-        Adafactor(p, beta1=0.9)
+    with pytest.raises(ValueError):
+        Adafactor(p, warmup_init=True, relative_step=False, lr=1e-3)
 
 
 @pytest.mark.parametrize("use_num_updates", [True, False])

@@ -282,16 +282,24 @@ CONFIGS = sorted(str(p.relative_to(ROOT)) for sub in ("sd15", "sdxl", "vae", "sm
 _BF16_PRECISIONS = {"bf16", "bf16-mixed", "bf16-true", "16", "16-mixed", "16-true", 16}
 
 
-@pytest.mark.parametrize("config", CONFIGS)
+# chip_smoke.py phase 15's copies of sdxl.example.yaml and sd15.example.yaml
+PHASE15 = ["phase15:sdxl-vpred", "phase15:sdxl-remat", "phase15:sd15-edm", "phase15:sd15-rf"]
+
+
+@pytest.mark.parametrize("config", CONFIGS + PHASE15)
 def test_every_flash_row_of_the_configs_reaches_a_kernel(kernel_stub, monkeypatch, config):
-    """The attention rows of each config, as the port's models make them at
-    the config's dtype, resolution and batch (SDXL's configs name aspect
-    buckets, not a resolution: the square bucket, 1024 px), on meta tensors:
-    every row the gate sends to flash reaches a kernel launch at a head dim
-    that kernel is built for, forward and backward, and none meets a refusal."""
+    """The attention rows of each config (and of chip_smoke.py phase 15's
+    copies), as the port's models make them at the config's dtype,
+    resolution and batch (SDXL's configs name aspect buckets, not a
+    resolution: the square bucket, 1024 px), on meta tensors: every row the
+    gate sends to flash reaches a kernel launch, through the dispatcher ops
+    neurosis::flash_fwd and flash_bwd, at a head dim that kernel is built
+    for, forward and backward, and none meets a refusal."""
     import inspect
 
     import yaml
+
+    import chip_smoke
 
     from neurosis_tpu_torch.models import autoencoder, unet, vae
     from neurosis_tpu_torch.modules import attention as attn_module
@@ -309,7 +317,8 @@ def test_every_flash_row_of_the_configs_reaches_a_kernel(kernel_stub, monkeypatc
     monkeypatch.setattr(attn_module, "dot_product_attention", watch)
     monkeypatch.setattr(vae, "dot_product_attention", watch)
 
-    cfg = yaml.safe_load((ROOT / config).read_text())
+    text = chip_smoke.phase15_configs(ROOT)[config.split(":")[1]] if config in PHASE15 else (ROOT / config).read_text()
+    cfg = yaml.safe_load(text)
     model, data = cfg["model"]["init_args"], cfg["data"]["init_args"]
     res, batch = data.get("resolution", 1024), data.get("batch_size", 1)
     dtype = torch.bfloat16 if cfg["trainer"].get("precision") in _BF16_PRECISIONS else None
@@ -377,3 +386,72 @@ def test_profile_books_kernels_by_name(name, kind):
     import chip_smoke
 
     assert chip_smoke.kernel_kind(name) == kind
+
+
+@pytest.mark.parametrize("policy,recomputed", [("full", True), ("dots", True), ("dots_all", True),
+                                               ("names", False), ("dots_names", False), ("none", False)])
+def test_a_checkpointed_backward_launches_the_flash_forward_by_policy(kernel_stub, policy, recomputed):
+    """On meta tensors through the stubbed kernels: a backward through
+    checkpointed transformer blocks launches each block's flash forwards
+    again under full, dots and dots_all, and none under names and
+    dots_names (the policy keeps neurosis::flash_fwd's outputs) or none (no
+    checkpoint); every policy launches the same backwards."""
+    from neurosis_tpu_torch.modules.attention import SpatialTransformer
+
+    block = SpatialTransformer(64, 2, 32, depth=2, context_dim=64, use_checkpoint=True, dtype=torch.bfloat16,
+                               device="meta", remat_policy=policy)
+    x = torch.empty(1, 32, 32, 64, device="meta", requires_grad=True)  # 1024 queries: past the flash gate
+    out = block(x, torch.empty(1, 77, 64, device="meta"))
+    forwards = [c for c in kernel_stub if c[0] == "flash_fwd_bf16"]
+    assert len(forwards) == 4  # two blocks, self and cross attention
+    kernel_stub.clear()
+    out.float().sum().backward()
+    assert len([c for c in kernel_stub if c[0] == "flash_fwd_bf16"]) == (4 if recomputed else 0)
+    assert len([c for c in kernel_stub if c[0] == "flash_bwd_bf16"]) == 4
+
+
+def test_chip_smoke_phase15_tables_are_the_models_launches(monkeypatch):
+    """The launches phase 15 expects: the SDXL step under [none, none,
+    dots_names] (REMAT_TABLES, derived from SDXL_FLASH_SHAPES and the policy)
+    equals the port's UNet's forward and backward at batch 2 on meta tensors,
+    and the rectified-flow logger call (cli_sd15_logger) equals the encode,
+    the UNet calls at CFG batch 2 of the comfy table's steps and the two
+    decodes of sd15.example.yaml's models."""
+    import chip_smoke as cs
+    from test_torch_predict import _recorded_launches
+
+    from neurosis_tpu_torch.diffusion.discretization import RectifiedFlowComfyDiscretization
+    from neurosis_tpu_torch.models.autoencoder import AutoencoderKL
+    from neurosis_tpu_torch.models.unet import UNetModel
+
+    calls = _recorded_launches(monkeypatch)
+    meta = dict(device="meta", generator=torch.Generator())
+    model = UNetModel(**cs.SDXL_UNET, use_checkpoint=True, remat_policy=list(cs.VPRED_REMAT), dtype=torch.bfloat16,
+                      **meta)
+    out = model(torch.empty(2, 128, 128, 4, device="meta"), torch.zeros(2, dtype=torch.long, device="meta"),
+                torch.empty(2, 77, 2048, device="meta"), y=torch.empty(2, 2816, device="meta"))
+    out.float().sum().backward()
+    table = cs.REMAT_TABLES["cli_sdxl_vpred"]
+    assert {sh: calls["flash_fwd_bf16", sh[:4]] for sh in table} == {sh: f for sh, (f, _b) in table.items()}
+    # the recorder reads a forward's shape; the backwards are counted by entry
+    assert sum(n for (entry, _sh), n in calls.items() if entry == "flash_bwd_bf16") == sum(b for _f, b in table.values())
+    assert sum(f for f, _ in table.values()) == sum(f for f, _ in cs.SDXL_FLASH_SHAPES.values()) // 2
+
+    calls.clear()
+    sd15 = cs.phase15_configs(cs.Path(__file__).resolve().parents[1])["sd15-rf"]
+    import yaml
+
+    args = yaml.safe_load(sd15)["model"]["init_args"]
+    unet = UNetModel(**args["model"]["init_args"], **meta)
+    steps = len(RectifiedFlowComfyDiscretization().table(cs.LOGGER_STEPS)) - 1
+    assert steps == cs.RF_LOGGER_CALLS
+    vae = AutoencoderKL(args["first_stage_model"]["init_args"]["ddconfig"], embed_dim=4, **meta)
+    with torch.no_grad():
+        vae.encode(torch.empty(1, 256, 256, 3, device="meta"))
+        for _ in range(steps):
+            unet(torch.empty(2, 32, 32, 4, device="meta"), torch.zeros(2, device="meta"),
+                 torch.empty(2, 77, 768, device="meta"))
+        for _ in range(2):
+            vae.decode(torch.empty(1, 32, 32, 4, device="meta"))
+    flash32 = cs.sampling_tables()["cli_sd15_logger"][1]
+    assert dict(calls) == {("flash_fwd_f32", sh[:4]): n for sh, n in flash32.items()}

@@ -168,13 +168,13 @@ def test_embedders_refuse_what_is_not_ported():
 
     with pytest.raises(ValueError, match="layer_idx"):
         FrozenCLIPEmbedder(layer="hidden", width=32, layers=1, heads=2, device=CPU)
-    with pytest.raises(NotImplementedError, match="ucg_rate"):
-        ConcatTimestepEmbedderND(ucg_rate=0.1)
-    # extended prompts arrive as ids [B, chunks, 77]
+    assert ConcatTimestepEmbedderND(ucg_rate=0.1).ucg_rate == 0.1  # UCG is ported
+    # ids are [B, 77] or, for extended prompts, [B, chunks, 77]; no other rank
     for m in (FrozenCLIPEmbedder(width=32, layers=1, heads=2, device=CPU),
               FrozenOpenCLIPEmbedder2(width=32, layers=1, heads=2, device=CPU)):
-        with pytest.raises(NotImplementedError, match="extended"):
-            m(torch.zeros(2, 3, 77, dtype=torch.long))
+        assert m(torch.zeros(2, 3, 77, dtype=torch.long))[0].shape[:2] == (2, 3 * 77)
+        with pytest.raises(ValueError, match="chunks"):
+            m(torch.zeros(2, 3, 1, 77, dtype=torch.long))
 
 
 def test_concat_timestep_embedder():
@@ -284,9 +284,8 @@ def test_unet_sequential_label_embedding():
     plain = dict(TINY_UNET, num_classes=None, adm_in_channels=None)
     with pytest.raises(ValueError, match="iff num_classes"):
         UNetModel(**plain, device=CPU)(t(x), torch.tensor(ts), t(ctx), t(y))
-    for other in (10, "continuous", "timestep"):
-        with pytest.raises(NotImplementedError, match="num_classes"):
-            UNetModel(**dict(TINY_UNET, num_classes=other), device=CPU)
+    with pytest.raises(ValueError, match="num_classes"):  # the other forms are held in test_torch_unet_variants.py
+        UNetModel(**dict(TINY_UNET, num_classes="ordinal"), device=CPU)
     with pytest.raises(ValueError, match="adm_in_channels"):
         UNetModel(**dict(TINY_UNET, adm_in_channels=None), device=CPU)
 
