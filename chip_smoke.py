@@ -16,7 +16,8 @@ logger), and python -m neurosis_tpu_torch predict on sdxl.example.yaml, and
 a training run of configs/sdxl/sdxl-te.example.yaml as written (fp32 UNet,
 both text towers trainable, 8-bit AdamW, the legacy cosine schedule) that
 saves a checkpoint and is resumed from it, and the SD training path's
-options (objectives, remat policies, caption dropout, loss hooks).
+options (objectives, remat policies, caption dropout, loss hooks), and the
+VAE-GAN stack's VQ autoencoders with the optimizers left.
 
 Phases, each fatal on failure:
   1. environment: Python, torch and CUDA versions, the card's name and power limit;
@@ -113,7 +114,20 @@ Phases, each fatal on failure:
      bf16 copy with only that remat policy (2 steps profiled: the remat pair
      with phase 11's), and of EDM and rectified-flow copies of
      sd15.example.yaml (2 steps; the latter with an rf_safeguard logger),
-     each run's launches held to its tables (REMAT_TABLES for the policy).
+     each run's launches held to its tables (REMAT_TABLES for the policy);
+ 16. the rest of the VAE-GAN stack and the optimizers left, in
+     chiprun_out/cli/ after phase 15: small VQ (VQLPIPSWithDiscriminator,
+     an ActNorm PatchGAN, the adaptive d_weight, EMA and eval_step), Gumbel
+     and EMA-VQ engines in bf16, a linear-attention VAE with dropout in
+     eval (fp32), and three steps of CAME, optax.adam (eps_root, nesterov)
+     and optax.sgd (momentum), each on the card against the CPU; then,
+     through the CLI, fit of a VQ-f8 copy of vae.example.yaml (CompVis's
+     vq-f8 widths, attention at 32x32, a 16384-code VectorQuantizer,
+     torch.optim.Adam, EMA; 256 px, batch 8, 16 PNGs it writes) for three
+     G/D pairs in fp32 and in a bf16-mixed copy, each profiled (the third
+     pair's device time by kind, busy share, peak), validate and test of
+     the fp32 copy and of vae.example.yaml as written (2 batches each), all
+     launches held to their tables, and an AEIntegerWrapper round trip.
 Phases 11, 13 and 14 load batches in 2 spawned prefetch worker processes
 (the CLI's default num_workers), which see no CUDA device.
 Then one JSON line of kernels, the nvidia-smi line and, last, the result line.
@@ -331,6 +345,33 @@ RF_LOGGER_CALLS = LOGGER_STEPS - 1
 SD15_LOGGER_F32_FLASH_SHAPES = {(2, 8, 1024, 1024, 40): 5 * RF_LOGGER_CALLS, (2, 8, 1024, 77, 40): 5 * RF_LOGGER_CALLS,
                                 (1, 1, 1024, 1024, 512): 3}
 
+# phase 16: the VQ-f8 autoencoder (CompVis/latent-diffusion
+# models/first_stage_models/vq-f8/config.yaml: ch 128 x [1, 2, 2, 4], 2 blocks a
+# level, attention at 32x32, z 4, a 16384-code VectorQuantizer) trained through
+# the CLI at 256 px, batch 8, for VQ_PAIRS generator/discriminator pairs. Its
+# attention (1024 tokens, 512 channels, one head) is the encoder's level-3
+# blocks (2) and mid block and the decoder's mid block and level-3 blocks (3):
+# 7 a forward, run forward in both steps and backward in the generator step.
+VQ_PAIRS = 3
+VQ_IMAGES = 16  # two batches an epoch: the schedule alternates G and D within an epoch
+VQ_FLASH_SHAPES = {(8, 1, 1024, 1024, 512): (14, 7)}
+# bf16 (the precision: bf16-mixed copy): the fused GroupNorm+SiLU->conv of every
+# ResnetBlock at 64x64 (encoder level 2, decoder level 2 with its 512 -> 256
+# block) and at 32x32 (encoder level 3 with its 256 -> 512 block, both mid
+# blocks, decoder level 3), in both steps; conv3x3: the decoder's upsample conv
+# into 64x64 in both steps and its dgrad, and the generator step's dgrads of
+# every fused conv (listed under the conv's (B, H, W, C, F))
+VQ_GN_CONV_SHAPES = {(8, 64, 64, 256, 256): 18, (8, 64, 64, 512, 256): 2, (8, 32, 32, 256, 512): 2,
+                     (8, 32, 32, 512, 512): 34}
+VQ_CONV_SHAPES = {(8, 64, 64, 512, 512): (2, 1), (8, 64, 64, 256, 256): (0, 9), (8, 64, 64, 512, 256): (0, 1),
+                  (8, 32, 32, 512, 512): (0, 17), (8, 32, 32, 256, 512): (0, 1)}
+# one validate (or test) batch of the fp32 VQ-f8 copy: the forward with the live
+# weights and again under the EMA shadows
+VQ_VAL_F32_FLASH_SHAPES = {(8, 1, 1024, 1024, 512): 14}
+VQ_DIR = CLI_DIR / "data" / "vq" / "folder"
+VQ_SIZES = [(256 + 16 * (i % 4), 256 + 16 * (i // 4)) for i in range(VQ_IMAGES)]  # (width, height), >= 256
+VAE_CLI_PATHS = ("cli_vae", "cli_vq_f32", "cli_vq_bf16")
+
 # path -> (its key in the report, the unit its launch tables count)
 PATHS = {"sd15": ("slice", "SD1.5 train step"),
          "sd15_f32": ("sd15_f32", "SD1.5 train step, fp32 UNet (sd15.example.yaml as written, 256 px, batch 1)"),
@@ -363,11 +404,18 @@ PATHS = {"sd15": ("slice", "SD1.5 train step"),
          "cli_sd15_rf": ("cli_sd15_rf", "SD1.5 train step of sd15.example.yaml's rectified-flow copy (comfy, L1) "
                                         "through the CLI"),
          "cli_sd15_logger": ("cli_sd15_logger", "one image-logger call of the rectified-flow copy's fit (1 image, "
-                                                "rf_safeguard)")}
+                                                "rf_safeguard)"),
+         "cli_vq_f32": ("cli_vq_f32", "generator + discriminator pair of the VQ-f8 copy of vae.example.yaml (fp32, "
+                                      "256 px, batch 8, VQLPIPSWithDiscriminator, torch.optim.Adam) through the CLI"),
+         "cli_vq_bf16": ("cli_vq_bf16", "generator + discriminator pair of the VQ-f8 copy with precision "
+                                        "bf16-mixed through the CLI"),
+         "cli_vq_val": ("cli_vq_val", "one validate batch of the fp32 VQ-f8 copy (batch 8, live and EMA weights)"),
+         "cli_vae_val": ("cli_vae_val", "one validate batch of vae.example.yaml as written (fp32, batch 2)")}
 # a path whose shape tables are another's (the same step, reached another way; the towers of
 # sdxl-te train, but at 77 tokens their attention is under the flash gate)
 TABLES_OF = {"cli_sdxl_bf16": "sdxl", "cli_sdxl_te": "cli_sdxl_f32", "cli_sdxl_vpred": "sdxl", "cli_sdxl_remat": "sdxl",
-             "cli_vpred_logger": "cli_logger", "cli_sd15_edm": "sd15_f32", "cli_sd15_rf": "sd15_f32"}
+             "cli_vpred_logger": "cli_logger", "cli_sd15_edm": "sd15_f32", "cli_sd15_rf": "sd15_f32",
+             "cli_vae_val": "cli_vae_logger"}
 
 # tolerances on max|kernel - plain| / max|plain|, same bf16 inputs on both sides
 TOL = {
@@ -511,6 +559,9 @@ def flash_tables(torch) -> list:
             for sh, n in table.items()] + \
            [("cli_sdxl_f32", sh, n, f32) for sh, n in CLI_SDXL_F32_FLASH_SHAPES.items()] + \
            [("cli_vae", sh, n, f32) for sh, n in CLI_VAE_F32_FLASH_SHAPES.items()] + \
+           [("cli_vq_bf16", sh, n, bf16) for sh, n in VQ_FLASH_SHAPES.items()] + \
+           [("cli_vq_f32", sh, n, f32) for sh, n in VQ_FLASH_SHAPES.items()] + \
+           [("cli_vq_val", sh, (n, 0), f32) for sh, n in VQ_VAL_F32_FLASH_SHAPES.items()] + \
            [(path, sh, (n, 0), dtype) for path, tables in sampling_tables().items()
             for dtype, table in zip((bf16, f32), tables[:2]) for sh, n in table.items()]
 
@@ -526,12 +577,15 @@ def check_flash(torch, log: list) -> dict:
 
     rows = {"flash_fwd": [], "flash_bwd": [], "flash_fwd_f32": [], "flash_bwd_f32": []}
     f32 = torch.float32
-    forwards = {}  # (shape, dtype) -> its forward row: a forward-only row of another path reuses it
+    # (shape, dtype) -> its forward and backward rows: another path's row at that shape reuses them
+    forwards, backwards = {}, {}
     for path, shape, (n_fwd, n_bwd), dtype in flash_tables(torch):
         is_f32 = dtype == f32
         name, bwd_name = ("flash_fwd_f32", "flash_bwd_f32") if is_f32 else ("flash_fwd", "flash_bwd")
-        if not n_bwd and (shape, dtype) in forwards:
+        if (shape, dtype) in forwards and (not n_bwd or (shape, dtype) in backwards):
             rows[name].append(dict(forwards[shape, dtype], path=path, per_step=n_fwd))
+            if n_bwd:
+                rows[bwd_name].append(dict(backwards[shape, dtype], path=path, per_step=n_bwd))
             continue
         fwd = fa.flash_fwd_f32 if is_f32 else fa.flash_fwd
         bwd = fa.flash_bwd_f32 if is_f32 else fa.flash_bwd
@@ -598,6 +652,7 @@ def check_flash(torch, log: list) -> dict:
             library_ms=time_ms(torch, lambda: torch.autograd.grad(lib_out, (qg, kg, vg), do,
                                                                   retain_graph=True)),
             bound_ms=t, bound_by=by, **extra))
+        backwards[shape, dtype] = rows[bwd_name][-1]
         del q, k, v, do, qs, o, o_ref, grads, grads_ref, lib_out
         torch.cuda.empty_cache()
     return rows
@@ -653,11 +708,14 @@ def check_conv(torch, log: list) -> dict:
     tables = [("sd15", sh, n) for sh, n in CONV_SHAPES.items()] + \
              [("vae_gan", sh, n) for sh, n in VAE_CONV_SHAPES.items()] + \
              [("sdxl", sh, n) for sh, n in SDXL_CONV_SHAPES.items()] + \
+             [("cli_vq_bf16", sh, n) for sh, n in VQ_CONV_SHAPES.items()] + \
              [(path, sh, (n, 0)) for path, t in sampling.items() for sh, n in t[2].items()]
     measured = {}  # (kind, shape) -> its row: another path's row at that shape reuses it
     for path, shape, (n_fwd, n_dgrad) in tables:
-        if not n_dgrad and ("fwd", shape) in measured:
-            rows["conv3x3"].append(dict(measured["fwd", shape], path=path, per_step=n_fwd))
+        if all((kind, shape) in measured for kind, n in (("fwd", n_fwd), ("dgrad", n_dgrad)) if n):
+            for kind, n in (("fwd", n_fwd), ("dgrad", n_dgrad)):
+                if n:
+                    rows["conv3x3"].append(dict(measured[kind, shape], path=path, per_step=n))
             continue
         b, hh, ww, c, f = shape
         g = torch.Generator("cuda").manual_seed(sum(shape))
@@ -687,6 +745,7 @@ def check_conv(torch, log: list) -> dict:
     gn_tables = [("sd15", sh, n) for sh, n in GN_CONV_SHAPES.items()] + \
                 [("vae_gan", sh, n) for sh, n in VAE_GN_CONV_SHAPES.items()] + \
                 [("sdxl", sh, n) for sh, n in SDXL_GN_CONV_SHAPES.items()] + \
+                [("cli_vq_bf16", sh, n) for sh, n in VQ_GN_CONV_SHAPES.items()] + \
                 [(path, sh, n) for path, t in sampling.items() for sh, n in t[3].items()]
     for path, shape, n in gn_tables:
         if ("gn", shape) in measured:
@@ -1253,9 +1312,9 @@ def run_overlap(torch, rows: dict, log: list) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def write_image_folder(torch, folder: Path, seed: int = 11) -> None:
-    """CLI_IMAGE_SIZES as PNGs (written by the port's PNG writer) of smooth
-    random fields, each with a caption of a few comma-separated tags."""
+def write_image_folder(torch, folder: Path, seed: int = 11, sizes: list = CLI_IMAGE_SIZES) -> None:
+    """``sizes`` as PNGs (written by the port's PNG writer) of smooth random
+    fields, each with a caption of a few comma-separated tags."""
     import torch.nn.functional as F
 
     from neurosis_tpu_torch.data.png import write_png
@@ -1263,7 +1322,7 @@ def write_image_folder(torch, folder: Path, seed: int = 11) -> None:
     folder.mkdir(parents=True, exist_ok=True)
     g = torch.Generator("cpu").manual_seed(seed)
     tags = ["a photo", "smooth field", "soft light", "outdoors", "blue sky", "grass", "portrait", "landscape"]
-    for i, (w, h) in enumerate(CLI_IMAGE_SIZES):
+    for i, (w, h) in enumerate(sizes):
         coarse = torch.rand(1, 3, h // 32, w // 32, generator=g)
         img = F.interpolate(coarse, size=(h, w), mode="bilinear", align_corners=False)
         img = (img + 0.05 * torch.randn(1, 3, h, w, generator=g)).clamp(0, 1)
@@ -1300,7 +1359,7 @@ def step_profiles(torch, prof, span: str) -> list:
 
 
 def run_cli(torch, rows: dict, config: Path, label: str, path: str, steps: int, profiled: bool,
-            logger: tuple = None, first_step: int = 1, profile_step: int = None) -> dict:
+            logger: tuple = None, first_step: int = 1, profile_step: int = None, units: int = None) -> dict:
     """``python -m neurosis_tpu_torch fit -c config`` in this process (its
     main()), from the working directory (CLI_DIR) and a fresh projects/ there
     (``first_step`` > 1: the projects/ of the run it resumes): rc 0, a finite
@@ -1311,7 +1370,8 @@ def run_cli(torch, rows: dict, config: Path, label: str, path: str, steps: int, 
     k-th step of the run alone. With ``logger`` = (its path, calls), the
     launches inside the image logger's calls are read apart and held to that
     path's tables x calls; a call that raises fails the run (the logger
-    itself would log and go on)."""
+    itself would log and go on). ``units``: the units the path's tables
+    count in the run (default ``steps``; a VAE-GAN path counts pairs)."""
     import contextlib
     import gc
     import shutil
@@ -1375,7 +1435,7 @@ def run_cli(torch, rows: dict, config: Path, label: str, path: str, steps: int, 
     if rc != 0:
         raise PhaseError(f"{label}: main() returned {rc}")
     lines = [json.loads(x) for x in metrics_file.read_text().splitlines()][logged_before:]
-    loss_key = "total" if path == "cli_vae" else "loss"
+    loss_key = "total" if path in VAE_CLI_PATHS else "loss"
     if [r["step"] for r in lines] != list(range(first_step, first_step + steps)):
         raise PhaseError(f"{label}: metrics.jsonl has new steps {[r['step'] for r in lines]}, not "
                          f"{first_step}-{first_step + steps - 1}")
@@ -1385,7 +1445,7 @@ def run_cli(torch, rows: dict, config: Path, label: str, path: str, steps: int, 
         print(f"{label} step {r['step']}: {loss_key} {r[loss_key]:.6f}, host step {r['step_ms']:.1f} ms, "
               f"data {r['data_ms']:.1f} ms", flush=True)
     print(f"{label}: {seconds:.1f} s in main(), peak device memory {peak} bytes ({peak / 2**30:.2f} GiB)", flush=True)
-    check_launches(launches, step_totals(rows, path), steps, label)
+    check_launches(launches, step_totals(rows, path), units or steps, label)
     out = dict(metrics=lines, launches=launches, peak_bytes=peak, seconds=seconds)
     if logger is not None:
         logger_path, n_calls = logger
@@ -2256,6 +2316,346 @@ def run_options_phase(torch, rows: dict, report: dict, log: list) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the rest of the VAE-GAN stack and the optimizers left
+# ---------------------------------------------------------------------------
+
+
+def phase16_configs(repo: Path) -> dict:
+    """{name: YAML text} of phase 16's copies of vae.example.yaml: ``vq-f8``
+    takes the model widths of CompVis/latent-diffusion
+    models/first_stage_models/vq-f8/config.yaml (ch_mult [1, 2, 2, 4],
+    attention at 32x32, z 4 without double_z, a VectorQuantizer of 16384
+    codes of dim 4 at beta 0.25; VQLPIPSWithDiscriminator with 2
+    discriminator layers from step 1, disc_weight 0.6, codebook_weight 1),
+    torch.optim.Adam at 4.5e-6 for both optimizers (the path the JAX
+    package maps to optax.adam), use_ema, 256 px, batch 8, VQ_PAIRS pairs
+    from VQ_IMAGES images loaded in this process (phases 11-14 run the
+    prefetch workers; their start costs ~9.5 s an epoch here), and
+    allow_random_weights for its validate and test; ``vq-f8-bf16`` is the
+    same with precision bf16-mixed."""
+    vae = (repo / "configs/vae/vae.example.yaml").read_text()
+    loss = vae[vae.index("    loss:\n"):vae.index("    optimizer:\n")]
+    optimizers = vae[vae.index("    optimizer:\n"):vae.index("data:\n")]
+    adam = "      class_path: torch.optim.Adam\n      init_args:\n        lr: 4.5e-6\n"
+    vq = _edit(vae, [
+        ("  max_epochs: 1\n", f"  max_epochs: {VQ_PAIRS}\n"),
+        ("  fast_dev_run: true\n", f"  fast_dev_run: false\n  max_steps: {2 * VQ_PAIRS}\n  allow_random_weights: true\n"),
+        ("    use_ema: false\n", "    use_ema: true\n"),
+        ("      double_z: true\n", "      double_z: false\n"),
+        ("      ch_mult: [1, 2, 4, 4]\n", "      ch_mult: [1, 2, 2, 4]\n"),
+        ("      attn_resolutions: []\n", "      attn_resolutions: [32]\n"),
+        (loss, "    regularizer_config:\n"
+               "      class_path: neurosis.modules.autoencoding.regularizers.quantize.VectorQuantizer\n"
+               "      init_args:\n        n_e: 16384\n        e_dim: 4\n        beta: 0.25\n\n"
+               "    loss:\n      class_path: neurosis.modules.autoencoding.losses.VQLPIPSWithDiscriminator\n"
+               "      init_args:\n        disc_num_layers: 2\n        disc_in_channels: 3\n        disc_start: 1\n"
+               "        disc_weight: 0.6\n        codebook_weight: 1.0\n\n"),
+        (optimizers, f"    optimizer:\n{adam}\n    disc_optimizer:\n{adam}\n"),
+        ('    folder: "data/dataset/folder"\n', '    folder: "data/vq/folder"\n'),
+        ("    batch_size: 2\n", "    batch_size: 8\n    num_workers: 0\n"),
+    ], "vae.example.yaml")
+    bf16 = _edit(vq, [("  allow_random_weights: true\n", "  allow_random_weights: true\n  precision: bf16-mixed\n")],
+                 "the VQ-f8 copy")
+    return {"vq-f8": vq, "vq-f8-bf16": bf16}
+
+
+# the small engines of phase 16 (a): 64 px, ch 128 x [1, 4], one block a level,
+# attention inside level 1 (32x32, 512 channels: the flash kernels at d=512)
+SMALL_VQ = dict(ch=128, ch_mult=[1, 4], num_res_blocks=1, attn_resolutions=[32], resolution=64, z_channels=4,
+                dropout=0.0)
+
+
+def make_vq_engine(torch, device, seed: int, kind: str, fp32: bool = False):
+    """A small VQ autoencoder trainer: ``vq`` (VectorQuantizer of 512 codes,
+    VQLPIPSWithDiscriminator with the alex LPIPS, an ActNorm PatchGAN, the
+    adaptive d_weight, EMA, optax.adam), ``gumbel`` (GumbelQuantizer fed
+    one fixed Gumbel draw on every device, AutoencoderPerceptual: the
+    engine adds the regularizer's loss) or ``ema`` (EMAVectorQuantizer,
+    AutoencoderPerceptual). bf16 encoder and decoder unless ``fp32``."""
+    from neurosis_tpu_torch.losses.discriminator_loss import VQLPIPSWithDiscriminator
+    from neurosis_tpu_torch.losses.patchgan import NLayerDiscriminator
+    from neurosis_tpu_torch.losses.vae_loss import AutoencoderPerceptual
+    from neurosis_tpu_torch.models.vae import Decoder, Encoder
+    from neurosis_tpu_torch.modules import regularizers
+    from neurosis_tpu_torch.optimizers.adamw import adam
+    from neurosis_tpu_torch.trainer.vae_engine import AutoencodingEngine
+
+    g = torch.Generator(device).manual_seed(seed)
+    dtype = None if fp32 else torch.bfloat16
+    enc = Encoder(**SMALL_VQ, double_z=False, dtype=dtype, device=device, generator=g)
+    dec = Decoder(**SMALL_VQ, out_ch=3, dtype=dtype, device=device, generator=g)
+    opts = {}
+    if kind == "vq":
+        reg = regularizers.VectorQuantizer(512, 4, beta=0.25, log_perplexity=True, device=device, generator=g)
+        loss = VQLPIPSWithDiscriminator(disc_num_layers=2, disc_start=1, disc_weight=0.6, lpips_type="alex",
+                                        device=device, generator=g)
+        loss.discriminator = NLayerDiscriminator(n_layers=2, use_actnorm=True, device=device, generator=g)
+        opts = dict(adaptive_disc_weight=True, use_ema=True, ema_decay=0.9, disc_start=1)
+    else:
+        loss = AutoencoderPerceptual(lpips_type="alex", device=device, generator=g)
+        if kind == "gumbel":
+            noise = torch.Generator("cpu").manual_seed(seed + 1)
+            gumbel = -torch.log(-torch.log(torch.rand(2, 32, 32, 512, generator=noise) + 1e-20) + 1e-20)
+
+            class FixedDraw(regularizers.GumbelQuantizer):
+                def forward(self, z, generator=None, **kw):
+                    return super().forward(z, gumbel=gumbel.to(z.device), **kw)
+
+            reg = FixedDraw(512, 4, 4, kl_weight=1e-2, device=device, generator=g)
+        else:
+            reg = regularizers.EMAVectorQuantizer(512, 4, beta=0.25, decay=0.9, device=device)
+            with torch.no_grad():
+                reg.embedding.weight.normal_(generator=g)
+    return AutoencodingEngine(enc, dec, loss, lambda ps: adam(ps, 1e-4), lambda ps: adam(ps, 1e-4),
+                              regularizer=reg, sample_posterior=False, device=device, **opts)
+
+
+def reference_vq(torch, log: list) -> dict:
+    """Phase 16 (a), on the card against the CPU from the same weights:
+    a VQ pair (generator, discriminator with the gate open, generator again:
+    the adaptive weight, the ActNorm initialised from the first batch), then
+    its eval_step with EMA; a Gumbel and an EMA-VQ generator step (and
+    EMA-VQ's codebook after it); a linear-attention Encoder/Decoder with
+    dropout in eval (fp32); and three steps of CAME, optax.adam with eps_root
+    and nesterov, and optax.sgd with momentum on one set of parameters and
+    grads. Gates: PERF.md §2's (bf16 losses 2e-2, grad norms 5e-2; fp32 1e-3,
+    1e-2); fp32 parameters within 1e-6 of their largest value."""
+    from neurosis_tpu_torch import ops
+
+    out = {}
+    images = make_images(torch, "cpu", 2, 64, torch.Generator("cpu").manual_seed(21))
+    for kind in ("vq", "gumbel", "ema"):
+        engines = {dev: make_vq_engine(torch, dev, 22, kind) for dev in ("cpu", "cuda")}
+        with torch.no_grad():
+            for name in ("encoder", "decoder", "loss", "regularizer"):
+                src, dst = getattr(engines["cpu"], name), getattr(engines["cuda"], name)
+                dst.load_state_dict(src.state_dict())
+                for a, b in zip(src.modules(), dst.modules()):
+                    if hasattr(b, "initialized"):  # an ActNorm initialises from its first batch on both sides
+                        b.initialized.copy_(a.initialized)
+        metrics, before = {}, ops.launch_counts()
+        for dev, eng in engines.items():
+            state, batch, m = eng.init(seed=0), {"image": images.to(dev)}, {}
+            for i, fn in enumerate([eng.g_step, eng.d_step, eng.g_step] if kind == "vq" else [eng.g_step]):
+                state, step_log = fn(state, batch)
+                params = eng.g_parameters() if fn == eng.g_step else eng.d_parameters()
+                m[f"total_{i}"] = float(step_log["total"])
+                m[f"grad_norm_{i}"] = float(torch.stack([p.grad.float().norm() for p in params
+                                                         if p.grad is not None]).norm())
+                if "train/scalars/d_weight" in step_log:
+                    m[f"d_weight_{i}"] = float(step_log["train/scalars/d_weight"])
+            if kind == "vq":
+                _, val = eng.eval_step(state, batch)
+                m.update(val_total=float(val["val/loss/total"]), val_total_ema=float(val["val/loss/total_ema"]))
+                if not all(math.isfinite(float(v)) for v in val.values()):
+                    raise PhaseError(f"the small VQ engine's eval_step is not finite: {val}")
+            if kind == "ema":
+                m["codebook_norm"] = float(eng.regularizer.embedding.weight.norm())
+            metrics[dev] = m
+        launched = {k: ops.launch_counts()[k] - before[k] for k in before}
+        label = f"phase 16 small {kind} engine"
+        print(f"{label} launches: {launched}", flush=True)
+        missing = [k for k in ("flash_fwd", "flash_bwd", "conv3x3", "gn_silu_conv3x3") if not launched[k]]
+        if missing:
+            raise PhaseError(f"the {label} did not launch {missing}: {launched}")
+        for key, cpu in metrics["cpu"].items():
+            gpu = metrics["cuda"][key]
+            tol = 5e-2 if key.startswith(("grad_norm", "d_weight")) else 2e-2
+            check(f"{label} {key}: cuda {gpu:.6g} vs cpu {cpu:.6g}", abs(gpu - cpu) / max(abs(cpu), 1e-12), tol, log)
+        out[kind] = dict(metrics=metrics, launches=launched)
+        del engines
+        torch.cuda.empty_cache()
+    out["linear_attention"] = reference_linear_attention(torch, log)
+    out["optimizers"] = reference_optimizers(torch, log)
+    return out
+
+
+def reference_linear_attention(torch, log: list) -> dict:
+    """attn_type linear (no kernel: its einsums are plain torch), attention at
+    32x32 and in the mid blocks, dropout 0.1 in eval (no generator: no draw),
+    fp32: the decoded image on the card against the CPU."""
+    from neurosis_tpu_torch.models.vae import Decoder, Encoder
+
+    nets = {}
+    for dev in ("cpu", "cuda"):
+        kw = dict(SMALL_VQ, dropout=0.1, attn_type="linear", device=dev)
+        g = torch.Generator(dev).manual_seed(23)
+        nets[dev] = (Encoder(**kw, double_z=False, generator=g), Decoder(**kw, out_ch=3, generator=g))
+    for a, b in zip(nets["cpu"], nets["cuda"]):
+        b.load_state_dict(a.state_dict())
+    x = make_images(torch, "cpu", 2, 64, torch.Generator("cpu").manual_seed(24)).float() / 127.5 - 1.0
+    with torch.no_grad():
+        want = nets["cpu"][1](nets["cpu"][0](x))
+        got = nets["cuda"][1](nets["cuda"][0](x.cuda())).cpu()
+    err, rel = rel_err(got, want)
+    check("phase 16 linear-attention Encoder/Decoder, dropout in eval (fp32)", rel, 1e-3, log, err)
+    return dict(max_abs_err=err, rel_err=rel)
+
+
+def reference_optimizers(torch, log: list) -> dict:
+    """Three steps of each optimizer on the card and on the CPU, from the same
+    parameters (a 3x3 conv and a dense weight with JAX's layouts, a bias)
+    and the same grads: fp32 parameters within 1e-6 of their largest value."""
+    from neurosis_tpu_torch.modules.layers import Conv2d, Dense
+    from neurosis_tpu_torch.optimizers.adamw import adam, sgd
+    from neurosis_tpu_torch.optimizers.came import CAME
+
+    def params(dev):  # drawn on the CPU, then moved: one set of values on both devices
+        g = torch.Generator("cpu").manual_seed(25)
+        conv, dense = Conv2d(256, 512, 3, device="cpu"), Dense(512, 320, device="cpu")
+        for m in (conv, dense):
+            m.reset_parameters(g)
+            m.to(dev)
+        return [conv.weight, dense.weight, dense.bias]
+
+    grads = [[torch.randn(p.shape, generator=torch.Generator("cpu").manual_seed(26 + 3 * i + j)) * 10.0 ** -j
+              for j, p in enumerate(params("cpu"))] for i in range(3)]
+    factories = {"CAME": lambda ps: CAME(ps, 1e-3, weight_decay=0.01),
+                 "optax.adam eps_root nesterov": lambda ps: adam(ps, 1e-3, eps_root=1e-8, nesterov=True),
+                 "optax.sgd momentum": lambda ps: sgd(ps, 1e-2, momentum=0.9)}
+    out = {}
+    for name, factory in factories.items():
+        final = {}
+        for dev in ("cpu", "cuda"):
+            ps = params(dev)
+            opt = factory(ps)
+            for step in grads:
+                for p, gr in zip(ps, step):
+                    p.grad = gr.to(dev)
+                opt.step()
+            final[dev] = [p.detach().cpu() for p in ps]
+        if torch.equal(final["cpu"][0], params("cpu")[0].detach()):
+            raise PhaseError(f"{name} left the parameters as they were")
+        worst = max(rel_err(b, a)[1] for a, b in zip(final["cpu"], final["cuda"]))
+        check(f"phase 16 {name}: 3 steps, parameters cuda vs cpu", worst, 1e-6, log)
+        out[name] = worst
+    return out
+
+
+def run_cli_eval(torch, rows: dict, config: Path, command: str, label: str, path: str, batches: int) -> dict:
+    """``python -m neurosis_tpu_torch validate|test -c config --max-batches
+    batches`` in this process: rc 0, the JSON line it prints, every value
+    finite, the launches equal to ``batches`` x the path's tables."""
+    import contextlib
+    import io
+
+    from neurosis_tpu_torch import ops
+    from neurosis_tpu_torch.trainer import cli
+
+    ops.reset_launch_counts()
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        rc = cli.main([command, "-c", str(config), "--max-batches", str(batches)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    if rc != 0:
+        raise PhaseError(f"{label}: main() returned {rc}")
+    metrics = json.loads(printed.getvalue().strip().splitlines()[-1])
+    split = "val" if command == "validate" else "test"
+    if metrics.get(f"{split}/num_batches") != batches or not all(math.isfinite(v) for v in metrics.values()):
+        raise PhaseError(f"{label}: {metrics}")
+    print(f"{label}: {seconds:.1f} s in main(); " + ", ".join(f"{k} {v:.6g}" for k, v in sorted(metrics.items())),
+          flush=True)
+    check_launches(launches, step_totals(rows, path), batches, label)
+    return dict(metrics=metrics, launches=launches, seconds=seconds)
+
+
+def pair_profile(run: dict, label: str) -> dict:
+    """The last generator/discriminator pair of a profiled CLI fit: device
+    ms (and by kind), kernels, its host ms and the busy share."""
+    last = run["profiles"][-2:]
+    host = sum(r["step_ms"] for r in run["metrics"][-2:])
+    if any(p["device_ms"] is None for p in last):
+        print(f"{label}: the profiler recorded no device kernels: device time not measured", flush=True)
+        return dict(device_ms=None, host_ms=host)
+    kinds: dict = {}
+    for p in last:
+        for k, ms in p["kinds_ms"].items():
+            kinds[k] = kinds.get(k, 0.0) + ms
+    device = sum(p["device_ms"] for p in last)
+    print(f"{label}, third pair: {device:.3f} ms device in {sum(p['launches'] for p in last)} kernels, host "
+          f"{host:.1f} ms under the profiler, busy share {device / host:.4f}, peak {run['peak_bytes']} bytes; "
+          + ", ".join(f"{k} {ms:.3f} ms" for k, ms in sorted(kinds.items(), key=lambda kv: -kv[1])), flush=True)
+    return dict(device_ms=device, host_ms=host, busy_share=device / host, kinds_ms=kinds,
+                launches=sum(p["launches"] for p in last), peak_bytes=run["peak_bytes"])
+
+
+def run_vq_phase(torch, rows: dict, log: list) -> dict:
+    """Phase 16, in CLI_DIR: (a) reference_vq; (b) fit of phase16_configs'
+    VQ-f8 copy in fp32 and of its bf16-mixed copy, VQ_PAIRS pairs each,
+    profiled (the third pair's device time by kind, busy share and peak),
+    each run's launches held to its pair tables and its schedule to G, D
+    alternating; (c) validate and test of the fp32 copy (live and EMA
+    weights) and of vae.example.yaml as written, 2 batches each; (d) the
+    AEIntegerWrapper round trip on the VQ-f8 copy's engine (random weights
+    from its seed): indices -> images -> indices, the share unchanged."""
+    import os
+
+    from neurosis_tpu_torch.config.loader import load_config
+
+    out = {"reference_vq": reference_vq(torch, log)}
+    write_image_folder(torch, VQ_DIR, seed=27, sizes=VQ_SIZES)
+    paths = {}
+    for name, text in phase16_configs(Path.cwd().resolve()).items():
+        paths[name] = (CLI_DIR / f"{name}.yaml").resolve()
+        paths[name].write_text(text)
+        load_config(paths[name])  # reads back
+    vae = (Path.cwd() / "configs/vae/vae.example.yaml").resolve()
+    cwd = os.getcwd()
+    os.chdir(CLI_DIR)
+    try:
+        for name, path, label in (("vq-f8", "cli_vq_f32", "CLI fit VQ-f8 copy (fp32)"),
+                                  ("vq-f8-bf16", "cli_vq_bf16", "CLI fit VQ-f8 copy (bf16-mixed)")):
+            run = run_cli(torch, rows, paths[name], label, path, 2 * VQ_PAIRS, profiled=True, units=VQ_PAIRS)
+            kinds = ["d" if "train/loss/disc" in r else "g" for r in run["metrics"]]
+            if kinds != ["g", "d"] * VQ_PAIRS:
+                raise PhaseError(f"{label}: the schedule ran {kinds}, not {VQ_PAIRS} alternating pairs")
+            run["third_pair"] = pair_profile(run, label)
+            out[path] = run
+        out["cli_vq_val"] = run_cli_eval(torch, rows, paths["vq-f8"], "validate", "CLI validate VQ-f8 copy",
+                                         "cli_vq_val", 2)
+        if not any(k.endswith("_ema") for k in out["cli_vq_val"]["metrics"]):
+            raise PhaseError("the VQ-f8 copy's validate reports no EMA metrics")
+        out["cli_vq_test"] = run_cli_eval(torch, rows, paths["vq-f8"], "test", "CLI test VQ-f8 copy",
+                                          "cli_vq_val", 2)
+        out["cli_vae_val"] = run_cli_eval(torch, rows, vae, "validate", "CLI validate vae.example.yaml",
+                                          "cli_vae_val", 2)
+        out["cli_vae_test"] = run_cli_eval(torch, rows, vae, "test", "CLI test vae.example.yaml", "cli_vae_val", 2)
+    finally:
+        os.chdir(cwd)
+    out["ae_integer"] = run_ae_integer(torch, paths["vq-f8"])
+    return out
+
+
+def run_ae_integer(torch, config: Path) -> dict:
+    """AEIntegerWrapper over the VQ-f8 copy's engine as the CLI builds it
+    (fp32, seeded random weights): 8 images of 256 px -> codebook indices
+    (32x32 each) -> decoded images -> indices again; the share of indices
+    unchanged is a finding, not a gate."""
+    from neurosis_tpu_torch.config.loader import load_config
+    from neurosis_tpu_torch.models.autoencoder import AEIntegerWrapper
+    from neurosis_tpu_torch.ops.dequant import dequant_image
+    from neurosis_tpu_torch.trainer.builder import build_engine
+
+    engine = build_engine(load_config(config)["model"], device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    wrapper = AEIntegerWrapper(engine, None, engine.regularizer, None, shape=(32, 32))
+    x = dequant_image(make_images(torch, "cuda", 8, 256, torch.Generator("cpu").manual_seed(28)))
+    idx = wrapper.encode(x)
+    images = wrapper.decode(idx)
+    again = wrapper.encode(images.clamp(-1.0, 1.0))
+    if tuple(idx.shape) != (8, 1024) or tuple(images.shape) != (8, 256, 256, 3) or not torch.isfinite(images).all():
+        raise PhaseError(f"AEIntegerWrapper: indices {tuple(idx.shape)}, images {tuple(images.shape)}")
+    share = float((idx == again).float().mean())
+    print(f"AEIntegerWrapper round trip on the VQ-f8 copy (random weights): {share:.4f} of the indices unchanged, "
+          f"{int(idx.unique().numel())} distinct codes of 16384", flush=True)
+    del engine
+    torch.cuda.empty_cache()
+    return dict(unchanged_share=share, distinct_codes=int(idx.unique().numel()))
+
+
 def kernel_kind(name: str) -> str:
     """Which layer a device kernel belongs to, by its name."""
     low = name.lower()
@@ -2393,6 +2793,8 @@ def main() -> int:
         report["cli_sdxl_te"] = run_te_phase(torch, rows)
         torch.cuda.empty_cache()
         report.update(run_options_phase(torch, rows, report, log))
+        torch.cuda.empty_cache()
+        report.update(run_vq_phase(torch, rows, log))
         report["seconds"] = time.perf_counter() - t_start
         print(f"all phases: {report['seconds']:.1f} s", flush=True)
     except Exception as e:  # any failed phase ends the run without a result line

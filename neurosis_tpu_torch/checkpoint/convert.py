@@ -16,6 +16,11 @@ follow from the same rules: the UNet's label embedding
 ('model.transformer.resblocks.0.attn.q_proj.weight', 'model.ln_final.bias')
 and its bare parameters, which keep their names and layouts
 ('model.positional_embedding', 'model.text_projection' as [width, proj]).
+Two leaves are named by their place: a codebook (a bare ``embedding`` leaf
+at the root of the tree, or of a ``regularizer`` or ``quantizer``, where
+flax's ``nn.Embed`` always sits inside a named module) becomes
+'embedding.weight', as the reference's VectorQuantizer holds it, and an
+ActNorm's ``scale`` (beside its ``loc``) keeps its name.
 """
 
 from __future__ import annotations
@@ -32,12 +37,23 @@ _LEAF_MAP = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bias
 _EMBEDDER = re.compile(r"^embedders_(\d+)$")
 
 
-def flax_path_to_torch_key(path: tuple, prefix: str = "") -> str:
+_CODEBOOK_OWNERS = ("regularizer", "quantizer")
+
+
+def flax_path_to_torch_key(path: tuple, prefix: str = "", siblings=()) -> str:
+    """The torch key of the leaf at ``path``; ``siblings`` are the names
+    beside it in its module."""
     *mods, leaf = [str(p) for p in path]
     # flax renames the conditioner's sequence-field children 'embedders_N';
     # the reference key is 'embedders.N' (as checkpoint/sgm.py translates)
     mods = [_EMBEDDER.sub(r"embedders.\1", c) for c in mods if not _SKIP_COMPONENTS.match(c)]
-    return prefix + ".".join(mods + [_LEAF_MAP.get(leaf, leaf)])
+    if leaf == "embedding" and (not mods or mods[-1] in _CODEBOOK_OWNERS):
+        name = "embedding.weight"
+    elif leaf == "scale" and "loc" in siblings:
+        name = "scale"
+    else:
+        name = _LEAF_MAP.get(leaf, leaf)
+    return prefix + ".".join(mods + [name])
 
 
 def _to_torch_layout(leaf_name: str, w: np.ndarray) -> np.ndarray:
@@ -52,18 +68,19 @@ def _to_torch_layout(leaf_name: str, w: np.ndarray) -> np.ndarray:
 
 
 def _flatten(tree: Mapping, path: tuple = ()):
+    """(path, leaf, the names beside it) of every leaf."""
     for key, val in tree.items():
         if isinstance(val, Mapping):
             yield from _flatten(val, path + (str(key),))
         else:
-            yield path + (str(key),), val
+            yield path + (str(key),), val, tuple(str(k) for k in tree)
 
 
 def jax_params_to_state_dict(tree: Mapping[str, Any], prefix: str = "") -> dict[str, torch.Tensor]:
     """Nested mapping of numpy arrays (a flax ``params`` tree) → state dict
     of float32 CPU tensors, for ``module.load_state_dict(..., strict=True)``."""
     out = {}
-    for path, leaf in _flatten(tree):
+    for path, leaf, siblings in _flatten(tree):
         w = _to_torch_layout(path[-1], np.array(leaf, dtype=np.float32))
-        out[flax_path_to_torch_key(path, prefix)] = torch.from_numpy(np.ascontiguousarray(w))
+        out[flax_path_to_torch_key(path, prefix, siblings)] = torch.from_numpy(np.ascontiguousarray(w))
     return out

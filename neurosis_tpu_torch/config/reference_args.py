@@ -12,34 +12,17 @@ from __future__ import annotations
 REQUIRED = "<required>"  # an argument JAX's class takes without a default
 
 JAX_ONLY_ARGS: dict = {'bitsandbytes.optim.AdamW8bit': {'mask': None},
- 'neurosis.models.AutoencodingEngine': {'adaptive_disc_weight': False,
-                                        'diff_boost_factor': 3.0,
-                                        'ema_decay': 0.9999,
-                                        'freeze_decoder': False,
-                                        'freeze_encoder': False,
-                                        'regularizer': None},
- 'neurosis.models.autoencoder.AutoencodingEngine': {'adaptive_disc_weight': False,
-                                                    'diff_boost_factor': 3.0,
-                                                    'ema_decay': 0.9999,
-                                                    'freeze_decoder': False,
-                                                    'freeze_encoder': False,
-                                                    'regularizer': None},
  'neurosis.modules.diffusion.UNetModel': {'context_axis': None},
- 'neurosis.modules.diffusion.model.Decoder': {'give_pre_end': False,
-                                              'remat': False,
-                                              'resamp_with_conv': True,
-                                              'tanh_out': False},
- 'neurosis.modules.diffusion.model.Encoder': {'remat': False, 'resamp_with_conv': True},
  'neurosis.modules.diffusion.openaimodel.UNetModel': {'context_axis': None},
- 'optax.adamw': {'eps_root': 0.0, 'mask': None, 'mu_dtype': None, 'nesterov': False}}
+ 'optax.adamw': {'mask': None},
+ 'torch.optim.AdamW': {'mask': None}}
 
-# torch.optim.AdamW computes m̂/(√v̂ + eps): optax's eps_root (inside the root)
-# and nesterov have no exact counterpart there, so they wait with item 8
+# optax's ``mask`` (a tree of the parameters' paths, or a function of the
+# tree) cannot reach an optimizer that the JAX builder wraps in ``stacked``
+# (it runs the transform on each bare leaf), and the port's optimizers see
+# torch parameter lists, not Flax trees: see ROADMAP Queue 1 item 8
 _ITEMS = {
-    "8 (the optimizers CAME, hybrid and stacked)": ("mask", "mu_dtype", "eps_root", "nesterov"),
-    "9 (the rest of the VAE-GAN stack)": ("resamp_with_conv", "remat", "give_pre_end", "tanh_out",
-                                          "adaptive_disc_weight", "diff_boost_factor", "ema_decay",
-                                          "freeze_decoder", "freeze_encoder", "regularizer"),
+    "8 (the optimizers: optax's mask)": ("mask",),
     "10 (multi-GPU)": ("context_axis",),
 }
 

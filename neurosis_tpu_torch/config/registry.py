@@ -3,9 +3,11 @@
 
 Every path the JAX registry knows either resolves to a port class or raises
 ``NotImplementedError`` naming the ROADMAP item (Queue 1) that ports it, so a
-config node the port cannot honour never passes in silence. Of the real
-imports the JAX registry falls back to, the port keeps only ``torch.*``
-(``torch.optim.AdamW`` is torch's own, not optax's).
+config node the port cannot honour never passes in silence. The JAX
+registry maps ``torch.optim.AdamW``, ``Adam`` and ``SGD`` to optax's
+``adamw``, ``adam`` and ``sgd``, and so does the port (to its counterparts
+of them, which train optax's math and take optax's arguments). Of the other
+real imports the JAX registry falls back to, the port keeps only ``torch.*``.
 """
 
 from __future__ import annotations
@@ -62,7 +64,12 @@ _PORTED = {
     _DS + "imagefolder.FolderVAEModule": ("data.imagefolder", "FolderVAEDataset"),
     "neurosis.optimizers.Adafactor": ("optimizers.adafactor", "Adafactor"),
     "neurosis.optimizers.AdafactorScheduler": ("optimizers.adafactor", "adafactor_relative_step_schedule"),
-    "optax.adamw": ("optimizers.adamw", "adamw"),
+    **{f"optax.{n}": ("optimizers.adamw", n) for n in ("adamw", "adam", "sgd")},
+    "torch.optim.AdamW": ("optimizers.adamw", "adamw"),
+    "torch.optim.Adam": ("optimizers.adamw", "adam"),
+    "torch.optim.SGD": ("optimizers.adamw", "sgd"),
+    "neurosis.optimizers.CAME": ("optimizers.came", "CAME"),
+    "neurosis.optimizers.came.CAME": ("optimizers.came", "CAME"),
     "bitsandbytes.optim.AdamW8bit": ("optimizers.adamw8bit", "AdamW8bit"),
     **{"neurosis.schedulers." + n: ("schedulers.schedules", f) for n, f in (
         ("CosineWithWarmUp", "cosine_with_warmup"), ("CosineWithHardRestartsAndWarmUp", "cosine_with_hard_restarts"),
@@ -93,21 +100,22 @@ _PORTED = {
     "neurosis.models.IdentityFirstStage": ("models.autoencoder", "IdentityFirstStage"),
     "neurosis.models.autoencoder.IdentityFirstStage": ("models.autoencoder", "IdentityFirstStage"),
     **{_DS + "processing." + n: ("hooks.tag_loss", n) for n in ("TagFrequencyHook", "TagFreqScale", "TagRewards")},
+    _D + "model.Model": ("models.vae", "Model"),
+    **{p + n: ("models.autoencoder", n) for p in ("neurosis.models.", "neurosis.models.autoencoder.")
+       for n in ("AutoencoderKLInferenceWrapper", "AEIntegerWrapper")},
+    _AE + "losses.GeneralLPIPSWithDiscriminator": ("losses.discriminator_loss", "GeneralLPIPSWithDiscriminator"),
+    _AE + "losses.VQLPIPSWithDiscriminator": ("losses.discriminator_loss", "VQLPIPSWithDiscriminator"),
+    _AE + "losses.LatentLPIPS": ("losses.vae_loss", "LatentLPIPS"),
+    **{_AE + "regularizers." + n: ("modules.regularizers", n) for n in (
+        "DiagonalGaussianRegularizer", "IdentityRegularizer")},
+    **{_AE + "regularizers.quantize." + n: ("modules.regularizers", n) for n in (
+        "VectorQuantizer", "GumbelQuantizer", "EMAVectorQuantizer", "VectorQuantizerWithInputProjection")},
 }
 
 # paths the JAX registry knows and the port has not ported, by ROADMAP Queue 1 item
 _NOT_PORTED: Dict[str, str] = {}
-_OPTIMIZERS_ITEM = "8 (the optimizers CAME, hybrid and stacked)"
-_NOT_PORTED.update({p: _OPTIMIZERS_ITEM for p in ("neurosis.optimizers.CAME", "neurosis.optimizers.came.CAME")})
-_NOT_PORTED.update({p: "9 (the rest of the VAE-GAN stack)" for p in (
-    [_D + "model.Model", "neurosis.models.AutoencoderKLInferenceWrapper",
-     "neurosis.models.autoencoder.AutoencoderKLInferenceWrapper", "neurosis.models.AEIntegerWrapper",
-     "neurosis.models.autoencoder.AEIntegerWrapper", _AE + "losses.GeneralLPIPSWithDiscriminator",
-     _AE + "losses.VQLPIPSWithDiscriminator", _AE + "losses.LatentLPIPS"]
-    + [_AE + "regularizers." + n for n in ("DiagonalGaussianRegularizer", "IdentityRegularizer")]
-    + [_AE + "regularizers.quantize." + n for n in ("VectorQuantizer", "GumbelQuantizer", "EMAVectorQuantizer",
-                                                    "VectorQuantizerWithInputProjection")])})
-_NOT_PORTED.update({p: "11 (the rest)" for p in (
+_REST_ITEM = "11 (the rest)"
+_NOT_PORTED.update({p: _REST_ITEM for p in (
     ["neurosis.models.text_encoder.FrozenCLIPT5Encoder", _ENC + "misc.IdentityEncoder",
      _ENC + "classed.ClassEmbedder", _ENC + "classed.ClassEmbedderForMultiCond", _ENC + "metadata.GaussianEncoder",
      _ENC + "embedding.SpatialRescaler", _ENC + "lowscale.LowScaleEncoder",
@@ -124,8 +132,8 @@ def resolve_class_path(path: str) -> Any:
     if path in _NOT_PORTED:
         raise NotImplementedError(f"class_path {path!r} is not ported yet: ROADMAP Queue 1 item {_NOT_PORTED[path]}")
     if path.startswith("optax."):
-        raise NotImplementedError(f"class_path {path!r} is not ported yet (of optax the port takes optax.adamw): "
-                                  f"ROADMAP Queue 1 item {_OPTIMIZERS_ITEM}")
+        raise NotImplementedError(f"class_path {path!r} is not ported yet (of optax the port takes adam, adamw "
+                                  f"and sgd): ROADMAP Queue 1 item {_REST_ITEM}")
     if path.startswith("torch."):
         module, _, name = path.rpartition(".")
         try:

@@ -8,7 +8,11 @@ biases.
 The BatchNorm follows flax's, not torch's: statistics in fp32 with
 var = max(0, E[x²] − E[x]²), and the running variance is the *biased* batch
 variance (torch keeps the unbiased one), updated as
-running = 0.9·running + 0.1·batch (flax momentum 0.9 is torch momentum 0.1).
+running = 0.9·running + 0.1·batch (flax momentum 0.9 is torch momentum 0.1);
+with ``train=False`` it normalises by the running statistics.
+
+With ``use_actnorm`` an ``ActNorm`` takes each BatchNorm's place (and the
+conv before it keeps its bias), as the reference's model.py:31-48.
 """
 
 from __future__ import annotations
@@ -49,9 +53,54 @@ class BatchNorm(nn.Module):
         return y.to(x.dtype)
 
 
+class ActNorm(nn.Module):
+    """Per-channel affine with a data-dependent init (modules/layers.py:10-86):
+    ``loc`` and ``scale`` are set from the first batch it sees to −mean and
+    1/(std + 1e-6) over every axis but the channels (JAX's ``init`` on the
+    first batch), then train as parameters. ``initialized`` records that
+    (a loaded state dict counts as initialised). NHWC; a 2-D input is (B, C)."""
+
+    def __init__(self, channels: int, logdet: bool = False, device: DeviceLike = None):
+        super().__init__()
+        device = resolve_device(device)
+        self.logdet = logdet
+        self.loc = nn.Parameter(torch.zeros(channels, device=device))
+        self.scale = nn.Parameter(torch.ones(channels, device=device))
+        self.register_buffer("initialized", torch.zeros((), dtype=torch.uint8, device=device), persistent=False)
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+        if prefix + "loc" in state_dict:
+            self.initialized.fill_(1)
+
+    @torch.no_grad()
+    def initialize(self, x32: torch.Tensor) -> None:
+        dims = tuple(range(x32.ndim - 1))
+        self.loc.copy_(-x32.mean(dim=dims))
+        self.scale.copy_(1.0 / (x32.std(dim=dims, correction=0) + 1e-6))
+        self.initialized.fill_(1)
+
+    def forward(self, x: torch.Tensor, reverse: bool = False):
+        squeeze = x.ndim == 2
+        if squeeze:
+            x = x[:, None, None, :]
+        x32 = x.float()
+        if not bool(self.initialized):
+            self.initialize(x32)
+        h = (x32 / self.scale - self.loc) if reverse else self.scale * (x32 + self.loc)
+        h = h.to(x.dtype)
+        if squeeze:
+            h = h[:, 0, 0, :]
+        if self.logdet and not reverse:
+            ld = x.shape[1] * x.shape[2] * torch.log(self.scale.abs()).sum()
+            return h, ld * torch.ones(x.shape[0], device=x.device)
+        return h
+
+
 class NLayerDiscriminator(nn.Module):
-    def __init__(self, input_nc: int = 3, ndf: int = 64, n_layers: int = 3, dtype: Optional[torch.dtype] = None,
-                 device: DeviceLike = None, generator: Optional[torch.Generator] = None):
+    def __init__(self, input_nc: int = 3, ndf: int = 64, n_layers: int = 3, use_actnorm: bool = False,
+                 dtype: Optional[torch.dtype] = None, device: DeviceLike = None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         device = resolve_device(device)
 
@@ -63,8 +112,9 @@ class NLayerDiscriminator(nn.Module):
         for n in range(n_layers):
             layer_num = n + 1
             c_out = ndf * min(2 ** layer_num, 8)
-            layers += [conv(c_in, c_out, 2 if layer_num < n_layers else 1, bias=False),
-                       BatchNorm(c_out, device=device), nn.LeakyReLU(0.2)]
+            norm = ActNorm(c_out, device=device) if use_actnorm else BatchNorm(c_out, device=device)
+            layers += [conv(c_in, c_out, 2 if layer_num < n_layers else 1, bias=use_actnorm), norm,
+                       nn.LeakyReLU(0.2)]
             c_in = c_out
         layers.append(conv(c_in, 1, 1))
         self.layers = nn.Sequential(*layers)

@@ -2,11 +2,13 @@
 
 ``forward(inputs, recons, ...)`` returns (loss, log): a per-sample (B,)
 loss for the generator, a scalar for the discriminator, and a dict of 0-d
-tensors under the reference's ``train/`` log names. Only the training
-forward is ported (the discriminator in train mode, the gate on
-``global_step``); the eval split waits for ``eval_step``.
+tensors under ``{split}/`` log names (``train/`` by default). With
+``train=False`` (the engine's ``eval_step``) the discriminator's BatchNorm
+reads its running statistics and the GAN gate is open whatever the step,
+as the reference's ``or not self.training``.
 ``AutoencoderLPIPSWithDiscr.log_images`` draws the discriminator's patch
-logits for the image logger.
+logits for the image logger. ``LatentLPIPS`` compares latents through a
+decode callable.
 """
 
 from __future__ import annotations
@@ -40,13 +42,14 @@ class AutoencoderPerceptual(nn.Module):
         self.recon_type, self.recon_weight, self.perceptual_weight = recon_type, recon_weight, perceptual_weight
         self.perceptual_loss = LPIPS(lpips_type, device=device, generator=generator).requires_grad_(False)
 
-    def forward(self, inputs: torch.Tensor, recons: torch.Tensor):
+    def forward(self, inputs: torch.Tensor, recons: torch.Tensor, split: str = "train"):
         inputs = inputs.float().clamp(-1.0, 1.0)
         recons = recons.float().clamp(-1.0, 1.0)
         rec = _recon(inputs, recons, self.recon_type) * self.recon_weight
         p = F.relu(self.perceptual_loss(inputs, recons)).reshape(-1) * self.perceptual_weight
         loss = rec + p
-        return loss, {"train/loss/total": loss.mean(), "train/loss/rec": rec.mean(), "train/loss/p": p.mean()}
+        log = {f"{split}/loss/total": loss.mean(), f"{split}/loss/rec": rec.mean(), f"{split}/loss/p": p.mean()}
+        return loss, {k: v.detach() for k, v in log.items()}
 
 
 class AutoencoderLPIPSWithDiscr(nn.Module):
@@ -75,14 +78,15 @@ class AutoencoderLPIPSWithDiscr(nn.Module):
         if perceptual_weight > 0:
             self.perceptual_loss = LPIPS(lpips_type, device=device, generator=g).requires_grad_(False)
 
-    def gate(self, global_step: int) -> float:
+    def gate(self, global_step: int, train: bool = True) -> float:
         start = self.disc_start if self.disc_start > 0 else 2**31 - 1
-        return 1.0 if global_step >= start else 0.0
+        return 1.0 if (global_step >= start or not train) else 0.0
 
-    def forward(self, inputs: torch.Tensor, recons: torch.Tensor, global_step: int, optimizer_idx: int = 0):
+    def forward(self, inputs: torch.Tensor, recons: torch.Tensor, global_step: int, optimizer_idx: int = 0,
+                split: str = "train", train: bool = True):
         inputs = inputs.float().clamp(-1.0, 1.0)
         recons = recons.float().clamp(-1.0, 1.0)
-        gate = self.gate(global_step)
+        gate = self.gate(global_step, train)
         if optimizer_idx == 0:
             rec = _recon(inputs, recons, self.recon_type)
             if self.perceptual_weight > 0:
@@ -91,19 +95,19 @@ class AutoencoderLPIPSWithDiscr(nn.Module):
             else:
                 p = torch.zeros_like(rec)
                 p_rec = rec * self.recon_weight
-            r1 = self.r1_penalty(inputs) if self.disc_lambda_r1 > 0 else torch.zeros((), device=rec.device)
-            logits_fake = self.discr(recons, True)
+            r1 = self.r1_penalty(inputs, train) if self.disc_lambda_r1 > 0 else torch.zeros((), device=rec.device)
+            logits_fake = self.discr(recons, train)
             g_loss = (-logits_fake.mean() + r1) * gate
             loss = p_rec + g_loss * self.disc_factor
-            log = {"train/loss/total": loss.mean(), "train/loss/rec": rec.mean(),
-                   "train/loss/p": p.mean(), "train/loss/g": g_loss, "train/loss/r1_penalty": r1}
+            log = {f"{split}/loss/total": loss.mean(), f"{split}/loss/rec": rec.mean(),
+                   f"{split}/loss/p": p.mean(), f"{split}/loss/g": g_loss, f"{split}/loss/r1_penalty": r1}
             return loss, {k: v.detach() for k, v in log.items()}
         if optimizer_idx == 1:
-            logits_real = self.discr(inputs.detach(), True)
-            logits_fake = self.discr(recons.detach(), True)
+            logits_real = self.discr(inputs.detach(), train)
+            logits_fake = self.discr(recons.detach(), train)
             d_loss = self.disc_factor * self.disc_weight * self.d_fn(logits_real, logits_fake) * gate
-            log = {"train/loss/disc": d_loss, "train/logits/real": logits_real.mean(),
-                   "train/logits/fake": logits_fake.mean()}
+            log = {f"{split}/loss/disc": d_loss, f"{split}/logits/real": logits_real.mean(),
+                   f"{split}/logits/fake": logits_fake.mean()}
             return d_loss, {k: v.detach() for k, v in log.items()}
         raise ValueError(f"Unknown optimizer_idx {optimizer_idx}")
 
@@ -144,12 +148,12 @@ class AutoencoderLPIPSWithDiscr(nn.Module):
         return {"vis_logits": (2.0 * np.concatenate([grid_logits, cbar], axis=0) - 1.0)[None],
                 "vis_logits_blended": (2.0 * np.concatenate([grid_blend, cbar], axis=0) - 1.0)[None]}
 
-    def r1_penalty(self, inputs: torch.Tensor) -> torch.Tensor:
+    def r1_penalty(self, inputs: torch.Tensor, train: bool = True) -> torch.Tensor:
         """λ·E_b[Σ (∂ mean D(x) / ∂x)²] on the real inputs (vae_lpips_discr.py:303-308),
         detached: it contributes no generator grads."""
         x = inputs.detach().requires_grad_(True)
         with torch.enable_grad():
-            logits = self.discr(x, True)
+            logits = self.discr(x, train)
             (grad,) = torch.autograd.grad(logits.mean(), x)
         dims = tuple(range(1, x.ndim))
         return (grad.square().sum(dim=dims).mean() * self.disc_lambda_r1).detach()
@@ -168,3 +172,30 @@ def colorbar_strip(width: int, high: float, height: int = 24) -> np.ndarray:
     label = f"{high:.2f}"
     font.draw_text(strip, (width - font.text_length(label, size) - 2, 2), label, (0, 0, 0), size)
     return strip.astype(np.float32) / 255.0
+
+
+class LatentLPIPS(nn.Module):
+    """LPIPS between decoded latents (latent_lpips.py:10), plus their L2:
+    ``forward(decode, latent_inputs, latent_preds)`` with ``decode`` a
+    callable latents → images (the engine's frozen decode)."""
+
+    def __init__(self, perceptual_weight: float = 1.0, latent_weight: float = 1.0, lpips_type: str = "vgg",
+                 device: DeviceLike = None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.perceptual_weight, self.latent_weight = perceptual_weight, latent_weight
+        if perceptual_weight > 0:
+            self.perceptual_loss = LPIPS(lpips_type, device=device, generator=generator).requires_grad_(False)
+
+    def forward(self, decode, latent_inputs: torch.Tensor, latent_preds: torch.Tensor, split: str = "train"):
+        log = {}
+        loss = torch.zeros(latent_inputs.shape[0], device=latent_inputs.device)
+        if self.latent_weight > 0:
+            l2 = _recon(latent_inputs.float(), latent_preds.float(), "l2")
+            loss = loss + self.latent_weight * l2
+            log[f"{split}/loss/latent_l2"] = l2.mean()
+        if self.perceptual_weight > 0:
+            p = F.relu(self.perceptual_loss(decode(latent_inputs), decode(latent_preds))).reshape(-1)
+            loss = loss + self.perceptual_weight * p
+            log[f"{split}/loss/p"] = p.mean()
+        log[f"{split}/loss/total"] = loss.mean()
+        return loss, {k: v.detach() for k, v in log.items()}

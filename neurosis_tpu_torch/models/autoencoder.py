@@ -1,5 +1,6 @@
-"""AutoencoderKL: the VAE with its quant convs, and IdentityFirstStage (port
-of neurosis_tpu/models/autoencoder.py).
+"""AutoencoderKL: the VAE with its quant convs, its inference wrapper,
+IdentityFirstStage and AEIntegerWrapper (port of
+neurosis_tpu/models/autoencoder.py).
 
 Children ``encoder``, ``decoder``, ``quant_conv`` and ``post_quant_conv``
 carry the sgm checkpoint names. ``encode`` returns the moments
@@ -56,6 +57,17 @@ class AutoencoderKL(nn.Module):
         return self.decode(mean)
 
 
+class AutoencoderKLInferenceWrapper(AutoencoderKL):
+    """``encode`` returns a latent: the posterior's sample drawn from
+    ``generator``, or its mode without one (models/autoencoder.py:640-643)."""
+
+    def encode(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        from ..modules.distributions import DiagonalGaussian
+
+        dist = DiagonalGaussian.from_moments(super().encode(x))
+        return dist.sample(generator) if generator is not None else dist.mode()
+
+
 class IdentityFirstStage:
     """Pass-through first stage for pixel-space diffusion
     (models/autoencoder.py:645-660): encode and decode are the identity. The
@@ -73,3 +85,40 @@ class IdentityFirstStage:
 
     def decode(self, x, *args, **kwargs):
         return x
+
+
+class AEIntegerWrapper:
+    """A VQ autoencoder as a codec of integer tokens (models/autoencoder.py:662-700):
+    ``encode`` gives each image's codebook indices, flat [B, h·w];
+    ``decode`` looks them up in the quantizer's codebook (as [B, h, w] with
+    ``shape`` (h, w)) and decodes. ``model`` has ``encode`` and ``decode``
+    (an AutoencoderKL, or the VAE trainer's engine); ``variables`` and
+    ``quantizer_variables``, JAX's arguments, are None (the modules keep
+    their weights) or JAX parameter trees (``{"params": ...}``) loaded into
+    ``model`` and ``quantizer`` with ``strict=True``."""
+
+    def __init__(self, model, variables, quantizer, quantizer_variables, shape=(16, 16)):
+        if not (hasattr(model, "encode") and hasattr(model, "decode")):
+            raise ValueError("Need AE interface (encode and decode methods)")
+        from ..checkpoint.convert import jax_params_to_state_dict
+
+        for module, tree in ((model, variables), (quantizer, quantizer_variables)):
+            if tree is not None:
+                module.load_state_dict(jax_params_to_state_dict(tree["params"]), strict=True)
+        self.model, self.quantizer = model, quantizer
+        self.shape = tuple(shape) if shape is not None else None
+
+    @torch.no_grad()
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        _, log = self.quantizer(self.model.encode(x))
+        idx = log["min_encoding_indices"]
+        return idx.reshape(idx.shape[0], -1)
+
+    @torch.no_grad()
+    def decode(self, indices: torch.Tensor, shape=None) -> torch.Tensor:
+        shape = shape or self.shape
+        if shape is not None:
+            if len(shape) != 2:
+                raise ValueError(f"Invalid input shape: {shape}")
+            indices = indices.reshape(indices.shape[0], shape[0], shape[1])
+        return self.model.decode(self.quantizer.get_codebook_entry(indices))

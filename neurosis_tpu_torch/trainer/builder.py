@@ -144,17 +144,21 @@ def build_first_stage(node: Optional[dict], context: dict) -> Optional[Autoencod
 
 def build_autoencoding_engine(model_node: dict, dtype=None, device=None, generator=None):
     """The reference AutoencodingEngine/AutoencoderKL `model:` node → VAE-GAN
-    trainer (models/autoencoder.py:134-505 config surface)."""
+    trainer (models/autoencoder.py:134-505 config surface). The engine's
+    ``freeze_encoder``, ``freeze_decoder``, ``ema_decay``,
+    ``adaptive_disc_weight`` and ``diff_boost_factor`` are read from the
+    node (JAX's builder drops them and trains with its engine's defaults).
+    ``ckpt_path`` is refused: the JAX package's sgm loader reads diffusion
+    engines only."""
     from ..losses.vae_loss import AutoencoderPerceptual
     from ..models.vae import Decoder, Encoder
+    from ..optimizers.adamw import adam
     from .vae_engine import AutoencodingEngine
 
     args = dict(model_node.get("init_args") or {})
-    for key, what in (("regularizer_config", "regularizers other than the KL posterior"),
-                      ("ckpt_path", "loading a VAE checkpoint")):
-        if args.get(key):
-            raise NotImplementedError(f"{key}: {what} for the VAE trainer are not ported yet: ROADMAP Queue 1 "
-                                      "item 9")
+    if args.get("ckpt_path"):
+        raise NotImplementedError("ckpt_path: loading a VAE checkpoint into the VAE trainer is not ported (nor "
+                                  "read by the JAX package's sgm loader): ROADMAP Queue 1 item 9")
     context = {"device": device, "generator": generator}
     dd = dict(args.get("ddconfig") or {})
     double_z = dd.pop("double_z", True)
@@ -174,20 +178,28 @@ def build_autoencoding_engine(model_node: dict, dtype=None, device=None, generat
     decoder = Decoder(out_ch=dd.get("out_ch", 3), **common)
     loss = instantiate(args["loss"], context) if isinstance(args.get("loss"), dict) \
         else AutoencoderPerceptual(**context)
+    regularizer = instantiate(args["regularizer_config"], context) \
+        if isinstance(args.get("regularizer_config"), dict) else None
     g_opt = build_optimizer(args.get("optimizer"), args.get("scheduler"))  # JAX: the scheduler is G's
     d_opt = build_optimizer(args["disc_optimizer"]) if args.get("disc_optimizer") \
-        else (lambda params: torch.optim.Adam(params, lr=1e-4))  # optax.adam(1e-4), the JAX default
+        else (lambda params: adam(params, 1e-4))  # optax.adam(1e-4), the JAX default
     disc_start = getattr(loss, "disc_start", -1)
     return AutoencodingEngine(
         encoder=encoder,
         decoder=decoder,
         loss=loss,
+        regularizer=regularizer,
         g_optimizer=g_opt,
         d_optimizer=d_opt,
         kl_weight=float(args.get("kl_weight", 0.0)),
         input_key=args.get("input_key", "image"),
         disc_start=disc_start if isinstance(disc_start, int) else -1,
         use_ema=bool(args.get("use_ema", False)),
+        ema_decay=float(args.get("ema_decay", 0.9999)),
+        freeze_encoder=bool(args.get("freeze_encoder", False)),
+        freeze_decoder=bool(args.get("freeze_decoder", False)),
+        adaptive_disc_weight=bool(args.get("adaptive_disc_weight", False)),
+        diff_boost_factor=float(args.get("diff_boost_factor", 3.0)),
         device=device,
     )
 

@@ -33,8 +33,8 @@ def engine_modules(engine) -> dict:
     """The engine's top-level modules by name."""
     names = ("model", "conditioner", "first_stage", "first_stage_encoder", "first_stage_decoder") \
         if hasattr(engine, "conditioner") else \
-        ("encoder", "decoder", "loss")
-    return {n: getattr(engine, n) for n in names if getattr(engine, n, None) is not None}
+        ("encoder", "decoder", "loss", "regularizer")
+    return {n: getattr(engine, n) for n in names if isinstance(getattr(engine, n, None), torch.nn.Module)}
 
 
 class DeviceStatsCallback:
@@ -254,8 +254,8 @@ def is_remote_url(path) -> bool:
 def _named_params(engine) -> list:
     """(name, parameter) of what a checkpoint holds: the diffusion engine's
     trainable parameters, or every parameter of the VAE trainer's encoder,
-    decoder and loss (JAX's ``VAETrainState.params``, the frozen LPIPS trunk
-    included)."""
+    decoder, loss and regularizer module (JAX's ``VAETrainState.params``,
+    the frozen LPIPS trunk included)."""
     if hasattr(engine, "named_trainable_parameters"):
         return engine.named_trainable_parameters()
     return [(f"{top}.{n}", p) for top, module in engine_modules(engine).items() for n, p in module.named_parameters()]
@@ -263,17 +263,18 @@ def _named_params(engine) -> list:
 
 def _ema_names(engine) -> list:
     """Names of the EMA shadows, in their order (the trainable parameters,
-    or the VAE's encoder and decoder)."""
-    if hasattr(engine, "named_trainable_parameters"):
-        return [n for n, _ in engine.named_trainable_parameters()]
-    return [f"{top}.{n}" for top in ("encoder", "decoder") for n, _ in getattr(engine, top).named_parameters()]
+    or the VAE trainer's generator parameters)."""
+    named = engine.named_trainable_parameters() if hasattr(engine, "named_trainable_parameters") \
+        else engine.named_g_parameters()
+    return [n for n, _ in named]
 
 
 def state_payload(engine, state) -> dict:
     """JAX's ``_state_payload``: params, step, the optimizer's state (the
     diffusion engine's; JAX's VAETrainState keeps ``g_opt_state``, which its
     payload does not save, so the VAE trainer's optimizers are not saved
-    either), and the EMA shadows with their update count."""
+    either), the EMA shadows with their update count, and an EMA codebook's
+    statistics (``reg_stats``)."""
     payload = {"format": CHECKPOINT_FORMAT, "step": int(state.step),
                "params": {n: p.detach() for n, p in _named_params(engine)}}
     if getattr(state, "optimizer", None) is not None:
@@ -281,6 +282,8 @@ def state_payload(engine, state) -> dict:
     if getattr(state, "ema", None) is not None:
         payload["ema_params"] = dict(zip(_ema_names(engine), state.ema.params))
         payload["ema_num_updates"] = int(state.ema.num_updates)
+    if getattr(state, "reg_stats", None):
+        payload["reg_stats"] = {n: t.detach() for n, t in state.reg_stats.items()}
     return payload
 
 
@@ -312,6 +315,14 @@ def load_state_payload(engine, state, payload: dict):
     if "ema_params" in payload and getattr(state, "ema", None) is not None:
         _load_tensors(list(zip(_ema_names(engine), state.ema.params)), payload["ema_params"], "EMA shadows")
         state.ema.num_updates = int(payload["ema_num_updates"])
+    if getattr(state, "reg_stats", None):
+        _load_tensors(list(state.reg_stats.items()), payload.get("reg_stats", {}), "codebook statistics")
+    from ..losses.patchgan import ActNorm
+
+    for module in engine_modules(engine).values():  # saved loc/scale are initialised ones
+        for m in module.modules():
+            if isinstance(m, ActNorm):
+                m.initialized.fill_(1)
     return state
 
 

@@ -160,7 +160,9 @@ class Trainer:
         self.root_dir = Path(default_root_dir)
         self.seed = seed
         self.callbacks = list(callbacks)
-        self.tokenizer = tokenizer or get_tokenizer(max_length=token_max_length, allow_fallback=fast_dev_run)
+        # the VAE trainer reads no captions, so it needs no vocabulary (JAX's loop asks for one all the same)
+        self.tokenizer = tokenizer or (get_tokenizer(max_length=token_max_length, allow_fallback=fast_dev_run)
+                                       if hasattr(engine, "conditioner") else None)
         self.caption_key = caption_key
         self.logger = JsonlLogger(self.root_dir / "logs", wandb_config=wandb_config)
         # validate on never-loaded params is meaningless; require an explicit
@@ -309,9 +311,6 @@ class Trainer:
 
     def validate(self, batch_iter_factory, max_batches: Optional[int] = None) -> dict:
         """Loss-only evaluation: mean metrics over the dataset (no updates)."""
-        if hasattr(self.engine, "g_step"):
-            raise NotImplementedError("validate/test of the VAE trainer: its eval_step is not ported yet: "
-                                      "ROADMAP Queue 1 item 9")
         state = None
         sums: dict = {}
         n = 0

@@ -28,7 +28,8 @@ class VAETrainState:
     g_optimizer: torch.optim.Optimizer  # encoder and decoder
     d_optimizer: Optional[torch.optim.Optimizer]  # the discriminator, None without one
     generator: torch.Generator  # per-run source of the posterior draws
-    ema: Optional[EmaState] = None  # shadows of the encoder and decoder, with use_ema
+    ema: Optional[EmaState] = None  # shadows of the generator's parameters, with use_ema
+    reg_stats: Optional[dict] = None  # an EMA codebook's buffers by name (JAX's ema_stats), updated in place
 
 
 def global_norm(tensors) -> torch.Tensor:

@@ -29,6 +29,8 @@ import optax  # noqa: E402
 
 from neurosis_tpu_torch.optimizers import adamw8bit as tq  # noqa: E402
 
+from torch_parity import one_torch_thread  # noqa: E402,F401
+
 jq = importlib.import_module("neurosis_tpu.optimizers.adamw8bit")  # the package exports a function of that name
 
 

@@ -22,6 +22,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parity import one_torch_thread  # noqa: E402,F401
+
 ROOT = Path(__file__).resolve().parents[1]
 TINY = ROOT / "configs" / "smoke" / "sd15-tiny.yaml"
 VAE_TINY = ROOT / "configs" / "smoke" / "vae-tiny.yaml"

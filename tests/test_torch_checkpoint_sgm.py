@@ -20,7 +20,7 @@ pytest.importorskip("safetensors")  # the JAX package's writer
 import jax.numpy as jnp  # noqa: E402
 
 from test_torch_cli import TINY, jax_loss_and_grad_norm  # noqa: E402
-from torch_parity import grads_by_key, perturb, to_np  # noqa: E402
+from torch_parity import grads_by_key, one_torch_thread, perturb, to_np  # noqa: E402,F401
 
 
 def _model_node() -> dict:

@@ -1,7 +1,9 @@
 """The port's training entry point, ``python -m neurosis_tpu_torch``, on the CPU.
 
-(a) fit, validate and test of configs/smoke/sd15-tiny.yaml and fit of
-    vae-tiny.yaml with ``--device cpu`` (the twins of tests/test_cli_smoke.py).
+(a) fit, validate and test of configs/smoke/sd15-tiny.yaml and of
+    vae-tiny.yaml with ``--device cpu`` (the twins of tests/test_cli_smoke.py;
+    the VAE trainer's metrics keep the engine's ``val/`` names under the
+    split's prefix).
 (b) The slice as a whole from sd15-tiny.yaml: the JAX package's CLI builder and
     the port's build on one image folder; the first prepared batch is the
     same; JAX's init (UNet perturbed so its zero-init layers take part) goes
@@ -44,7 +46,7 @@ jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
-from torch_parity import load_into, perturb, to_np  # noqa: E402
+from torch_parity import load_into, one_torch_thread, perturb, to_np  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parents[1]
 TINY = ROOT / "configs" / "smoke" / "sd15-tiny.yaml"
@@ -85,13 +87,16 @@ def _edited(src: Path, dst: Path, *edits) -> Path:
 # -- (a) ----------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("argv,key", [
-    (["fit", "-c", str(TINY), "--fast-dev-run"], None),
-    (["validate", "-c", str(TINY), "--max-batches", "2"], "val/loss"),
-    (["test", "-c", str(TINY), "--max-batches", "2"], "test/loss"),
-    (["fit", "-c", str(VAE_TINY)], None),
+@pytest.mark.parametrize("argv,key,batches", [
+    (["fit", "-c", str(TINY), "--fast-dev-run"], None, None),
+    (["validate", "-c", str(TINY), "--max-batches", "2"], "val/loss", 2),
+    (["test", "-c", str(TINY), "--max-batches", "2"], "test/loss", 2),
+    (["fit", "-c", str(VAE_TINY)], None, None),
+    # vae-tiny's batches of 2 square crops: one from the folder's 3 images
+    (["validate", "-c", str(VAE_TINY), "--max-batches", "2"], "val/val/loss/total", 1),
+    (["test", "-c", str(VAE_TINY), "--max-batches", "2"], "test/val/loss/total", 1),
 ])
-def test_cli_runs_the_smoke_configs_on_the_cpu(smoke, capsys, argv, key):
+def test_cli_runs_the_smoke_configs_on_the_cpu(smoke, capsys, argv, key, batches):
     from neurosis_tpu_torch.trainer.cli import main
 
     assert main(argv + ["--device", "cpu"]) == 0
@@ -102,7 +107,8 @@ def test_cli_runs_the_smoke_configs_on_the_cpu(smoke, capsys, argv, key):
         assert np.isfinite(loss) and lines[0]["step_ms"] > 0 and lines[0]["data_ms"] > 0
     else:
         out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-        assert np.isfinite(out[key]) and out[key.split("/")[0] + "/num_batches"] == 2.0
+        assert np.isfinite(out[key]) and out[key.split("/")[0] + "/num_batches"] == batches
+        assert all(np.isfinite(v) for v in out.values())
 
 
 def test_validate_reports_the_ema_loss_and_refuses_random_weights(smoke, capsys, monkeypatch):

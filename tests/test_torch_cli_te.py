@@ -20,7 +20,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from test_torch_cli import _cut  # noqa: E402
-from torch_parity import load_into, perturb, rel_err, to_np  # noqa: E402
+from torch_parity import load_into, one_torch_thread, perturb, rel_err, to_np  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

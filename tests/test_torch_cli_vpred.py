@@ -24,17 +24,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from test_torch_cli import ROOT, TINY, _write_folder  # noqa: E402
 from test_torch_diffusion_options import jax_loss_draws  # noqa: E402
-from torch_parity import load_into, perturb, to_np  # noqa: E402
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Tiny shapes: one intra-op thread is as fast, and leaves the cores to
-    the test runner's other workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_parity import load_into, one_torch_thread, perturb, to_np  # noqa: E402,F401
 
 
 def _vpred_config(path):

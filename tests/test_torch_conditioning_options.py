@@ -15,17 +15,8 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from test_torch_sdxl import SIZE_KEYS, TINY_BIGG, TINY_CLIP, _batch, _to_jax, _to_torch, _token_ids  # noqa: E402
-from torch_parity import load_into, perturb, rel_err  # noqa: E402
+from torch_parity import load_into, one_torch_thread, perturb, rel_err  # noqa: E402,F401
 
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Tiny shapes: one intra-op thread is as fast, and leaves the cores to
-    the test runner's other workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 CPU = "cpu"
 RATES = (0.5, 0.5, 0.6, 0.0, 0.6)  # CLIP-L, bigG, the three size embedders

@@ -13,6 +13,8 @@ import pytest
 torch = pytest.importorskip("torch")
 yaml = pytest.importorskip("yaml")
 
+from torch_parity import one_torch_thread  # noqa: E402,F401
+
 ROOT = Path(__file__).resolve().parents[1]
 CONFIG_FILES = sorted(str(p.relative_to(ROOT)) for p in (ROOT / "configs").rglob("*") if p.is_file())
 MODEL_CONFIGS = sorted(str(p.relative_to(ROOT)) for sub in ("sd15", "sdxl", "smoke", "vae")
@@ -151,14 +153,15 @@ def test_every_jax_registry_path_resolves_or_names_its_item():
 def test_registry_maps_torch_and_optax_optimizers():
     from neurosis_tpu_torch.config.registry import resolve_class_path
     from neurosis_tpu_torch.models.unet import UNetModel
-    from neurosis_tpu_torch.optimizers.adamw import adamw
+    from neurosis_tpu_torch.optimizers.adamw import adam, adamw, sgd
 
     assert resolve_class_path("neurosis.modules.diffusion.UNetModel") is UNetModel
-    assert resolve_class_path("torch.optim.AdamW") is torch.optim.AdamW  # torch's own, not optax's
+    assert resolve_class_path("torch.optim.AdamW") is adamw  # optax's, as the JAX registry maps it
+    assert resolve_class_path("torch.optim.Adam") is adam and resolve_class_path("torch.optim.SGD") is sgd
     assert resolve_class_path("optax.adamw") is adamw
     opt = adamw([torch.nn.Parameter(torch.zeros(2))], 4.5e-6)
     assert opt.defaults["weight_decay"] == 1e-4 and opt.defaults["lr"] == 4.5e-6  # optax's default decay
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 11"):
         resolve_class_path("optax.lion")
     with pytest.raises(ImportError, match="cannot resolve"):
         resolve_class_path("neurosis_tpu.models.unet.UNetModel")  # no import of the JAX package
@@ -190,16 +193,17 @@ def test_build_optimizer_names_and_refusals():
     ``stacked:`` key changes nothing, a scheduler sets the lr from its
     first value, AdamW8bit builds, and a group's lr_scale scales its lr."""
     from neurosis_tpu_torch.optimizers.adafactor import Adafactor
+    from neurosis_tpu_torch.optimizers.adamw import OptaxAdam
     from neurosis_tpu_torch.trainer.builder import build_optimizer
 
     params = [torch.nn.Parameter(torch.zeros(3, 2))]
     opt = build_optimizer({"class_path": "torch.optim.AdamW", "init_args": {"learning_rate": 1e-3,
                                                                            "weight_decay": 0.01}})(params)
-    assert type(opt) is torch.optim.AdamW and opt.defaults["lr"] == 1e-3 and opt.defaults["weight_decay"] == 0.01
+    assert type(opt) is OptaxAdam and opt.defaults["lr"] == 1e-3 and opt.defaults["weight_decay"] == 0.01
     opt = build_optimizer({"class_path": "optax.adamw", "init_args": {"lr": 2e-4}, "stacked": False})(params)
     assert opt.defaults["lr"] == 2e-4 and opt.defaults["weight_decay"] == 1e-4
     opt = build_optimizer(None)(params)  # the JAX default: optax.adamw(1e-4)
-    assert type(opt) is torch.optim.AdamW and opt.defaults["lr"] == 1e-4
+    assert type(opt) is OptaxAdam and opt.defaults["lr"] == 1e-4
     opt = build_optimizer({"class_path": "neurosis.optimizers.Adafactor",
                            "init_args": {"scale_parameter": True, "relative_step": True, "warmup_init": True}})(params)
     assert isinstance(opt, Adafactor) and opt.defaults["warmup_init"]

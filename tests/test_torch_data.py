@@ -23,6 +23,8 @@ torch = pytest.importorskip("torch")
 Image = pytest.importorskip("PIL.Image")
 from PIL import ImageOps  # noqa: E402
 
+from torch_parity import one_torch_thread  # noqa: E402,F401
+
 MODES = {"L": 1, "LA": 2, "RGB": 3, "RGBA": 4}
 
 

@@ -28,17 +28,8 @@ jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
-from torch_parity import rel_err, t  # noqa: E402
+from torch_parity import one_torch_thread, rel_err, t  # noqa: E402,F401
 
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Tiny shapes: one intra-op thread is as fast, and leaves the cores to
-    the test runner's other workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 CPU = "cpu"
 DISCRETIZATIONS = [

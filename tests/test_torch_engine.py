@@ -23,7 +23,7 @@ jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
-from torch_parity import grads_by_key, load_into, perturb, rel_err  # noqa: E402
+from torch_parity import grads_by_key, load_into, one_torch_thread, perturb, rel_err  # noqa: E402,F401
 
 TINY_UNET = dict(in_channels=4, model_channels=32, out_channels=4, num_res_blocks=1,
                  attention_resolutions=[2], channel_mult=[1, 2], num_heads=2, context_dim=64,

@@ -12,6 +12,8 @@ jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
+from torch_parity import one_torch_thread  # noqa: E402,F401
+
 
 @pytest.fixture()
 def interpreted_flash(monkeypatch):

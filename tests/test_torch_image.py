@@ -18,6 +18,8 @@ pytest.importorskip("jax")
 Image = pytest.importorskip("PIL.Image")
 torch = pytest.importorskip("torch")
 
+from torch_parity import one_torch_thread  # noqa: E402,F401
+
 CAPTIONS = ["a photograph of an astronaut riding a horse on the moon, highly detailed, 8k",
             "tag0, a test image, simple", "one", "wwwwww wwwwwwwww wwwwwwwwwwww tw Wi"]
 

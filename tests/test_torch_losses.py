@@ -18,7 +18,7 @@ jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
-from torch_parity import load_into, perturb, rel_err, t, to_np  # noqa: E402
+from torch_parity import load_into, one_torch_thread, perturb, rel_err, t, to_np  # noqa: E402,F401
 
 CPU = "cpu"
 

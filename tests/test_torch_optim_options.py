@@ -13,17 +13,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from test_torch_optim import _seeded, _to_jax_layout  # noqa: E402
-from torch_parity import rel_err  # noqa: E402
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Tiny shapes: one intra-op thread is as fast, and leaves the cores to
-    the test runner's other workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_parity import one_torch_thread, rel_err  # noqa: E402,F401
 
 
 @pytest.mark.parametrize("kwargs", [dict(beta1=0.9, weight_decay=0.01),

@@ -20,7 +20,7 @@ jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
-from torch_parity import rel_err  # noqa: E402
+from torch_parity import one_torch_thread, rel_err  # noqa: E402,F401
 
 TOOL = Path(__file__).resolve().parents[1] / "tools" / "overlap_bench.py"
 

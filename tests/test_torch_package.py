@@ -13,6 +13,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_parity import one_torch_thread  # noqa: E402,F401
+
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "neurosis_tpu_torch"
 _FORBIDDEN_IMPORT = re.compile(r"^\s*(?:from|import)\s+(?:jax|flax|optax|neurosis_tpu|safetensors)\b", re.M)
@@ -28,11 +30,14 @@ def test_imports_no_jax_in_a_fresh_process():
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'neurosis_tpu',"
         " 'safetensors')]\n"
         "assert not bad, bad\n"
-        "print(len(mods))\n"
+        "print(' '.join(mods))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 45  # every module of the package was imported
+    mods = out.stdout.split()
+    assert len(mods) >= 45  # every module of the package was imported
+    assert {f"neurosis_tpu_torch.{m}" for m in ("modules.regularizers", "losses.discriminator_loss", "optimizers.came",
+                                                "optimizers.adamw", "models.vae", "trainer.vae_engine")} <= set(mods)
 
 
 def test_sources_call_no_library_kernel():
@@ -282,11 +287,13 @@ CONFIGS = sorted(str(p.relative_to(ROOT)) for sub in ("sd15", "sdxl", "vae", "sm
 _BF16_PRECISIONS = {"bf16", "bf16-mixed", "bf16-true", "16", "16-mixed", "16-true", 16}
 
 
-# chip_smoke.py phase 15's copies of sdxl.example.yaml and sd15.example.yaml
+# chip_smoke.py phase 15's copies of sdxl.example.yaml and sd15.example.yaml, and
+# phase 16's VQ-f8 copies of vae.example.yaml (attention inside the levels)
 PHASE15 = ["phase15:sdxl-vpred", "phase15:sdxl-remat", "phase15:sd15-edm", "phase15:sd15-rf"]
+PHASE16 = ["phase16:vq-f8", "phase16:vq-f8-bf16"]
 
 
-@pytest.mark.parametrize("config", CONFIGS + PHASE15)
+@pytest.mark.parametrize("config", CONFIGS + PHASE15 + PHASE16)
 def test_every_flash_row_of_the_configs_reaches_a_kernel(kernel_stub, monkeypatch, config):
     """The attention rows of each config (and of chip_smoke.py phase 15's
     copies), as the port's models make them at the config's dtype,
@@ -317,7 +324,9 @@ def test_every_flash_row_of_the_configs_reaches_a_kernel(kernel_stub, monkeypatc
     monkeypatch.setattr(attn_module, "dot_product_attention", watch)
     monkeypatch.setattr(vae, "dot_product_attention", watch)
 
-    text = chip_smoke.phase15_configs(ROOT)[config.split(":")[1]] if config in PHASE15 else (ROOT / config).read_text()
+    copies = {"phase15": chip_smoke.phase15_configs, "phase16": chip_smoke.phase16_configs}
+    phase, _, name = config.partition(":")
+    text = copies[phase](ROOT)[name] if phase in copies else (ROOT / config).read_text()
     cfg = yaml.safe_load(text)
     model, data = cfg["model"]["init_args"], cfg["data"]["init_args"]
     res, batch = data.get("resolution", 1024), data.get("batch_size", 1)
@@ -343,6 +352,9 @@ def test_every_flash_row_of_the_configs_reaches_a_kernel(kernel_stub, monkeypatc
 
     flash_rows = [r for r in rows if r[3]]
     assert flash_rows, f"{config}: no attention row reaches the flash gate"
+    if config in PHASE16:  # the in-level blocks at 32x32 and the mid blocks, 1024 tokens at d=512: the encode's
+        # 3, the decode's 4 and the shape check's decode's 4
+        assert [r[:2] for r in flash_rows] == [((8, 1, 1024, 512), (8, 1, 1024, 512))] * 11
     dims = _kernel_dims()
     fwd_calls = [c for c in kernel_stub if "_fwd_" in c[0]]
     assert len(fwd_calls) == len(flash_rows) == len(kernel_stub)
@@ -418,13 +430,13 @@ def test_chip_smoke_phase15_tables_are_the_models_launches(monkeypatch):
     the UNet calls at CFG batch 2 of the comfy table's steps and the two
     decodes of sd15.example.yaml's models."""
     import chip_smoke as cs
-    from test_torch_predict import _recorded_launches
+    from torch_parity import recorded_launches
 
     from neurosis_tpu_torch.diffusion.discretization import RectifiedFlowComfyDiscretization
     from neurosis_tpu_torch.models.autoencoder import AutoencoderKL
     from neurosis_tpu_torch.models.unet import UNetModel
 
-    calls = _recorded_launches(monkeypatch)
+    calls = recorded_launches(monkeypatch)
     meta = dict(device="meta", generator=torch.Generator())
     model = UNetModel(**cs.SDXL_UNET, use_checkpoint=True, remat_policy=list(cs.VPRED_REMAT), dtype=torch.bfloat16,
                       **meta)

@@ -32,7 +32,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from test_torch_cli import TINY, VAE_TINY, _edited, _write_folder  # noqa: E402
-from torch_parity import load_into, perturb, rel_err, to_np  # noqa: E402
+from torch_parity import load_into, one_torch_thread, perturb, recorded_launches, rel_err, to_np  # noqa: E402,F401
 
 
 @pytest.fixture()
@@ -281,37 +281,6 @@ def test_fit_with_an_image_logger_writes_its_pngs(smoke, monkeypatch):
 # -- chip_smoke.py's sampling tables ----------------------------------------------
 
 
-def _recorded_launches(monkeypatch):
-    """The kernels' libraries replaced by a stub that records each launch as
-    (entry, shape): (B, H, Sq, Skv) for flash, (B, H, W, C, F) for the convs;
-    meta tensors then run through every wrapper."""
-    import collections
-    import types
-
-    from neurosis_tpu_torch import _nvcc
-    from neurosis_tpu_torch.models import autoencoder, unet, vae
-    from neurosis_tpu_torch.ops import conv3x3, flash_attention
-
-    calls = collections.Counter()
-
-    class Lib:
-        def __getattr__(self, entry):
-            def launch(*args):
-                first = {"flash": 5, "conv3x3": 3, "gn_silu": 5}[next(k for k in ("flash", "conv3x3", "gn_silu")
-                                                                      if entry.startswith(k))]
-                calls[entry, tuple(args[first:first + (4 if entry.startswith("flash") else 5)])] += 1
-                return 0
-            return launch
-
-    monkeypatch.setattr(_nvcc, "load", lambda name: Lib())
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: types.SimpleNamespace(cuda_stream=0))
-    for mod in (flash_attention, conv3x3):
-        monkeypatch.setattr(mod, "sm_count", lambda index: 132)
-    for mod in (unet, vae, autoencoder):
-        monkeypatch.setattr(mod, "init_parameters", lambda module, generator: None)
-    return calls
-
-
 def test_chip_smoke_sampling_tables_are_the_models_launches(monkeypatch):
     """The launches phases 12-13 expect, from chip_smoke.sampling_tables(),
     equal the port's own models run forward without grad on meta tensors at
@@ -324,7 +293,7 @@ def test_chip_smoke_sampling_tables_are_the_models_launches(monkeypatch):
     from neurosis_tpu_torch.models.autoencoder import AutoencoderKL
     from neurosis_tpu_torch.models.unet import UNetModel
 
-    calls = _recorded_launches(monkeypatch)
+    calls = recorded_launches(monkeypatch)
     meta = dict(device="meta", generator=torch.Generator())
 
     def unet_call(n, dtype):

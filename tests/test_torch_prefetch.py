@@ -17,6 +17,8 @@ import pytest
 
 from neurosis_tpu_torch.data.png import write_png
 
+from torch_parity import one_torch_thread  # noqa: E402,F401
+
 
 def _folder(path):
     path.mkdir(parents=True, exist_ok=True)

@@ -20,6 +20,8 @@ from neurosis_tpu_torch.config import reference_args  # noqa: E402
 from neurosis_tpu_torch.config.loader import _parameters, instantiate  # noqa: E402
 from neurosis_tpu_torch.config.registry import _PORTED, resolve_class_path  # noqa: E402
 
+from torch_parity import one_torch_thread  # noqa: E402,F401
+
 _FLAX_FIELDS = {"parent", "name"}
 
 
@@ -79,6 +81,77 @@ def rebuilt_table() -> dict:
 
 def test_the_table_is_jax_signatures_less_the_ports():
     assert rebuilt_table() == reference_args.JAX_ONLY_ARGS
+
+
+def _port_parameters(cls) -> dict:
+    """{name: default} of what the port's ``cls`` takes (the same walk)."""
+    funcs = [b.__dict__["__init__"] for b in cls.__mro__ if "__init__" in b.__dict__] \
+        if isinstance(cls, type) else [cls]
+    out = {}
+    for fn in funcs:
+        if fn is object.__init__:
+            break
+        params = inspect.signature(fn).parameters
+        for n, p in params.items():
+            if n != "self" and p.kind not in (p.VAR_KEYWORD, p.VAR_POSITIONAL) and n not in out:
+                out[n] = reference_args.REQUIRED if p.default is p.empty else p.default
+        if not any(p.kind == p.VAR_KEYWORD for p in params.values()):
+            break
+    return out
+
+
+# (path, argument) whose default differs between the packages, and why no
+# config trains differently for it: one side requires what the other
+# defaults (a config that omits it fails on that side), or the argument
+# names weights that neither package fetches
+SHARED_DEFAULTS_THAT_DIFFER = {
+    **{(p, "g_optimizer"): "the port's engine requires the optimizer the builder always passes"
+       for p in ("neurosis.models.AutoencodingEngine", "neurosis.models.autoencoder.AutoencodingEngine")},
+    **{(p, "optimizer"): "the port's engine requires the optimizer the builder always passes"
+       for p in ("neurosis.models.DiffusionEngine", "neurosis.models.diffusion.DiffusionEngine")},
+    ("neurosis.modules.encoders.GeneralConditioner", "embedders"): "the port requires the embedders",
+    **{("neurosis.modules.diffusion.model." + c, "attn_resolutions"): "JAX requires it; the port defaults to none"
+       for c in ("Encoder", "Decoder", "Model")},
+    ("neurosis.models.text_encoder.FrozenCLIPEmbedder", "version"): "names weights neither package fetches",
+}
+
+
+def _same(a, b) -> bool:
+    a, b = _plain(a), _plain(b)
+    if isinstance(a, (int, float)) and isinstance(b, (int, float)) and not isinstance(a, bool):
+        return float(a) == float(b)
+    return a == b
+
+
+def test_shared_arguments_take_jax_s_defaults():
+    """Every argument both packages' classes take has JAX's default in the
+    port, for every path the port resolves (the torch.optim ones included),
+    but the listed ones, none of which trains differently."""
+    from neurosis_tpu.config import registry as jax_registry
+
+    differ = set()
+    for path in sorted(_PORTED):
+        cls = resolve_class_path(path)
+        if _parameters(cls) is None:
+            continue
+        try:
+            jax_cls = jax_registry.resolve_class_path(path)
+        except ImportError:
+            continue
+        jax_args, port_args = _jax_parameters(jax_cls), _port_parameters(cls)
+        differ |= {(path, n) for n in set(jax_args) & set(port_args) if not _same(jax_args[n], port_args[n])}
+    assert differ == set(SHARED_DEFAULTS_THAT_DIFFER)
+
+
+@pytest.mark.parametrize("path", ["torch.optim.AdamW", "torch.optim.Adam", "torch.optim.SGD"])
+def test_torch_optim_paths_resolve_to_optax_s_counterparts(path):
+    """JAX maps the three paths to optax's adamw, adam and sgd; the port to
+    its functions of the same names, which take optax's arguments."""
+    from neurosis_tpu.config import registry as jax_registry
+
+    jax_fn, port_fn = jax_registry.resolve_class_path(path), resolve_class_path(path)
+    assert jax_fn.__module__.startswith("optax") and port_fn.__name__ == jax_fn.__name__
+    assert set(_jax_parameters(jax_fn)) - set(_parameters(port_fn)) == set(reference_args.JAX_ONLY_ARGS.get(path, {}))
 
 
 @pytest.mark.parametrize("path,arg", sorted((p, a) for p, args in reference_args.JAX_ONLY_ARGS.items() for a in args))

@@ -13,6 +13,8 @@ import torch
 
 jax = pytest.importorskip("jax")
 
+from torch_parity import one_torch_thread  # noqa: E402,F401
+
 WARM = dict(warm_up_steps=[10, 20], f_min=[0.1, 0.05], f_max=[1.0, 0.5], f_start=[0.0, 0.1],
             cycle_lengths=[100, 200])
 SCHEDULES = [

@@ -20,7 +20,7 @@ jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
-from torch_parity import check_grads, grads_by_key, load_into, perturb, rel_err, t  # noqa: E402
+from torch_parity import check_grads, grads_by_key, load_into, one_torch_thread, perturb, rel_err, t  # noqa: E402,F401
 
 CPU = "cpu"
 TINY_CLIP = dict(width=64, layers=2, heads=2)

@@ -14,6 +14,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_parity import one_torch_thread  # noqa: E402,F401
+
 ROOT = Path(__file__).resolve().parents[1]
 WORDS = ("photo", "astronaut", "riding", "horse", "masterpiece")
 TEXTS = ["a photo of an astronaut riding a horse", "Masterpiece, best quality, 1girl, solo",

@@ -25,17 +25,8 @@ jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
-from torch_parity import check_grads, load_into, perturb, rel_err  # noqa: E402
+from torch_parity import check_grads, load_into, one_torch_thread, perturb, rel_err  # noqa: E402,F401
 
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Tiny shapes: one intra-op thread is as fast, and leaves the cores to
-    the test runner's other workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 CPU = "cpu"
 BASE = dict(in_channels=4, model_channels=32, out_channels=4, num_res_blocks=1, attention_resolutions=[2],

@@ -21,7 +21,7 @@ jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
-from torch_parity import check_grads, load_into, perturb, rel_err, t  # noqa: E402
+from torch_parity import check_grads, load_into, one_torch_thread, perturb, rel_err, t  # noqa: E402,F401
 
 os.environ.setdefault("NEUROSIS_PALLAS_INTERPRET", "1")
 CPU = "cpu"

@@ -13,8 +13,11 @@ conv bias before a GroupNorm). The two reconstructions differ by fp32 noise
 (~1e-5), and once the GAN term is on, that noise flips a few of the
 discriminator's LeakyReLU and hinge kinks, which moves some grads by a
 discrete amount. So the D steps' grads are held to JAX's grads at the
-port's own reconstruction (identical inputs, 5e-4), the first G step (gate
-closed) to 5e-4 and the second (gate open) to 5e-3. AdamW's first steps
+port's own reconstruction and the port's own discriminator weights
+(identical inputs, 5e-4: the first D step moves a weight whose grad is fp32
+noise by ±lr on either side, and the first conv bias' grad, which nearly
+cancels through the BatchNorm, feels that), the first G step (gate closed)
+to 5e-4 and the second (gate open) to 5e-3. AdamW's first steps
 move each weight by about ±lr whatever the grad's size, so a grad near 0
 moves it by the sign of fp32 noise: each framework's update is held to
 2e-2·lr (5e-2·lr in the last step) where the grad is at least 1e-2 (first
@@ -31,7 +34,7 @@ jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
-from torch_parity import grads_by_key, load_into, perturb, to_np  # noqa: E402
+from torch_parity import grads_by_key, load_into, one_torch_thread, perturb, to_np  # noqa: E402,F401
 
 CPU = "cpu"
 TINY_DD = dict(ch=32, ch_mult=[1, 2], num_res_blocks=1, attn_resolutions=[], resolution=64, z_channels=2,
@@ -76,6 +79,30 @@ def _jax_grads(engine, state, batch, idx, recons=None):
         return d_loss
 
     return {"loss": jax.grad(d_loss_fn)(state.params["loss"])}
+
+
+def _with_port_discr(loss_params, engine) -> dict:
+    """JAX's loss tree with the discriminator's weights replaced by the
+    port's, in JAX's layout."""
+    from neurosis_tpu_torch.checkpoint.convert import flax_path_to_torch_key
+
+    port = dict(engine.loss.discr.named_parameters())
+
+    def walk(tree, path):
+        out = {}
+        for k, v in tree.items():
+            if hasattr(v, "items"):
+                out[k] = walk(v, path + (k,))
+            elif path and path[0] == "discr":
+                w = port[flax_path_to_torch_key(path[1:] + (k,))].detach().numpy()
+                if k == "kernel":
+                    w = w.transpose(2, 3, 1, 0) if w.ndim == 4 else w.T
+                out[k] = jnp.asarray(w.copy())
+            else:
+                out[k] = v
+        return out
+
+    return walk(loss_params, ())
 
 
 def _torch_engine(params, batch_stats):
@@ -127,11 +154,13 @@ def test_scheduled_g_and_d_steps_match_jax():
     for i in range(4):
         idx = jeng.train_step_schedule(i, int(jstate.step))
         assert idx == teng.train_step_schedule(i, tstate.step) == i % 2
-        recons = None
+        recons, at = None, jstate
         if idx == 1:
             with torch.no_grad():
                 recons = jnp.asarray(teng.forward(dequant_image(tbatch["image"]))[1].numpy())
-        want_g = grads_by_key(_jax_grads(jeng, jstate, jbatch, idx, recons))
+            at = dataclasses.replace(jstate, params=dict(jstate.params,
+                                                         loss=_with_port_discr(jstate.params["loss"], teng)))
+        want_g = grads_by_key(_jax_grads(jeng, at, jbatch, idx, recons))
         frozen = [k for k in want_g if k not in named]  # LPIPS: in JAX's loss tree, with zero grads
         assert all(not np.any(want_g.pop(k)) for k in frozen)
         tol_g, mask, tol_u = tols[i]

@@ -9,9 +9,20 @@ with ``strict=True``.
 from __future__ import annotations
 
 import numpy as np
+import pytest
 import torch
 
 from neurosis_tpu_torch.checkpoint.convert import jax_params_to_state_dict
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Each test on one torch thread (xdist runs several workers on the
+    box's cores; torch would give each of them every core), restored after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def to_np(tree):
@@ -30,7 +41,7 @@ def perturb(tree, seed: int, scale: float = 0.02):
         if isinstance(t, dict):
             return {k: walk(t[k]) for k in sorted(t)}
         arr = np.asarray(t, np.float32)
-        return arr + scale * rng.randn(*arr.shape).astype(np.float32)
+        return arr + scale * np.asarray(rng.randn(*arr.shape), np.float32)
 
     return walk(to_np(tree))
 
@@ -65,3 +76,34 @@ def rel_err(got, want) -> float:
 
 def t(x: np.ndarray, dtype=torch.float32, requires_grad: bool = False) -> torch.Tensor:
     return torch.tensor(np.array(x), dtype=dtype, requires_grad=requires_grad)
+
+
+def recorded_launches(monkeypatch):
+    """The kernels' libraries replaced by a stub that records each launch as
+    (entry, shape): (B, H, Sq, Skv) for flash, (B, H, W, C, F) for the convs;
+    meta tensors then run through every wrapper."""
+    import collections
+    import types
+
+    from neurosis_tpu_torch import _nvcc
+    from neurosis_tpu_torch.models import autoencoder, unet, vae
+    from neurosis_tpu_torch.ops import conv3x3, flash_attention
+
+    calls = collections.Counter()
+
+    class Lib:
+        def __getattr__(self, entry):
+            def launch(*args):
+                first = {"flash": 5, "conv3x3": 3, "gn_silu": 5}[next(k for k in ("flash", "conv3x3", "gn_silu")
+                                                                      if entry.startswith(k))]
+                calls[entry, tuple(args[first:first + (4 if entry.startswith("flash") else 5)])] += 1
+                return 0
+            return launch
+
+    monkeypatch.setattr(_nvcc, "load", lambda name: Lib())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    for mod in (flash_attention, conv3x3):
+        monkeypatch.setattr(mod, "sm_count", lambda index: 132)
+    for mod in (unet, vae, autoencoder):
+        monkeypatch.setattr(mod, "init_parameters", lambda module, generator: None)
+    return calls
