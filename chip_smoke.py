@@ -16,8 +16,9 @@ logger), and python -m neurosis_tpu_torch predict on sdxl.example.yaml, and
 a training run of configs/sdxl/sdxl-te.example.yaml as written (fp32 UNet,
 both text towers trainable, 8-bit AdamW, the legacy cosine schedule) that
 saves a checkpoint and is resumed from it, and the SD training path's
-options (objectives, remat policies, caption dropout, loss hooks), and the
-VAE-GAN stack's VQ autoencoders with the optimizers left.
+options (objectives, remat policies, caption dropout, loss hooks), the
+VAE-GAN stack's VQ autoencoders with the optimizers left, and training on
+the (data, fsdp) mesh through tools/launch_pod at one NCCL rank.
 
 Phases, each fatal on failure:
   1. environment: Python, torch and CUDA versions, the card's name and power limit;
@@ -68,7 +69,7 @@ Phases, each fatal on failure:
      (fp32 UNet, one step, fast_dev_run, the hash tokenizer, no checkpoint)
      under torch.profiler; fit of its copy with precision bf16-mixed,
      fast_dev_run false and max_steps 4 (phase 9's launches x 4), and of the
-     same copy for 2 steps under torch.profiler; fit of vae.example.yaml as
+     same copy for 2 steps, the second under torch.profiler; fit of vae.example.yaml as
      written (fp32, one generator step). Each run's losses are finite, its
      metrics.jsonl has a line a step with the host step and data ms;
  12. sample (right after phase 9, on its engine): first a small SDXL-layout
@@ -111,7 +112,7 @@ Phases, each fatal on failure:
      of the bf16 SDXL config (3 steps, remat [none, none, dots_names],
      caption dropout, noise offset, min-SNR, the tag hook, Adafactor momentum
      and decay, an image logger at step 2; third step profiled), of the
-     bf16 copy with only that remat policy (2 steps profiled: the remat pair
+     bf16 copy with only that remat policy (2 steps, the second profiled: the remat pair
      with phase 11's), and of EDM and rectified-flow copies of
      sd15.example.yaml (2 steps; the latter with an rf_safeguard logger),
      each run's launches held to its tables (REMAT_TABLES for the policy);
@@ -127,7 +128,20 @@ Phases, each fatal on failure:
      G/D pairs in fp32 and in a bf16-mixed copy, each profiled (the third
      pair's device time by kind, busy share, peak), validate and test of
      the fp32 copy and of vae.example.yaml as written (2 batches each), all
-     launches held to their tables, and an AEIntegerWrapper round trip.
+     launches held to their tables, and an AEIntegerWrapper round trip;
+ 17. the mesh, in chiprun_out/cli/mesh/ after phase 16: each wrapped run a
+     subprocess (chip_smoke.py --rank) of one NCCL rank that runs
+     python -m neurosis_tpu_torch.tools.launch_pod's main: a copy of
+     configs/sdxl/sdxl-tpu-v5e.yaml with devices 1, strategy fsdp, fsdp 1,
+     no ckpt_path, batch 2 (FSDP2 over a 1 x 1 mesh), 3 steps, the third
+     profiled, a checkpoint at step 2, against the same copy's one-card run
+     within the bf16 gates (losses 2e-2, grad norms 5e-2); both step-2
+     checkpoints laid out alike, and a one-card step 3 resumed from each;
+     the fp32 vae.example.yaml G/D pair (disc_start 1) under strategy ddp
+     resumed from a one-card save, against one card within 1e-3; with two
+     cards, the copy at devices 2 as data 2 and as fsdp 2 against one rank,
+     else the line that says tier-1's gloo tests hold them. The run
+     directory, with two SDXL checkpoints, is deleted afterwards.
 Phases 11, 13 and 14 load batches in 2 spawned prefetch worker processes
 (the CLI's default num_workers), which see no CUDA device.
 Then one JSON line of kernels, the nvidia-smi line and, last, the result line.
@@ -335,7 +349,7 @@ def remat_flash_table(table: dict, policy, level_of: dict) -> dict:
 
 # a path whose flash forwards differ from its base path's rows (TABLES_OF) by its remat policy
 REMAT_TABLES = {path: remat_flash_table(SDXL_FLASH_SHAPES, VPRED_REMAT, SDXL_ATTN_LEVEL)
-                for path in ("cli_sdxl_vpred", "cli_sdxl_remat")}
+                for path in ("cli_sdxl_vpred", "cli_sdxl_remat", "cli_sdxl_fsdp")}
 VPRED_STEPS, VPRED_PROFILED_STEP, OPTION_STEPS = 3, 3, 2
 # one image-logger call of the rectified-flow SD1.5 copy (256 px, batch 1: one image): the
 # fp32 encode, the UNet at CFG batch 2 for each step of the comfy table (no trailing zero:
@@ -370,7 +384,7 @@ VQ_CONV_SHAPES = {(8, 64, 64, 512, 512): (2, 1), (8, 64, 64, 256, 256): (0, 9), 
 VQ_VAL_F32_FLASH_SHAPES = {(8, 1, 1024, 1024, 512): 14}
 VQ_DIR = CLI_DIR / "data" / "vq" / "folder"
 VQ_SIZES = [(256 + 16 * (i % 4), 256 + 16 * (i // 4)) for i in range(VQ_IMAGES)]  # (width, height), >= 256
-VAE_CLI_PATHS = ("cli_vae", "cli_vq_f32", "cli_vq_bf16")
+VAE_CLI_PATHS = ("cli_vae", "cli_vq_f32", "cli_vq_bf16", "cli_vae_ddp")
 
 # path -> (its key in the report, the unit its launch tables count)
 PATHS = {"sd15": ("slice", "SD1.5 train step"),
@@ -410,12 +424,17 @@ PATHS = {"sd15": ("slice", "SD1.5 train step"),
          "cli_vq_bf16": ("cli_vq_bf16", "generator + discriminator pair of the VQ-f8 copy with precision "
                                         "bf16-mixed through the CLI"),
          "cli_vq_val": ("cli_vq_val", "one validate batch of the fp32 VQ-f8 copy (batch 8, live and EMA weights)"),
-         "cli_vae_val": ("cli_vae_val", "one validate batch of vae.example.yaml as written (fp32, batch 2)")}
+         "cli_vae_val": ("cli_vae_val", "one validate batch of vae.example.yaml as written (fp32, batch 2)"),
+         "cli_sdxl_fsdp": ("cli_sdxl_fsdp", "SDXL train step of the sdxl-tpu-v5e.yaml copy (bf16-mixed, remat [none, "
+                                            "none, dots_names], Adafactor, batch 2) wrapped with FSDP2 at one NCCL "
+                                            "rank (strategy fsdp), through tools/launch_pod"),
+         "cli_vae_ddp": ("cli_vae_ddp", "G/D pair of vae.example.yaml (fp32, disc_start 1) under strategy ddp at one "
+                                        "NCCL rank, through tools/launch_pod")}
 # a path whose shape tables are another's (the same step, reached another way; the towers of
 # sdxl-te train, but at 77 tokens their attention is under the flash gate)
 TABLES_OF = {"cli_sdxl_bf16": "sdxl", "cli_sdxl_te": "cli_sdxl_f32", "cli_sdxl_vpred": "sdxl", "cli_sdxl_remat": "sdxl",
              "cli_vpred_logger": "cli_logger", "cli_sd15_edm": "sd15_f32", "cli_sd15_rf": "sd15_f32",
-             "cli_vae_val": "cli_vae_logger"}
+             "cli_vae_val": "cli_vae_logger", "cli_sdxl_fsdp": "sdxl"}
 
 # tolerances on max|kernel - plain| / max|plain|, same bf16 inputs on both sides
 TOL = {
@@ -1331,14 +1350,16 @@ def write_image_folder(torch, folder: Path, seed: int = 11, sizes: list = CLI_IM
         (folder / f"img_{i}.txt").write_text(", ".join(tags[j] for j in picks))
 
 
-def step_profiles(torch, prof, span: str) -> list:
+def step_profiles(torch, prof, span) -> list:
     """Each ``span`` of a profile: device busy ms (the union of the kernels
     that ran between the span's start and end; the trainer syncs the card at
-    both, so no other work overlaps a step), ms and kernels by kind, and kernel count."""
+    both, so no other work overlaps a step), ms and kernels by kind, and
+    kernel count; ``span`` None: the whole window (a profile of one step
+    that recorded the device alone)."""
     cuda = torch.autograd.DeviceType.CUDA
     events = prof.events()
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.name == span and e.device_type != cuda)
+    spans = [(-math.inf, math.inf)] if span is None else \
+        sorted((e.time_range.start, e.time_range.end) for e in events if e.name == span and e.device_type != cuda)
     kernels = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
                      if e.device_type == cuda and not getattr(e, "is_user_annotation", False))
     out = []
@@ -1359,7 +1380,8 @@ def step_profiles(torch, prof, span: str) -> list:
 
 
 def run_cli(torch, rows: dict, config: Path, label: str, path: str, steps: int, profiled: bool,
-            logger: tuple = None, first_step: int = 1, profile_step: int = None, units: int = None) -> dict:
+            logger: tuple = None, first_step: int = 1, profile_step: int = None, units: int = None,
+            entry=None, totals: dict = None, device_only: bool = False, writer: bool = True) -> dict:
     """``python -m neurosis_tpu_torch fit -c config`` in this process (its
     main()), from the working directory (CLI_DIR) and a fresh projects/ there
     (``first_step`` > 1: the projects/ of the run it resumes): rc 0, a finite
@@ -1371,7 +1393,13 @@ def run_cli(torch, rows: dict, config: Path, label: str, path: str, steps: int, 
     launches inside the image logger's calls are read apart and held to that
     path's tables x calls; a call that raises fails the run (the logger
     itself would log and go on). ``units``: the units the path's tables
-    count in the run (default ``steps``; a VAE-GAN path counts pairs)."""
+    count in the run (default ``steps``; a VAE-GAN path counts pairs), or
+    ``totals`` in their place. ``entry``: the main() that takes the argv
+    (default the CLI's; phase 17's ranks run tools/launch_pod's).
+    ``device_only``: the ``profile_step`` profile records the device alone,
+    which reads back in seconds rather than minutes. ``writer`` False: a
+    rank other than 0 of a mesh, which writes no metrics file: only its
+    launches are held (rank 0 clears projects/ and reads the metrics)."""
     import contextlib
     import gc
     import shutil
@@ -1384,9 +1412,9 @@ def run_cli(torch, rows: dict, config: Path, label: str, path: str, steps: int, 
     from neurosis_tpu_torch.trainer.loop import STEP_SPAN, Trainer
 
     metrics_file = Path("projects/logs/metrics.jsonl")
-    if first_step == 1:
+    if first_step == 1 and writer:
         shutil.rmtree("projects", ignore_errors=True)
-    logged_before = len(metrics_file.read_text().splitlines()) if metrics_file.exists() else 0
+    logged_before = len(metrics_file.read_text().splitlines()) if metrics_file.exists() and writer else 0
     gc.collect()  # an earlier run's profile, freed before this run's host times
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1413,7 +1441,8 @@ def run_cli(torch, rows: dict, config: Path, label: str, path: str, steps: int, 
         step_calls.append(1)
         if len(step_calls) != profile_step:
             return inner_step(self, *args, **kwargs)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as step_prof:
+        activities = [ProfilerActivity.CUDA] if device_only else [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with profile(activities=activities) as step_prof:
             result = inner_step(self, *args, **kwargs)
         one_step.append(step_prof)
         return result
@@ -1424,7 +1453,7 @@ def run_cli(torch, rows: dict, config: Path, label: str, path: str, steps: int, 
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if profiled \
                 else contextlib.nullcontext() as prof:
-            rc = cli.main(argv)
+            rc = (entry or cli.main)(argv)
             torch.cuda.synchronize()
     finally:
         ImageLogger._log_images = inner
@@ -1434,6 +1463,9 @@ def run_cli(torch, rows: dict, config: Path, label: str, path: str, steps: int, 
     peak = torch.cuda.max_memory_allocated()
     if rc != 0:
         raise PhaseError(f"{label}: main() returned {rc}")
+    if not writer:
+        check_launches(launches, totals or step_totals(rows, path), units or steps, label)
+        return dict(launches=launches, peak_bytes=peak, seconds=seconds)
     lines = [json.loads(x) for x in metrics_file.read_text().splitlines()][logged_before:]
     loss_key = "total" if path in VAE_CLI_PATHS else "loss"
     if [r["step"] for r in lines] != list(range(first_step, first_step + steps)):
@@ -1445,7 +1477,7 @@ def run_cli(torch, rows: dict, config: Path, label: str, path: str, steps: int, 
         print(f"{label} step {r['step']}: {loss_key} {r[loss_key]:.6f}, host step {r['step_ms']:.1f} ms, "
               f"data {r['data_ms']:.1f} ms", flush=True)
     print(f"{label}: {seconds:.1f} s in main(), peak device memory {peak} bytes ({peak / 2**30:.2f} GiB)", flush=True)
-    check_launches(launches, step_totals(rows, path), units or steps, label)
+    check_launches(launches, totals or step_totals(rows, path), units or steps, label)
     out = dict(metrics=lines, launches=launches, peak_bytes=peak, seconds=seconds)
     if logger is not None:
         logger_path, n_calls = logger
@@ -1456,7 +1488,8 @@ def run_cli(torch, rows: dict, config: Path, label: str, path: str, steps: int, 
     elif any(logged.values()) or calls:
         raise PhaseError(f"{label}: an image logger ran in a run without one: {calls}")
     if profiled or one_step:
-        out["profiles"] = step_profiles(torch, prof if profiled else one_step[0], STEP_SPAN)
+        out["profiles"] = step_profiles(torch, prof if profiled else one_step[0],
+                                        None if device_only and not profiled else STEP_SPAN)
         for i, p in enumerate(out["profiles"], start=profile_step - 1 if one_step else 0):
             if p["device_ms"] is None:
                 print(f"{label} step {i + 1}: the profiler recorded no device kernels in the step: device time "
@@ -1473,7 +1506,7 @@ def run_cli_phase(torch, rows: dict) -> dict:
     """Phase 11: the image folder, then the CLI's fit on the three configs.
     The bf16 copy runs twice: first unprofiled for its host times (the first
     run after phase 10, as phase 9 is the first after phase 8), then two
-    steps profiled, the second of which compares with phase 9's profiled
+    steps, the second profiled alone, which compares with phase 9's profiled
     (steady) step: a first step also creates the optimizer's state."""
     import os
 
@@ -1507,7 +1540,7 @@ def run_cli_phase(torch, rows: dict) -> dict:
         out["cli_sdxl_f32"] = run_cli(torch, rows, sdxl, "CLI fit sdxl.example.yaml (fp32)", "cli_sdxl_f32", 1,
                                       profiled=True)
         out["cli_sdxl_bf16_profiled"] = run_cli(torch, rows, bf16_two, "CLI fit sdxl bf16-mixed, profiled",
-                                                "cli_sdxl_bf16", 2, profiled=True)
+                                                "cli_sdxl_bf16", 2, profiled=False, profile_step=2)
         out["cli_vae"] = run_cli(torch, rows, vae, "CLI fit vae.example.yaml (fp32)", "cli_vae", 1, profiled=False)
     finally:
         os.chdir(cwd)
@@ -2262,7 +2295,8 @@ def run_options_phase(torch, rows: dict, report: dict, log: list) -> dict:
     at step 2 read apart (cli_logger's tables), every step's metrics line
     with the tag hook's train/tag_loss_scale_mean and finite losses, the
     launches held to REMAT_TABLES' table; (c) the remat pair: fit of the
-    sdxl-remat copy, 2 steps profiled, its second step's device time and
+    sdxl-remat copy, 2 steps, the second profiled (a profile of two SDXL steps
+    takes ~70 s to read back), its device time and
     peak memory beside phase 11's profiled bf16 copy under full remat (the
     same config but the policy); (d) fits of
     the sd15-edm and sd15-rf copies for 2 steps each (sd15_f32's tables; the
@@ -2291,7 +2325,7 @@ def run_options_phase(torch, rows: dict, report: dict, log: list) -> dict:
             raise PhaseError(f"the v-prediction run's metrics lack the tag hook's loss scale: {scales}")
         print(f"v-prediction run: tag loss scale means {scales}", flush=True)
         out["cli_sdxl_remat"] = run_cli(torch, rows, paths["sdxl-remat"], "CLI fit sdxl bf16 remat [none, none, "
-                                        "dots_names], profiled", "cli_sdxl_remat", 2, profiled=True)
+                                        "dots_names], profiled", "cli_sdxl_remat", 2, profiled=False, profile_step=2)
         out["cli_sd15_edm"] = run_cli(torch, rows, paths["sd15-edm"], "CLI fit sd15 EDM copy", "cli_sd15_edm",
                                       OPTION_STEPS, profiled=False)
         run = run_cli(torch, rows, paths["sd15-rf"], "CLI fit sd15 rectified-flow copy", "cli_sd15_rf",
@@ -2656,11 +2690,313 @@ def run_ae_integer(torch, config: Path) -> dict:
     return dict(unchanged_share=share, distinct_codes=int(idx.unique().numel()))
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the mesh (parallel/), at one NCCL rank on one card
+# ---------------------------------------------------------------------------
+
+RANK_FLAG = "--rank"  # chip_smoke.py --rank ARGS_JSON: one rank of phase 17, started by run_rank
+MESH_STEPS, MESH_SAVE_STEP = 3, 2
+MESH_DIR = CLI_DIR / "mesh"
+
+
+def phase17_configs(repo: Path) -> dict:
+    """{name: YAML text}. ``sdxl-fsdp``: configs/sdxl/sdxl-tpu-v5e.yaml with
+    devices 1, strategy fsdp and fsdp 1 (FSDP2 over a 1 x 1 mesh), no
+    ckpt_path, and what a run here needs: batch 2 (the config's 2 a chip:
+    its 8 is 2 a chip x 4 data groups), MESH_STEPS steps logged each step,
+    a checkpoint every MESH_SAVE_STEP, default_root_dir ./projects;
+    everything else as written (bf16-mixed, remat [none, none, dots_names],
+    Adafactor with relative steps and warmup_init, 2 prefetch workers).
+    ``sdxl-one``: the same without the strategy (the one-card path);
+    ``sdxl-one-resume`` loads its batches in this process (a resumed run:
+    the batches are the same in every mode, the workers' start is ~10 s).
+    ``sdxl-two-data``/``sdxl-two-fsdp``: devices 2 as data 2 and as fsdp 2
+    (batch 2: one row a rank at data 2). ``vae-one``: vae.example.yaml
+    (fp32) with disc_start 1, so that two steps are a G/D pair, a
+    checkpoint at step 2, batches loaded in this process; ``vae-ddp-resume``
+    and ``vae-one-resume``: max_steps 4 (the pair of steps 3 and 4 after
+    resuming step 2), with strategy ddp and without."""
+    v5e, vae = (repo / "configs/sdxl/sdxl-tpu-v5e.yaml").read_text(), (repo / "configs/vae/vae.example.yaml").read_text()
+    ckpt = f"model_checkpoint:\n  every_n_train_steps: {MESH_SAVE_STEP}\n  save_top_k: 1\n"
+    one = _edit(v5e, [
+        ("seed_everything: 42\n", "seed_everything: 42\n" + ckpt),
+        ("  max_epochs: 1\n", f"  max_epochs: 1\n  max_steps: {MESH_STEPS}\n"),
+        ("  log_every_n_steps: 10\n", "  log_every_n_steps: 1\n"),
+        ("  default_root_dir: ./projects/sdxl-tpu\n", "  default_root_dir: ./projects\n"),
+        ("  devices: 8                 # whole v5e-8\n", "  devices: 1\n"),
+        ("  fsdp: 2                    # (data=4, fsdp=2) mesh\n", "  fsdp: 1\n"),
+        ('    ckpt_path: "data/sd_xl_base_1.0_0.9vae.safetensors"\n', ""),
+        ("        ckpt_path: data/sdxl_vae.safetensors\n", ""),
+        ("    batch_size: 8   # global batch: 2 per chip x 4 data-parallel groups\n", "    batch_size: 2\n"),
+    ], "sdxl-tpu-v5e.yaml")
+    fsdp = _edit(one, [("  devices: 1\n", "  devices: 1\n  strategy: fsdp\n")], "sdxl-one")
+    one_resume = _edit(one, [("    batch_size: 2\n", "    batch_size: 2\n    num_workers: 0\n")], "sdxl-one")
+    two_data = _edit(one, [("  devices: 1\n", "  devices: 2\n  strategy: fsdp\n")], "sdxl-one")
+    two_fsdp = _edit(two_data, [("  fsdp: 1\n", "  fsdp: 2\n")], "sdxl-two-data")
+    vae_one = _edit(vae, [
+        ("seed_everything: 42\n", "seed_everything: 42\n" + ckpt),
+        ("  fast_dev_run: true\n", "  fast_dev_run: false\n  max_steps: 2\n"),
+        ("        disc_start: 5000\n", "        disc_start: 1\n"),
+        ("    batch_size: 2\n", "    batch_size: 2\n    num_workers: 0\n"),
+    ], "vae.example.yaml")
+    vae_resume = _edit(vae_one, [("  max_steps: 2\n", "  max_steps: 4\n")], "vae-one")
+    return {"sdxl-fsdp": fsdp, "sdxl-one": one, "sdxl-one-resume": one_resume, "sdxl-two-data": two_data,
+            "sdxl-two-fsdp": two_fsdp, "vae-one": vae_one, "vae-one-resume": vae_resume,
+            "vae-ddp-resume": _edit(vae_resume, [("  max_steps: 4\n", "  max_steps: 4\n  strategy: ddp\n")],
+                                    "vae-one-resume")}
+
+
+def pair_totals(rows: dict, g_path: str, d_path: str) -> dict:
+    """A G/D pair's tables: the G step's and the D step's forward."""
+    g, d = step_totals(rows, g_path), step_totals(rows, d_path)
+    return {k: {m: g[k].get(m, 0.0) + d[k].get(m, 0.0) for m in set(g[k]) | set(d[k])} for k in g}
+
+
+def rank_main(argv: list) -> int:
+    """One rank of phase 17 (``chip_smoke.py --rank ARGS_JSON``): run_cli with
+    tools/launch_pod's main in the working directory the args name; the
+    launcher's environment (RANK, WORLD_SIZE, ...) comes from run_rank. Its
+    result (metrics, launches, peak, profiles) goes to the args' ``out``."""
+    import os
+
+    import torch
+
+    from neurosis_tpu_torch.tools import launch_pod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    args = json.loads(Path(argv[0]).read_text())
+    rows = json.loads(Path(args["rows"]).read_text())
+    totals = args.get("totals")
+    os.chdir(args["cwd"])
+    writer = int(os.environ.get("RANK", "0")) == 0
+    out = run_cli(torch, rows, Path(args["config"]), args["label"], args["path"], args["steps"], profiled=False,
+                  first_step=args["first_step"], units=args["units"], entry=launch_pod.main, totals=totals,
+                  profile_step=args["profile_step"], device_only=True, writer=writer)
+    out.pop("images", None)
+    if writer:
+        Path(args["out"]).write_text(json.dumps(out, default=str))
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_rank(torch, rows: dict, cwd: Path, config: Path, label: str, path: str, steps: int, profile_step: int = None,
+             world: int = 1, first_step: int = 1, totals: dict = None, units: int = None) -> dict:
+    """``world`` ranks of ``chip_smoke.py --rank`` (one a card, NCCL over
+    localhost), each running tools/launch_pod's main on ``config`` in
+    ``cwd``; rank 0's run_cli result. A rank that fails fails the phase."""
+    import gc
+    import os
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cwd.mkdir(parents=True, exist_ok=True)
+    (cwd / "data").unlink(missing_ok=True)
+    (cwd / "data").symlink_to((CLI_DIR / "data").resolve())
+    rows_file, out_file = (MESH_DIR / "rows.json").resolve(), (cwd / "rank0.json").resolve()
+    if not rows_file.exists():
+        rows_file.write_text(json.dumps(rows, default=str))
+    out_file.unlink(missing_ok=True)
+    args = dict(rows=str(rows_file), cwd=str(cwd.resolve()), config=str(config), label=label, path=path, steps=steps,
+                profile_step=profile_step, first_step=first_step, units=units, out=str(out_file), totals=totals)
+    args_file = (cwd / "rank_args.json").resolve()
+    args_file.write_text(json.dumps(args))
+    env = dict(os.environ, WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+               MASTER_PORT=str(_free_port()), PYTHONPATH=str(Path.cwd().resolve()),
+               NEUROSIS_ALLOW_HASH_TOKENIZER="1")
+    script = str(Path(__file__).resolve())
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, script, RANK_FLAG, str(args_file)],
+                              env=dict(env, RANK=str(r), LOCAL_RANK=str(r))) for r in range(world)]
+    try:
+        rcs = [p.wait(timeout=900) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    if any(rcs):
+        raise PhaseError(f"{label}: a rank exited with {rcs}")
+    out = json.loads(out_file.read_text())
+    out["process_s"] = time.perf_counter() - t0
+    print(f"{label}: {world} rank(s) in {out['process_s']:.1f} s (process start included)", flush=True)
+    return out
+
+
+def _close(label: str, got: list, want: list, keys: dict) -> dict:
+    """Per step and key, |got - want| / |want| within its gate; the largest."""
+    worst = {}
+    for g, w in zip(got, want):
+        for k, tol in keys.items():
+            rel = abs(g[k] - w[k]) / max(abs(w[k]), 1e-12)
+            worst[k] = max(worst.get(k, 0.0), rel)
+            if not rel <= tol:
+                raise PhaseError(f"{label}: step {w['step']} {k} {g[k]!r} vs {w[k]!r} ({rel:.3e} > {tol})")
+    print(f"{label}: largest relative differences {worst} (gates {keys})", flush=True)
+    return worst
+
+
+def _compare_checkpoints(torch, a: Path, b: Path) -> dict:
+    """Two state.pt files: the same keys and shapes everywhere, and the largest
+    parameter difference relative to the largest value."""
+    pa, pb = (torch.load(x, map_location="cpu", weights_only=True, mmap=True) for x in (a, b))
+    if set(pa) != set(pb) or set(pa["params"]) != set(pb["params"]):
+        raise PhaseError(f"checkpoints {a} and {b} differ in their keys")
+    worst, scale = 0.0, 0.0
+    for k, v in pa["params"].items():
+        if tuple(v.shape) != tuple(pb["params"][k].shape) or v.dtype != pb["params"][k].dtype:
+            raise PhaseError(f"checkpoints {a} and {b} differ at {k}: {tuple(v.shape)} vs {tuple(pb['params'][k].shape)}")
+        worst = max(worst, float((v.float() - pb["params"][k].float()).abs().max()))
+        scale = max(scale, float(pb["params"][k].float().abs().max()))
+    opt_a, opt_b = pa.get("opt_state", {}).get("state", {}), pb.get("opt_state", {}).get("state", {})
+    if {k: sorted(v) for k, v in opt_a.items()} != {k: sorted(v) for k, v in opt_b.items()}:
+        raise PhaseError(f"checkpoints {a} and {b} differ in their optimizer state's layout")
+    return dict(max_param_diff=worst, max_param=scale, tensors=len(pa["params"]), step=int(pa["step"]))
+
+
+def run_mesh_phase(torch, rows: dict, report: dict) -> dict:
+    """Phase 17, in chiprun_out/cli/mesh/ (phase 11's image folder; phase
+    15's tag captions): (c) a one-card G/D pair of the fp32 vae.example.yaml
+    copy saved at step 2, then the pair of steps 3 and 4 resumed from that
+    save under strategy ddp at one NCCL rank (the discriminator's BatchNorm
+    all-reduced over a group of one; a one-card save resumed on the wrapped
+    path) against the same pair resumed on one card, within §2's fp32 gate;
+    (a) the sdxl-tpu-v5e.yaml copy wrapped with FSDP2 at one rank for
+    MESH_STEPS steps, the last profiled (device only), a checkpoint at step
+    2, against the same copy's one-card run (losses and grad norms within
+    §2's bf16 gates), the profiled step's device ms beside phase 15's
+    unwrapped run under the same remat; (b) both step-2 checkpoints laid out
+    alike, and a one-card run resumed from the wrapped run's checkpoint
+    against one resumed from the one-card run's (step 3); (d) the two-card
+    runs, or the line that says one card holds them to tier-1's gloo test.
+    Each wrapped run is a subprocess of chip_smoke.py --rank that runs
+    tools/launch_pod; every run's launches are held to its tables."""
+    import os
+    import shutil
+
+    MESH_DIR.mkdir(parents=True, exist_ok=True)
+    (MESH_DIR / "rows.json").unlink(missing_ok=True)
+    configs = {}
+    for name, text in phase17_configs(Path.cwd().resolve()).items():
+        configs[name] = (MESH_DIR / f"{name}.yaml").resolve()
+        configs[name].write_text(text)
+    t_phase = time.perf_counter()
+    out, cwd, hash_env = {}, os.getcwd(), os.environ.get("NEUROSIS_ALLOW_HASH_TOKENIZER")
+    sdxl_gates = {"loss": 2e-2, "grad_norm": 5e-2}
+    vae_gates = {"total": 1e-3}
+
+    def here(sub: str, fn):
+        d = MESH_DIR / sub
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "data").unlink(missing_ok=True)
+        (d / "data").symlink_to((CLI_DIR / "data").resolve())
+        os.chdir(d)
+        try:
+            return fn()
+        finally:
+            os.chdir(cwd)
+
+    def resume_from(sub: str, src: str, step: int) -> None:
+        """``sub``'s projects/ holding ``src``'s checkpoint of ``step`` (hard links: a
+        later save may rotate it away)."""
+        shutil.rmtree(MESH_DIR / sub / "projects", ignore_errors=True)
+        shutil.copytree(MESH_DIR / src / "projects" / "checkpoints" / str(step),
+                        MESH_DIR / sub / "projects" / "checkpoints" / str(step), copy_function=os.link)
+
+    try:
+        os.environ["NEUROSIS_ALLOW_HASH_TOKENIZER"] = "1"
+        # (c) the fp32 VAE pair under strategy ddp at one rank, from a one-card save
+        vae_totals = pair_totals(rows, "cli_vae", "cli_vae_logger")
+        first = here("vae-one", lambda: run_cli(torch, rows, configs["vae-one"], "phase 17 vae pair, one card",
+                                                "cli_vae", 2, profiled=False, totals=vae_totals, units=1))
+        if [r.get("train/loss/rec") is not None for r in first["metrics"]] != [True, False]:
+            raise PhaseError("phase 17's VAE steps were not a G step then a D step")
+        resume_from("vae-one-r", "vae-one", 2)
+        resume_from("vae-ddp-r", "vae-one", 2)
+        out["cli_vae_ddp"] = run_rank(torch, rows, MESH_DIR / "vae-ddp-r", configs["vae-ddp-resume"],
+                                      "phase 17 vae pair resumed from a one-card save, strategy ddp at one NCCL rank",
+                                      "cli_vae_ddp", 2, first_step=3, totals=vae_totals, units=1)
+        out["cli_vae_one"] = here("vae-one-r", lambda: run_cli(
+            torch, rows, configs["vae-one-resume"], "phase 17 vae pair resumed from a one-card save, one card",
+            "cli_vae", 2, profiled=False, first_step=3, totals=vae_totals, units=1))
+        out["vae_pair_diff"] = _close("phase 17 vae pair: ddp vs one card", out["cli_vae_ddp"]["metrics"],
+                                      out["cli_vae_one"]["metrics"], vae_gates)
+
+        # (a) the sdxl-tpu-v5e.yaml copy wrapped at one rank, against its one-card run
+        fsdp = run_rank(torch, rows, MESH_DIR / "sdxl-fsdp", configs["sdxl-fsdp"],
+                        "phase 17 sdxl-tpu-v5e copy, FSDP2 at one NCCL rank", "cli_sdxl_fsdp", MESH_STEPS,
+                        profile_step=MESH_STEPS)
+        one = here("sdxl-one", lambda: run_cli(torch, rows, configs["sdxl-one"], "phase 17 sdxl-tpu-v5e copy, one card",
+                                               "cli_sdxl_fsdp", MESH_STEPS, profiled=False))
+        out["cli_sdxl_fsdp"], out["cli_sdxl_one"] = fsdp, one
+        out["sdxl_diff"] = _close("phase 17 sdxl: FSDP2 at one rank vs one card", fsdp["metrics"], one["metrics"],
+                                  sdxl_gates)
+        remat = report.get("cli_sdxl_remat", {}).get("profiles", [{}])[-1].get("device_ms")
+        p = fsdp["profiles"][-1]
+        for r_f, r_o in zip(fsdp["metrics"], one["metrics"]):
+            print(f"phase 17 sdxl step {r_f['step']}: host {r_f['step_ms']:.1f} ms under FSDP2, {r_o['step_ms']:.1f} ms "
+                  "on one card", flush=True)
+        busy = None if p["device_ms"] is None else p["device_ms"] / fsdp["metrics"][-1]["step_ms"]
+        print(f"phase 17 sdxl step {MESH_STEPS} (profiled, device only): FSDP2 {p['device_ms']} ms device in "
+              f"{p['launches']} kernels, busy {busy} of its host step, peak {fsdp['peak_bytes']} bytes (one card "
+              f"{one['peak_bytes']}); phase 15's unwrapped step under remat [none, none, dots_names]: {remat} ms",
+              flush=True)
+
+        # (b) the checkpoints: laid out alike; the wrapped one resumed by one card, held to the one-card one's
+        step = MESH_SAVE_STEP
+        out["checkpoints"] = _compare_checkpoints(
+            torch, MESH_DIR / "sdxl-fsdp" / "projects" / "checkpoints" / str(step) / "state.pt",
+            MESH_DIR / "sdxl-one" / "projects" / "checkpoints" / str(step) / "state.pt")
+        print(f"phase 17 checkpoints at step {step}: {out['checkpoints']}", flush=True)
+        resume_from("sdxl-r-fsdp", "sdxl-fsdp", step)
+        resume_from("sdxl-r-one", "sdxl-one", step)
+        r_fsdp = here("sdxl-r-fsdp", lambda: run_cli(torch, rows, configs["sdxl-one-resume"], "phase 17 sdxl: the FSDP2 save "
+                                                     "resumed on one card", "cli_sdxl_fsdp", MESH_STEPS - step,
+                                                     profiled=False, first_step=step + 1))
+        r_one = here("sdxl-r-one", lambda: run_cli(torch, rows, configs["sdxl-one-resume"], "phase 17 sdxl: the one-card save "
+                                                   "resumed on one card", "cli_sdxl_fsdp", MESH_STEPS - step,
+                                                   profiled=False, first_step=step + 1))
+        out["resume_diff"] = _close("phase 17 sdxl resumed: FSDP2 save vs one-card save", r_fsdp["metrics"],
+                                    r_one["metrics"], sdxl_gates)
+
+        # (d) two cards
+        if torch.cuda.device_count() >= 2:
+            for name in ("sdxl-two-data", "sdxl-two-fsdp"):
+                two = run_rank(torch, rows, MESH_DIR / name, configs[name], f"phase 17 {name}, two NCCL ranks",
+                               "cli_sdxl_fsdp", MESH_STEPS, profile_step=MESH_STEPS, world=2)
+                out[name] = dict(metrics=two["metrics"], profile=two["profiles"][-1], peak_bytes=two["peak_bytes"],
+                                 diff=_close(f"phase 17 {name} vs one rank", two["metrics"], fsdp["metrics"],
+                                             sdxl_gates))
+            print(f"two-rank run: {torch.cuda.device_count()} cards present, data 2 and fsdp 2 held to one rank",
+                  flush=True)
+        else:
+            print("two-rank run: 1 card present, held by tier-1's gloo test", flush=True)
+            out["two_rank"] = "1 card present, held by tier-1's gloo test"
+    finally:
+        os.chdir(cwd)
+        if hash_env is None:
+            os.environ.pop("NEUROSIS_ALLOW_HASH_TOKENIZER", None)
+        else:
+            os.environ["NEUROSIS_ALLOW_HASH_TOKENIZER"] = hash_env
+        shutil.rmtree(MESH_DIR, ignore_errors=True)  # two SDXL checkpoints
+    out["mesh_phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 17: {out['mesh_phase_s']:.1f} s", flush=True)
+    return out
+
+
 def kernel_kind(name: str) -> str:
     """Which layer a device kernel belongs to, by its name."""
     low = name.lower()
     if "flash_" in low or "conv3x3_wgmma" in low:
         return "port kernels"
+    if "nccl" in low:
+        return "collectives (NCCL)"
     if any(s in low for s in ("fprop", "dgrad", "wgrad", "conv", "cudnn")):
         return "library conv"
     if any(s in low for s in ("gemm", "nvjet", "cublas", "cutlass")):
@@ -2795,6 +3131,8 @@ def main() -> int:
         report.update(run_options_phase(torch, rows, report, log))
         torch.cuda.empty_cache()
         report.update(run_vq_phase(torch, rows, log))
+        torch.cuda.empty_cache()
+        report.update(run_mesh_phase(torch, rows, report))
         report["seconds"] = time.perf_counter() - t_start
         print(f"all phases: {report['seconds']:.1f} s", flush=True)
     except Exception as e:  # any failed phase ends the run without a result line
@@ -2828,4 +3166,4 @@ def _write(report: dict, log: list) -> None:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(rank_main(sys.argv[2:]) if sys.argv[1:2] == [RANK_FLAG] else main())

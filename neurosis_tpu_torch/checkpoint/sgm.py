@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..models.text_encoder.clip import split_openclip_qkv
+from ..parallel.fsdp import assign
 from .safetensors import load_file, save_file
 
 logger = logging.getLogger(__name__)
@@ -63,7 +64,7 @@ def _fill(targets: dict, sd: dict, prefix: str) -> tuple[list, list]:
         value = sd[key]
         if tuple(value.shape) != tuple(tensor.shape):
             raise ValueError(f"{key}: checkpoint shape {tuple(value.shape)}, module shape {tuple(tensor.shape)}")
-        tensor.copy_(value.to(tensor.dtype))
+        assign(tensor, value.to(tensor.dtype))
         used.add(key)
     return missing, [k for k in sd if k.startswith(prefix) and k not in used]
 

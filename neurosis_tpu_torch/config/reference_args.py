@@ -23,7 +23,7 @@ JAX_ONLY_ARGS: dict = {'bitsandbytes.optim.AdamW8bit': {'mask': None},
 # torch parameter lists, not Flax trees: see ROADMAP Queue 1 item 8
 _ITEMS = {
     "8 (the optimizers: optax's mask)": ("mask",),
-    "10 (multi-GPU)": ("context_axis",),
+    "10 (ring attention)": ("context_axis",),
 }
 
 

@@ -13,6 +13,7 @@ from typing import Optional, Sequence, Union
 import torch
 
 from ..losses.functions import batch_l1_loss, batch_mse_loss
+from ..parallel import rows
 from ..utils import append_dims
 from .denoiser import Denoiser
 from .sigma_generators import SigmaGenerator
@@ -59,7 +60,7 @@ class StandardDiffusionLoss:
         if self.noise_offset <= 0 or self.noise_offset_chance <= 0:
             return None
         shape = inputs.shape[:2] + (1,) * (inputs.ndim - 2)
-        offset = torch.randn(shape, generator=generator, device=inputs.device, dtype=inputs.dtype)
+        offset = rows.draw(torch.randn, shape, generator=generator, device=inputs.device, dtype=inputs.dtype)
         if self.noise_offset_chance < 1.0:
             take = torch.rand((), generator=generator, device=inputs.device) < self.noise_offset_chance
             offset = offset * take.to(offset.dtype)
@@ -77,10 +78,11 @@ class StandardDiffusionLoss:
         extra = {k: batch[k] for k in batch if k in self.input_keys}
         b = inputs.shape[0]
         if t is None:
-            t = torch.rand(b, generator=generator, device=inputs.device)
+            t = rows.draw(torch.rand, (b,), generator=generator, device=inputs.device)
         sigmas = self.sigma_generator(b, t).to(inputs.dtype)
         if noise is None:
-            noise = torch.randn(inputs.shape, generator=generator, device=inputs.device, dtype=inputs.dtype)
+            noise = rows.draw(torch.randn, inputs.shape, generator=generator, device=inputs.device,
+                              dtype=inputs.dtype)
         if offset is None:
             offset = self.draw_offset(inputs, generator)
         if offset is not None and self.noise_offset > 0:

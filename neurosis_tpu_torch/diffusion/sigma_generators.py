@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from .._device import DeviceLike, resolve_device
+from ..parallel import rows
 from .discretization import Discretization
 
 
@@ -25,8 +26,8 @@ class SigmaGenerator:
             return t.float()
         if generator is None:
             raise ValueError(f"{type(self).__name__} needs either a pre-drawn t or a generator")
-        draw = torch.randn if normal else torch.rand
-        return draw(n_samples, generator=generator, device=resolve_device(device or generator.device))
+        return rows.draw(torch.randn if normal else torch.rand, (n_samples,), generator=generator,
+                         device=resolve_device(device or generator.device))
 
 
 class EDMSigmaGenerator(SigmaGenerator):
@@ -62,7 +63,8 @@ class DiscreteSigmaGenerator(SigmaGenerator):
         if t is None:
             if generator is None:
                 raise ValueError("DiscreteSigmaGenerator needs either a pre-drawn t or a generator")
-            idx = torch.randint(0, self.num_idx, (n_samples,), generator=generator, device=self.sigmas.device)
+            idx = rows.draw(lambda shape, **kw: torch.randint(0, self.num_idx, shape, **kw), (n_samples,),
+                            generator=generator, device=self.sigmas.device)
             return self.sigmas[idx]
         t = t.float()
         idx = torch.where((t >= 0.0) & (t < 1.0), torch.floor(t * self.num_idx), t).to(torch.int64)

@@ -24,6 +24,8 @@ from torch import nn
 
 from .._device import DeviceLike, resolve_device
 from ..modules.layers import Conv2d
+from ..parallel import rows
+from ..parallel.fsdp import assign, is_dtensor
 
 
 class BatchNorm(nn.Module):
@@ -42,8 +44,8 @@ class BatchNorm(nn.Module):
         x32 = x.float()
         if train:
             dims = tuple(range(x.ndim - 1))
-            mean = x32.mean(dim=dims)
-            var = (x32.square().mean(dim=dims) - mean.square()).clamp_min(0.0)
+            mean = rows.batch_mean(x32, dims)
+            var = (rows.batch_mean(x32.square(), dims) - mean.square()).clamp_min(0.0)
             with torch.no_grad():
                 self.running_mean.mul_(self.momentum).add_(mean.detach() * (1.0 - self.momentum))
                 self.running_var.mul_(self.momentum).add_(var.detach() * (1.0 - self.momentum))
@@ -57,8 +59,11 @@ class ActNorm(nn.Module):
     """Per-channel affine with a data-dependent init (modules/layers.py:10-86):
     ``loc`` and ``scale`` are set from the first batch it sees to −mean and
     1/(std + 1e-6) over every axis but the channels (JAX's ``init`` on the
-    first batch), then train as parameters. ``initialized`` records that
-    (a loaded state dict counts as initialised). NHWC; a 2-D input is (B, C)."""
+    first batch; the global batch's on a mesh), then train as parameters.
+    ``initialized`` records that (a loaded state dict counts as
+    initialised). NHWC; a 2-D input is (B, C). Inside an FSDP2 forward the
+    init lands on the gathered parameters; ``settle`` (after the backward)
+    writes it into the sharded ones."""
 
     def __init__(self, channels: int, logdet: bool = False, device: DeviceLike = None):
         super().__init__()
@@ -67,6 +72,7 @@ class ActNorm(nn.Module):
         self.loc = nn.Parameter(torch.zeros(channels, device=device))
         self.scale = nn.Parameter(torch.ones(channels, device=device))
         self.register_buffer("initialized", torch.zeros((), dtype=torch.uint8, device=device), persistent=False)
+        self.pending: Optional[tuple] = None  # the init's (loc, scale), until settled
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
@@ -76,9 +82,24 @@ class ActNorm(nn.Module):
     @torch.no_grad()
     def initialize(self, x32: torch.Tensor) -> None:
         dims = tuple(range(x32.ndim - 1))
-        self.loc.copy_(-x32.mean(dim=dims))
-        self.scale.copy_(1.0 / (x32.std(dim=dims, correction=0) + 1e-6))
+        if rows.current() is None:
+            self.loc.copy_(-x32.mean(dim=dims))
+            self.scale.copy_(1.0 / (x32.std(dim=dims, correction=0) + 1e-6))
+        else:  # the global batch's mean and (two-pass) std
+            mean = rows.batch_mean(x32, dims)
+            self.loc.copy_(-mean)
+            self.scale.copy_(1.0 / (rows.batch_mean((x32 - mean).square(), dims).sqrt() + 1e-6))
         self.initialized.fill_(1)
+        self.pending = (self.loc.detach().clone(), self.scale.detach().clone())
+
+    def settle(self) -> None:
+        """Write a pending init into the parameters once they are the sharded
+        (DTensor) ones again: FSDP2 drops the gathered copy the init wrote to.
+        Plain parameters hold it already (the pending copy is then kept)."""
+        if self.pending is not None and is_dtensor(self.loc):
+            assign(self.loc, self.pending[0])
+            assign(self.scale, self.pending[1])
+            self.pending = None
 
     def forward(self, x: torch.Tensor, reverse: bool = False):
         squeeze = x.ndim == 2

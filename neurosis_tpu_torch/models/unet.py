@@ -266,7 +266,7 @@ class UNetModel(nn.Module):
         init_parameters(self, generator if generator is not None else torch.Generator(device).manual_seed(0))
 
     @staticmethod
-    def _apply(layer: nn.Module, h, emb, context, generator):
+    def _run_layer(layer: nn.Module, h, emb, context, generator):
         if isinstance(layer, ResBlock):
             return layer(h, emb, generator)
         if isinstance(layer, SpatialTransformer):
@@ -296,12 +296,12 @@ class UNetModel(nn.Module):
         h = x.to(self.dtype or x.dtype)
         for block in self.input_blocks:
             for layer in block:
-                h = self._apply(layer, h, emb, context, generator)
+                h = self._run_layer(layer, h, emb, context, generator)
             hs.append(h)
         for layer in self.middle_block:
-            h = self._apply(layer, h, emb, context, generator)
+            h = self._run_layer(layer, h, emb, context, generator)
         for block in self.output_blocks:
             h = torch.cat([h, hs.pop()], dim=-1)
             for layer in block:
-                h = self._apply(layer, h, emb, context, generator)
+                h = self._run_layer(layer, h, emb, context, generator)
         return self.out(h.to(x.dtype))

@@ -10,6 +10,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..parallel import rows
+
 
 class DiagonalGaussian(NamedTuple):
     mean: torch.Tensor
@@ -29,7 +31,8 @@ class DiagonalGaussian(NamedTuple):
     def sample(self, generator: Optional[torch.Generator] = None, eps: Optional[torch.Tensor] = None) -> torch.Tensor:
         """mean + std·eps, with ``eps`` given or drawn from ``generator``."""
         if eps is None:
-            eps = torch.randn(self.mean.shape, generator=generator, dtype=self.mean.dtype, device=self.mean.device)
+            eps = rows.draw(torch.randn, self.mean.shape, generator=generator, dtype=self.mean.dtype,
+                            device=self.mean.device)
         return self.mean + self.std * eps.to(self.mean.dtype)
 
     def mode(self) -> torch.Tensor:

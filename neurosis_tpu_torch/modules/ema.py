@@ -1,7 +1,9 @@
 """EMA of the trainable parameters (port of neurosis_tpu/modules/ema.py, LitEma).
 
 The shadow copies are fp32 tensors updated in place after each optimizer
-step (the JAX version returns a new pytree; in place saves a copy).
+step (the JAX version returns a new pytree; in place saves a copy). Shadows
+of parameters that FSDP2 shards are DTensors laid out as their parameters,
+and the update, elementwise, runs on each rank's own part.
 """
 
 from __future__ import annotations
@@ -11,6 +13,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from ..parallel.fsdp import is_dtensor
 
 
 @dataclasses.dataclass
@@ -35,6 +39,8 @@ def ema_update(state: EmaState, params, decay: float = 0.9999) -> EmaState:
         d = np.float32(decay)
     one_minus = float(np.float32(1.0) - np.float32(d))
     for s, p in zip(state.params, params):
+        if is_dtensor(s):
+            s, p = s.to_local(), p.to_local()
         s.sub_((s - p.float()) * one_minus)
     state.num_updates = n
     return state

@@ -27,6 +27,7 @@ import torch
 from torch import nn
 
 from ..._device import DeviceLike
+from ...parallel import rows
 from ...models.text_encoder.clip import CLIPTextTower, OpenCLIPTextTower
 from ..layers import timestep_embedding
 
@@ -207,7 +208,7 @@ class GeneralConditioner(nn.Module):
                     emb = torch.zeros_like(emb)
                 elif rate > 0.0 and tkey is None:
                     keep = next(draws) if draws is not None else \
-                        torch.rand(emb.shape[0], generator=generator, device=emb.device) < 1.0 - rate
+                        rows.draw(torch.rand, (emb.shape[0],), generator=generator, device=emb.device) < 1.0 - rate
                     emb = emb * keep.to(emb.device).reshape((-1,) + (1,) * (emb.ndim - 1)).to(emb.dtype)
                 if out_key in output:
                     output[out_key] = torch.cat([output[out_key], emb], dim=KEY2CATDIM[out_key])

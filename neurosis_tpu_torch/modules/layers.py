@@ -23,6 +23,7 @@ from torch import nn
 from .._device import DeviceLike, resolve_device
 from ..ops.conv3x3 import conv3x3, conv3x3_supported, gn_silu_conv3x3
 from ..ops.groupnorm import group_norm
+from ..parallel import rows
 
 # flax lecun_normal draws a normal truncated at ±2σ, rescaled to keep var 1/fan_in
 _TRUNC_STD = 0.87962566103423978
@@ -115,7 +116,7 @@ def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> 
     deterministic, as JAX's ``deterministic=True``: x itself."""
     if p <= 0.0 or generator is None:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
+    keep = rows.draw(torch.rand, x.shape, generator=generator, device=x.device) < 1.0 - p
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 

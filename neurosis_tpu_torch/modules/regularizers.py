@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .._device import DeviceLike, resolve_device
+from ..parallel import rows
 from .distributions import DiagonalGaussian
 from .layers import Dense, Embed, init_parameters
 
@@ -90,7 +91,7 @@ class VectorQuantizer(nn.Module):
         z_q = z + (z_q - z).detach()
         log = {self.loss_key: loss}
         if self.log_perplexity:
-            probs = F.one_hot(idx, self.n_e).float().mean(dim=0)
+            probs = rows.all_mean(F.one_hot(idx, self.n_e).float().mean(dim=0))
             log["perplexity"] = torch.exp(-(probs * torch.log(probs + 1e-10)).sum())
         log["indices"] = idx.reshape(shape[:-1])
         log["min_encoding_indices"] = log["indices"]  # the reference's key (quantize.py:282)
@@ -128,7 +129,7 @@ class GumbelQuantizer(nn.Module):
             assign = F.one_hot(idx, self.n_e).to(logits.dtype) if self.straight_through else soft
         else:
             if gumbel is None:
-                u = torch.rand(logits.shape, generator=generator, device=logits.device)
+                u = rows.draw(torch.rand, logits.shape, generator=generator, device=logits.device)
                 gumbel = -torch.log(-torch.log(u + 1e-20) + 1e-20)
             soft = torch.softmax((logits + gumbel) / temp, dim=-1)
             idx = soft.argmax(dim=-1)
@@ -171,8 +172,9 @@ class EMAVectorQuantizer(nn.Module):
         if train:
             with torch.no_grad():
                 onehot = F.one_hot(idx, self.n_e).float()
-                stats.cluster_size.copy_(self.decay * stats.cluster_size + (1 - self.decay) * onehot.sum(dim=0))
-                stats.embed_avg.copy_(self.decay * stats.embed_avg + (1 - self.decay) * (onehot.T @ zf.float()))
+                counts, sums = rows.all_sum(onehot.sum(dim=0)), rows.all_sum(onehot.T @ zf.float())
+                stats.cluster_size.copy_(self.decay * stats.cluster_size + (1 - self.decay) * counts)
+                stats.embed_avg.copy_(self.decay * stats.embed_avg + (1 - self.decay) * sums)
                 total = stats.cluster_size.sum()
                 cs = (stats.cluster_size + self.eps) / (total + self.n_e * self.eps) * total
                 stats.weight.copy_(stats.embed_avg / cs[:, None])

@@ -10,6 +10,9 @@ then, as optax chains them, ``beta1`` momentum (an fp32 EMA of the update,
 not debiased) and ``weight_decay`` (the parameter times the rate, added
 after the learning rate, so not scaled by it). Every 2-D or larger parameter is factored over its two largest axes,
 chosen in the JAX layout (HWIO for convolutions) so the factoring matches.
+On a parameter that FSDP2 shards (a DTensor) every op of the update runs
+on DTensors: the row and column means, the update's RMS and the
+parameter's RMS are over the whole leaf, as on one card.
 """
 
 from __future__ import annotations

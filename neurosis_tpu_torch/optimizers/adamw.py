@@ -17,6 +17,11 @@ order of operations, over multi-tensor ``torch._foreach_*`` ops:
 Each param group's ``lr`` is the learning rate, so a schedule
 (``schedulers.attach_schedule``) and a group's ``lr_scale`` apply as to any
 torch optimizer. optax's ``mask`` is not taken (ROADMAP Queue 1 item 8).
+
+Every op is elementwise, so on parameters that FSDP2 shards (DTensors) the
+chains run on each rank's own part of the parameters, grads and moments,
+in place (the moments stay DTensors): the same numbers as on the whole
+leaf, without a DTensor dispatch per op.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ from __future__ import annotations
 from typing import Optional, Union
 
 import torch
+
+from ..parallel.fsdp import is_dtensor
 
 DtypeLike = Union[None, str, torch.dtype]
 
@@ -50,6 +57,11 @@ def _scaled_in_own_dtype(tensors: list, scalar: float) -> list:
     """scalar·t in t's dtype, the scalar first rounded to it (JAX's weak
     typing: 0.9 times a bf16 moment is bf16(0.9) = 0.8984375 times it)."""
     return [t * torch.tensor(scalar, dtype=t.dtype).item() for t in tensors]
+
+
+def _local(tensors: list) -> list:
+    """Each DTensor's own part (a view: in-place ops update the DTensor)."""
+    return [t.to_local() if is_dtensor(t) else t for t in tensors]
 
 
 def _with_grads(group: dict) -> tuple[list, list]:
@@ -93,8 +105,9 @@ class OptaxAdam(torch.optim.Optimizer):
                     st["nu"] = torch.zeros_like(p)
                 st["count"] += 1
             count = self.state[params[0]]["count"]
-            mus = [self.state[p]["mu"] for p in params]
-            nus = [self.state[p]["nu"] for p in params]
+            mus = _local([self.state[p]["mu"] for p in params])
+            nus = _local([self.state[p]["nu"] for p in params])
+            params, grads = _local(params), _local(grads)
             # b1·μ in mu_dtype (optax's weak-typed scalar takes μ's dtype, b1
             # rounded to it), the sum in the grads' dtype, stored back in
             # mu_dtype after the step
@@ -148,12 +161,13 @@ class OptaxSGD(torch.optim.Optimizer):
                 continue
             decay = group["momentum"]
             if decay is None:
-                _apply(params, [g.clone() for g in grads], group["lr"])
+                _apply(_local(params), [g.clone() for g in _local(grads)], group["lr"])
                 continue
             for p in params:
                 if not self.state[p]:
                     self.state[p]["trace"] = torch.zeros_like(p, dtype=group["accumulator_dtype"] or p.dtype)
-            stored = [self.state[p]["trace"] for p in params]
+            stored = _local([self.state[p]["trace"] for p in params])
+            params, grads = _local(params), _local(grads)
             trace = torch._foreach_add(grads, [t.to(g.dtype) for t, g in zip(_scaled_in_own_dtype(stored, decay),
                                                                               grads)])
             updates = torch._foreach_add(grads, torch._foreach_mul(trace, decay)) if group["nesterov"] \

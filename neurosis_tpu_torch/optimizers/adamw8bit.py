@@ -18,6 +18,11 @@ is optax's chain ``scale_by_adam_8bit`` → ``add_decayed_weights`` →
 ``scale_by_learning_rate``: bias correction by the count of updates,
 m̂/(√v̂ + eps), plus weight_decay·p, times −lr. It runs leaf by leaf in
 plain torch, as the JAX version is jnp: no kernel of its own.
+
+A parameter that FSDP2 shards (a DTensor) keeps its state whole
+(``full_layout``): a shard's own flatten would cut other blocks than the
+whole leaf's, and the codes would differ. Its step gathers the gradient and
+the parameter, updates the whole leaf as on one card, and keeps its part.
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..parallel.fsdp import assign, full
 
 SIGNED_DECADES = 7.0
 UNSIGNED_DECADES = 10.0
@@ -84,6 +91,8 @@ class AdamW8bit(torch.optim.Optimizer):
     ``count`` (the updates made) is part of ``state_dict()``, so a resumed
     run keeps its bias correction."""
 
+    full_layout = True  # the state of a sharded parameter is the whole leaf's
+
     def __init__(self, params, learning_rate: float = 1e-3, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                  weight_decay: float = 1e-2, block_size: int = 256, min_8bit_size: int = 4096):
         defaults = dict(lr=learning_rate, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
@@ -130,7 +139,8 @@ class AdamW8bit(torch.optim.Optimizer):
                 state = self.state[p]
                 if not state:
                     self._init_state(p, state)
-                g = p.grad.float()
+                g = full(p.grad).float()
+                whole = full(p)  # p itself unless FSDP2 shards it
                 quantized = "mu_codes" in state
                 perm = getattr(p, "jax_layout", None)
                 if quantized:
@@ -146,8 +156,10 @@ class AdamW8bit(torch.optim.Optimizer):
                 nu.mul_(b2).add_(g.square().mul_(1.0 - b2))
                 update = (mu / c1).div_((nu / c2).sqrt_().add_(group["eps"]))
                 if group["weight_decay"]:
-                    update.add_(p.float() * group["weight_decay"])
-                p.add_(update.mul_(-group["lr"]).to(p.dtype))
+                    update.add_(whole.float() * group["weight_decay"])
+                whole.add_(update.mul_(-group["lr"]).to(p.dtype))
+                if whole is not p:
+                    assign(p, whole)
                 if quantized:
                     if perm is not None:
                         mu, nu = mu.permute(perm), nu.permute(perm)

@@ -16,7 +16,9 @@ of the last and of the second-to-last axis. The axes are those of the leaf
 in the JAX package's layout (a parameter's ``jax_layout``, set by the
 port's Dense and Conv2d: JAX's kernels are (in, out) and HWIO), so the rows
 and columns are JAX's and not those of torch's OIHW. Plain torch, leaf by
-leaf, as the JAX version is jnp.
+leaf, as the JAX version is jnp. On a parameter that FSDP2 shards (a
+DTensor) every op runs on DTensors, so the means and the RMS are over the
+whole leaf.
 """
 
 from __future__ import annotations
@@ -68,16 +70,16 @@ class CAME(torch.optim.Optimizer):
                 g = _jax_view(p.grad, perm).float()
                 factored = g.ndim >= 2
                 st = self.state[p]
-                if not st:
+                g2 = g.square() + eps1
+                if not st:  # zeros_like of a reduction: a DTensor's state keeps its mesh
                     st["m"] = torch.zeros_like(g)
                     if factored:
                         for name in ("v_row", "r_row"):
-                            st[name] = torch.zeros(g.shape[:-1], device=g.device)
+                            st[name] = torch.zeros_like(g2.mean(dim=-1))
                         for name in ("v_col", "r_col"):
-                            st[name] = torch.zeros(g.shape[:-2] + g.shape[-1:], device=g.device)
+                            st[name] = torch.zeros_like(g2.mean(dim=-2))
                     else:
                         st["v_row"], st["r_row"] = torch.zeros_like(g), torch.zeros_like(g)
-                g2 = g.square() + eps1
                 if factored:
                     st["v_row"].mul_(b2).add_(g2.mean(dim=-1) * (1 - b2))
                     st["v_col"].mul_(b2).add_(g2.mean(dim=-2) * (1 - b2))

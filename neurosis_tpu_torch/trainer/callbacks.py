@@ -9,6 +9,12 @@ JAX's ``_state_payload`` (``params``, ``step``, ``opt_state``, ``ema_params``,
 ``ema_num_updates``) readable with ``torch.load(weights_only=True)``.
 ``load_checkpoint`` reads one back into an engine's state.
 
+On a mesh (``trainer.mesh``) every rank takes part in what is a collective
+(gathering a sharded state, a sampling run through the wrapped UNet), and
+one rank writes: global rank 0 the checkpoint, between two barriers, in the
+one-card layout, so a checkpoint of N ranks resumes on 1 and one of 1 rank
+on N; local rank 0 of each node the images, as JAX's process does.
+
 Hooks: on_fit_start(trainer, state), on_train_batch_end(trainer, state,
 batch, metrics, step), on_fit_end(trainer, state).
 """
@@ -25,6 +31,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+
+from ..parallel.fsdp import assign, full, full_state, shard_optimizer_state
 
 logger = logging.getLogger(__name__)
 
@@ -191,9 +199,14 @@ class ImageLogger:
         from ..data.png import write_png
         from ..utils.image import save_image_grid, to_uint8
 
+        mesh = getattr(trainer, "mesh", None)
+        if mesh is not None and not mesh.is_node_writer:
+            return
         out_dir = Path(trainer.root_dir) / "images" / self.split
         out_dir.mkdir(parents=True, exist_ok=True)
         fstem = f"gs{step:06d}_e{getattr(trainer, 'epoch', 0):04d}_b{getattr(trainer, 'batch_idx', 0):06d}"
+        if mesh is not None and mesh.dist.env.node:
+            fstem += f"_r{mesh.dist.env.node}"  # node k writes what JAX's process k writes (log_local:187-189)
         wandb_dict: dict = {}
         table_dict: dict = {}
         for key, arr in images.items():
@@ -274,13 +287,14 @@ def state_payload(engine, state) -> dict:
     diffusion engine's; JAX's VAETrainState keeps ``g_opt_state``, which its
     payload does not save, so the VAE trainer's optimizers are not saved
     either), the EMA shadows with their update count, and an EMA codebook's
-    statistics (``reg_stats``)."""
+    statistics (``reg_stats``). Sharded tensors are gathered whole (every
+    rank calls it)."""
     payload = {"format": CHECKPOINT_FORMAT, "step": int(state.step),
-               "params": {n: p.detach() for n, p in _named_params(engine)}}
+               "params": {n: full(p.detach()) for n, p in _named_params(engine)}}
     if getattr(state, "optimizer", None) is not None:
-        payload["opt_state"] = state.optimizer.state_dict()
+        payload["opt_state"] = full_state(state.optimizer.state_dict())
     if getattr(state, "ema", None) is not None:
-        payload["ema_params"] = dict(zip(_ema_names(engine), state.ema.params))
+        payload["ema_params"] = dict(zip(_ema_names(engine), [full(s) for s in state.ema.params]))
         payload["ema_num_updates"] = int(state.ema.num_updates)
     if getattr(state, "reg_stats", None):
         payload["reg_stats"] = {n: t.detach() for n, t in state.reg_stats.items()}
@@ -288,8 +302,8 @@ def state_payload(engine, state) -> dict:
 
 
 def _load_tensors(dst: list, src: dict, what: str) -> None:
-    """Copy ``src`` ({name: tensor}) into the (name, tensor) pairs of ``dst``;
-    names and shapes must agree."""
+    """Copy ``src`` ({name: tensor}) into the (name, tensor) pairs of ``dst``
+    (a sharded one takes its part); names and shapes must agree."""
     names = [n for n, _ in dst]
     if sorted(names) != sorted(src):
         missing, extra = sorted(set(names) - set(src)), sorted(set(src) - set(names))
@@ -299,7 +313,7 @@ def _load_tensors(dst: list, src: dict, what: str) -> None:
         for n, t in dst:
             if tuple(src[n].shape) != tuple(t.shape):
                 raise ValueError(f"checkpoint {what} {n} has shape {tuple(src[n].shape)}, not {tuple(t.shape)}")
-            t.copy_(src[n])
+            assign(t, src[n])
 
 
 def load_state_payload(engine, state, payload: dict):
@@ -311,7 +325,7 @@ def load_state_payload(engine, state, payload: dict):
     _load_tensors(_named_params(engine), payload["params"], "parameters")
     state.step = int(payload["step"])
     if "opt_state" in payload and getattr(state, "optimizer", None) is not None:
-        state.optimizer.load_state_dict(payload["opt_state"])
+        state.optimizer.load_state_dict(shard_optimizer_state(state.optimizer, payload["opt_state"]))
     if "ema_params" in payload and getattr(state, "ema", None) is not None:
         _load_tensors(list(zip(_ema_names(engine), state.ema.params)), payload["ema_params"], "EMA shadows")
         state.ema.num_updates = int(payload["ema_num_updates"])
@@ -374,19 +388,27 @@ class CheckpointCallback:
 
     def save(self, trainer, state, step: int) -> Path:
         t0 = time.perf_counter()
+        mesh = getattr(trainer, "mesh", None)
         root = self.root(trainer)
-        root.mkdir(parents=True, exist_ok=True)
         tmp, final = root / f"{step}.tmp", root / str(step)
-        shutil.rmtree(tmp, ignore_errors=True)
-        tmp.mkdir()
-        with open(tmp / STATE_FILE, "wb") as f:
-            torch.save(state_payload(trainer.engine, state), f)
-            f.flush()
-            os.fsync(f.fileno())
-        shutil.rmtree(final, ignore_errors=True)
-        os.rename(tmp, final)
-        for old in checkpoint_steps(root)[:-self.keep]:
-            shutil.rmtree(root / str(old))
+        if mesh is not None:
+            mesh.barrier()
+        payload = state_payload(trainer.engine, state)
+        if mesh is None or mesh.is_writer:
+            root.mkdir(parents=True, exist_ok=True)
+            shutil.rmtree(tmp, ignore_errors=True)
+            tmp.mkdir()
+            with open(tmp / STATE_FILE, "wb") as f:
+                torch.save(payload, f)
+                f.flush()
+                os.fsync(f.fileno())
+            shutil.rmtree(final, ignore_errors=True)
+            os.rename(tmp, final)
+            for old in checkpoint_steps(root)[:-self.keep]:
+                shutil.rmtree(root / str(old))
+        del payload
+        if mesh is not None:
+            mesh.barrier()
         self.last_save_s = time.perf_counter() - t0
         logger.info(f"saved checkpoint at step {step} to {final} in {self.last_save_s:.1f} s")
         return final

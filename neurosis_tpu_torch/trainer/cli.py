@@ -19,10 +19,17 @@ latest step. ``data.init_args.num_workers`` (default 2) batches load ahead
 in spawned worker processes (``prefetch_mode`` or ``NEUROSIS_PREFETCH``:
 ``process`` or ``thread``; 0 loads them in this process).
 
+``fit``, ``validate`` and ``test`` train on a (data, fsdp) mesh of one
+process a card (``tools/launch_pod.py`` under ``torchrun``, SLURM or the
+``NEUROSIS_*`` environment): ``trainer.devices``, ``strategy`` and ``fsdp``
+give its shape as JAX's ``_mesh_args`` does (cli.py:78-95), the world must
+hold exactly the devices asked for, and ``strategy: ddp|fsdp`` wraps the
+model even on one card. ``predict`` runs on one.
+
 Config nodes the port cannot honour yet raise ``NotImplementedError`` naming
 their ROADMAP Queue 1 item, never pass in silence: ``trainer.profiler:``
-(11), a remote checkpoint ``dirpath`` (11), more than one device,
-``strategy: fsdp`` or ``context_parallel`` (10).
+(11), a remote checkpoint ``dirpath`` (11), ``context_parallel`` > 1 (10,
+ring attention).
 """
 
 from __future__ import annotations
@@ -89,14 +96,49 @@ def _refuse_unported(cfg: dict, trainer_cfg: dict) -> None:
     if trainer_cfg.get("profiler"):
         raise NotImplementedError("trainer.profiler: (NeurosisProfiler on torch.profiler) is not ported yet: "
                                   "ROADMAP Queue 1 item 11")
+    context = int(trainer_cfg.get("context_parallel", 1) or 1)
+    if context > 1:
+        from ..parallel.mesh import RING_ITEM
+
+        raise NotImplementedError(f"context_parallel={context}: sequence parallelism is {RING_ITEM}")
+
+
+def _mesh_args(trainer_cfg: dict, world_size: int):
+    """Lightning trainer.devices/strategy → (devices, fsdp, context) mesh
+    axes, as JAX's (cli.py:78-95) with the world's ranks for its devices:
+    ``strategy: auto|ddp`` = data-parallel over all devices; ``strategy:
+    fsdp`` also shards parameters and optimizer state (the fsdp axis = all
+    devices unless ``fsdp:`` gives its size); ``context_parallel: N`` is a
+    ring-attention axis."""
     devices = trainer_cfg.get("devices")
     strategy = str(trainer_cfg.get("strategy", "") or "")
     fsdp = int(trainer_cfg.get("fsdp", 0) or 0)
     context = int(trainer_cfg.get("context_parallel", 1) or 1)
-    if devices not in (None, "auto", 1, "1") or strategy == "fsdp" or fsdp > 1 or context > 1:
-        raise NotImplementedError(f"devices={devices!r}, strategy={strategy!r}, fsdp={fsdp}, "
-                                  f"context_parallel={context}: the port trains on one card; more is ROADMAP "
-                                  "Queue 1 item 10")
+    if (strategy in ("auto", "ddp", "fsdp") or context > 1) and devices is None:
+        devices = "auto"
+    if strategy == "fsdp" and fsdp == 0:
+        n = world_size if devices in ("auto", -1, None) else int(devices)
+        fsdp = max(n // context, 1)
+    return devices, max(fsdp, 1), context
+
+
+def _mesh(trainer_cfg: dict, device: str):
+    """The run's mesh, None for the one-card path (one process, no
+    ``strategy: ddp|fsdp``). The world must hold the devices the config
+    asks for: it never trains on fewer."""
+    from ..parallel.mesh import dist_env, init_distributed, make_mesh
+
+    env = dist_env()
+    devices, fsdp, context = _mesh_args(trainer_cfg, env.world_size)
+    asked = env.world_size if devices in (None, "auto", -1, "-1") else int(devices)
+    if asked != env.world_size:
+        raise ValueError(f"trainer.devices asks for {asked} devices and the world has {env.world_size} "
+                         f"(WORLD_SIZE={env.world_size}): launch {asked} processes, one a card (torchrun "
+                         f"--nproc-per-node {asked} -m neurosis_tpu_torch.tools.launch_pod ...), or set devices")
+    strategy = str(trainer_cfg.get("strategy", "") or "")
+    if env.world_size == 1 and strategy not in ("ddp", "fsdp") and fsdp == 1:
+        return None
+    return make_mesh(init_distributed(device, env), None, fsdp, context)
 
 
 def _image_logger(node: dict):
@@ -154,10 +196,17 @@ def _build(args):
     from .builder import build_engine
     from .loop import Trainer
 
-    device = resolve_device(args.device)
     cfg = load_config(args.config)
     trainer_cfg = cfg.get("trainer", {}) or {}
     _refuse_unported(cfg, trainer_cfg)
+    predict = getattr(args, "command", None) == "predict"
+    mesh = None if predict else _mesh(trainer_cfg, args.device)
+    if predict:
+        from ..parallel.mesh import dist_env
+
+        if dist_env().world_size > 1:
+            raise ValueError("predict runs in one process on one card")
+    device = mesh.dist.device if mesh is not None else resolve_device(args.device)
     seed = cfg.get("seed_everything", 42)
 
     engine = build_engine(cfg["model"], precision=trainer_cfg.get("precision"), device=device,
@@ -190,25 +239,36 @@ def _build(args):
         callbacks=callbacks,
         wandb_config=_wandb_config(trainer_cfg),
         allow_random_weights=trainer_cfg.get("allow_random_weights", False),
+        mesh=mesh,
     )
     return cfg, engine, dataset, trainer
 
 
-def _batch_factory(cfg: dict, dataset):
+def _batch_factory(cfg: dict, dataset, mesh=None):
     """Dataset → per-epoch batch iterable (cli.py:220-252): index batches
-    from ``get_batch_iterator()``, loaded by ``data.init_args.num_workers``
-    (default 2) prefetch workers, or in this process for 0."""
+    from ``get_batch_iterator()`` (this node's, rank-strided, when the mesh
+    spans nodes: ``shard_batches_for_host``), loaded by
+    ``data.init_args.num_workers`` (default 2) prefetch workers, or in this
+    process for 0. Every rank of a node loads the node's whole batches."""
     from ..data.prefetch import get_batch, make_prefetcher, seeded_batches
 
     init_args = (cfg.get("data") or {}).get("init_args") or {}
     num_workers = int(init_args.get("num_workers", 2) or 0)
     mode = os.environ.get("NEUROSIS_PREFETCH") or init_args.get("prefetch_mode", "process")
 
+    def index_batches():
+        if mesh is not None and mesh.dist.env.nodes > 1:
+            from ..data.sampler import shard_batches_for_host
+
+            return iter(shard_batches_for_host(dataset, mesh.dist.env.nodes, mesh.dist.env.node,
+                                               seed=cfg.get("seed_everything", 42)))
+        return dataset.get_batch_iterator()
+
     def batches():
         if num_workers > 0:
-            yield from make_prefetcher(mode)(dataset, dataset.get_batch_iterator(), num_workers=num_workers)
+            yield from make_prefetcher(mode)(dataset, index_batches(), num_workers=num_workers)
         else:
-            for indices, seed in seeded_batches(dataset, dataset.get_batch_iterator()):
+            for indices, seed in seeded_batches(dataset, index_batches()):
                 yield get_batch(dataset, indices, seed)
 
     return batches
@@ -218,7 +278,7 @@ def run_fit(args) -> int:
     cfg, engine, dataset, trainer = _build(args)
     if dataset is None:
         raise ValueError("fit requires a `data:` node in the config")
-    state = trainer.fit(_batch_factory(cfg, dataset))
+    state = trainer.fit(_batch_factory(cfg, dataset, trainer.mesh))
     logger.info(f"fit complete at step {int(state.step)}")
     return 0
 
@@ -234,7 +294,7 @@ def run_eval(args, split: str) -> int:
         dataset = instantiate(cfg["data_test"])
     if dataset is None:
         raise ValueError(f"{'validate' if split == 'val' else 'test'} requires a `data:` node in the config")
-    metrics = trainer.validate(_batch_factory(cfg, dataset), max_batches=args.max_batches)
+    metrics = trainer.validate(_batch_factory(cfg, dataset, trainer.mesh), max_batches=args.max_batches)
     logger.info(f"{split}: " + ", ".join(f"{k}={v:.5f}" for k, v in metrics.items()))
     print(json.dumps({f"{split}/{k}": v for k, v in metrics.items()}))
     return 0

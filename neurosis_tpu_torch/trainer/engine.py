@@ -44,6 +44,8 @@ from ..modules.distributions import DiagonalGaussian
 from ..modules.ema import ema_init, ema_swapped_in, ema_update
 from ..modules.encoders.embedding import GeneralConditioner
 from ..ops.dequant import dequant_image
+from ..parallel import rows
+from ..parallel.fsdp import resharded
 from .state import TrainState, global_norm
 
 
@@ -153,7 +155,7 @@ class DiffusionEngine:
         loss = per_sample.mean()
         metrics = {"loss": loss.detach()}
         if self.log_sigmas:
-            d = per_sample.detach()
+            d = rows.gather(per_sample.detach())
             metrics.update(loss_s0=d[0], loss_smax=d.max(), loss_smin=d.min())
         return loss, metrics
 
@@ -180,10 +182,12 @@ class DiffusionEngine:
         state.step += 1
         return state, dict(metrics, grad_norm=grad_norm)
 
+    @contextlib.contextmanager
     def ema_scope(self, state: TrainState):
         """The trainable parameters hold the EMA shadows inside the block
-        (models/diffusion.py:247-257)."""
-        return ema_swapped_in(state.ema, self.trainable_parameters())
+        (models/diffusion.py:247-257); wrapped ones sharded around the swap."""
+        with resharded(self), ema_swapped_in(state.ema, self.trainable_parameters()):
+            yield
 
     def eval_scope(self, state: TrainState):
         """The weights sampling and plotting use: the EMA shadows when the
@@ -249,8 +253,9 @@ class DiffusionEngine:
             latents = batch[self.latents_key]
         else:
             latents = self.encode_first_stage(batch[self.input_key], state.generator)
-        t = torch.rand(latents.shape[0], generator=state.generator, device=latents.device)
-        noise = torch.randn(latents.shape, generator=state.generator, device=latents.device, dtype=latents.dtype)
+        t = rows.draw(torch.rand, latents.shape[:1], generator=state.generator, device=latents.device)
+        noise = rows.draw(torch.randn, latents.shape, generator=state.generator, device=latents.device,
+                          dtype=latents.dtype)
         offset = self.loss_fn.draw_offset(latents, state.generator)
         _, metrics = self.loss(batch, latents, t=t, noise=noise, offset=offset)
         if self.use_ema and state.ema is not None:

@@ -1,5 +1,5 @@
 """The training loop (port of neurosis_tpu/trainer/loop.py): Lightning
-Trainer's role on one CUDA card.
+Trainer's role on one CUDA card, or on each card of a mesh.
 
 Drives: data (bucket batches, loaded in this process) → tokenize → the
 batch to the device → ``engine.train_step`` (or the VAE-GAN trainer's
@@ -23,7 +23,14 @@ port's format, ``callbacks.CheckpointCallback``): parameters, optimizer
 state (with the schedule's count), EMA and step. The random generator
 restarts from the seed, as in the JAX package, which saves no rng. A
 checkpoint that cannot be read raises rather than start fresh beside it.
-The CLI refuses more than one device (ROADMAP Queue 1 item 10).
+
+With a ``mesh`` (``parallel/mesh.py``) each process drives one rank: the
+engine's trainable modules are wrapped with FSDP2 before its state is
+built (``parallel/fsdp.py``), each host batch (a node's, the hooks run on
+all of it) is cut to this rank's rows (``mesh.shard``) and the step runs
+under ``rows.sliced``, so its draws and batch statistics are the global
+batch's; the step's metrics are averaged over the ranks of the other rows.
+Global rank 0 writes the metrics file; a crash dump is gathered first.
 """
 
 from __future__ import annotations
@@ -40,6 +47,8 @@ from typing import Any, Callable, Iterable, Optional, Sequence
 import numpy as np
 import torch
 
+from ..parallel import rows as rows_
+from ..parallel.fsdp import full, reshard, wrap_engine
 from .callbacks import STATE_FILE, checkpoint_steps, engine_modules, load_checkpoint, load_state_payload
 
 logger = logging.getLogger(__name__)
@@ -124,6 +133,15 @@ class JsonlLogger:
             self.wandb.log(record, step=step)
 
 
+class NullLogger:
+    """The logger of a rank that writes no logs."""
+
+    wandb = None
+
+    def log(self, metrics: dict, step: int):
+        pass
+
+
 def _to_device(value: np.ndarray, device: torch.device) -> torch.Tensor:
     """uint8 images stay uint8, other integers become int64 (token ids),
     floats float32."""
@@ -151,8 +169,11 @@ class Trainer:
         token_max_length: int = 77,
         wandb_config: Optional[dict] = None,
         allow_random_weights: bool = False,
+        mesh=None,
     ):
         self.engine = engine
+        self.mesh = mesh  # parallel.mesh.Mesh: wrap the engine and run this rank's rows
+        self._wrapped = False
         self.device = engine.device
         self.max_steps = 1 if fast_dev_run else max_steps
         self.max_epochs = 1 if fast_dev_run else max_epochs
@@ -164,7 +185,8 @@ class Trainer:
         self.tokenizer = tokenizer or (get_tokenizer(max_length=token_max_length, allow_fallback=fast_dev_run)
                                        if hasattr(engine, "conditioner") else None)
         self.caption_key = caption_key
-        self.logger = JsonlLogger(self.root_dir / "logs", wandb_config=wandb_config)
+        self.logger = JsonlLogger(self.root_dir / "logs", wandb_config=wandb_config) \
+            if mesh is None or mesh.is_writer else NullLogger()
         # validate on never-loaded params is meaningless; require an explicit
         # opt-in (fast_dev_run implies it)
         self.allow_random_weights = allow_random_weights or fast_dev_run
@@ -187,6 +209,13 @@ class Trainer:
         [B, chunks, 77] when an embedder takes extended prompts and the
         tokenizer can chunk, plus the empty prompt's as ``uncond_ids``),
         numeric fields as tensors, strings dropped."""
+        return self._to_device(self._host_arrays(batch))
+
+    def _to_device(self, arrays: dict) -> dict:
+        return {k: _to_device(v, self.device) for k, v in arrays.items()}
+
+    def _host_arrays(self, batch: dict) -> dict:
+        """``prepare_batch``'s arrays, on the host."""
         out = {}
         chunks = self._caption_chunks()
         for k, v in batch.items():
@@ -201,7 +230,7 @@ class Trainer:
                 out[k] = np.asarray(v)
         if f"{self.caption_key}_ids" in out and "uncond_ids" not in out:
             out["uncond_ids"] = self.tokenizer([""])
-        return {k: _to_device(v, self.device) for k, v in out.items()}
+        return out
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -209,7 +238,10 @@ class Trainer:
 
     def _start(self, what: str):
         """The engine's state, the checkpoint loaded into it, then the run's
-        latest saved state over both."""
+        latest saved state over both; on a mesh the engine is wrapped first."""
+        if self.mesh is not None and not self._wrapped:
+            wrap_engine(self.engine, self.mesh)
+            self._wrapped = True
         state = self.engine.init(self.seed)
         if getattr(self.engine, "ckpt_path", None):
             self._load_ckpt(state)
@@ -220,10 +252,11 @@ class Trainer:
 
     @contextlib.contextmanager
     def _batches(self, batch_iter_factory, hooks: Sequence[Any] = ()):
-        """(prepared batch, host batch, data ms) of each batch of one epoch,
-        each host batch through the ``pre_hook`` of ``hooks`` first; the
-        epoch's iterator is closed on leaving, which stops its prefetch
-        workers."""
+        """(prepared batch, host batch, data ms, rows) of each batch of one
+        epoch, each host batch through the ``pre_hook`` of ``hooks`` first,
+        then cut to this rank's rows on a mesh (``rows`` None: the whole
+        batch); the epoch's iterator is closed on leaving, which stops its
+        prefetch workers."""
         it = iter(batch_iter_factory())
 
         def gen():
@@ -236,8 +269,10 @@ class Trainer:
                 for hook in hooks:
                     batch = hook.pre_hook(self, self.engine, batch, batch_idx)
                 batch_idx += 1
-                prepped = self.prepare_batch(batch)
-                yield prepped, batch, (time.perf_counter() - t0) * 1e3
+                arrays, rows = self._host_arrays(batch), None
+                if self.mesh is not None:
+                    arrays, rows = self.mesh.shard(arrays)
+                yield self._to_device(arrays), batch, (time.perf_counter() - t0) * 1e3, rows
 
         try:
             yield gen()
@@ -245,12 +280,26 @@ class Trainer:
             if hasattr(it, "close"):
                 it.close()
 
-    def _step(self, fn, state, prepped) -> tuple[Any, dict]:
+    def _run(self, fn, state, prepped, rows) -> tuple[Any, dict]:
+        """``fn(state, prepped)`` on ``rows`` of the global batch, its
+        metrics (0-d tensors) averaged over the ranks of the other rows;
+        a wrapped engine's parameters sharded first."""
+        reshard(self.engine)
+        with rows_.sliced(rows):
+            state, metrics = fn(state, prepped)
+            if rows is not None and metrics:
+                keys = list(metrics)
+                values = torch.stack([torch.as_tensor(metrics[k], dtype=torch.float32, device=self.device)
+                                      .reshape(()) for k in keys])
+                metrics = dict(zip(keys, rows_.all_mean(values)))
+        return state, metrics
+
+    def _step(self, fn, state, prepped, rows=None) -> tuple[Any, dict]:
         """One step inside the profiler span, synced, with its host ms."""
         self._sync()
         t0 = time.perf_counter()
         with torch.profiler.record_function(STEP_SPAN):
-            state, metrics = fn(state, prepped)
+            state, metrics = self._run(fn, state, prepped, rows)
             self._sync()
         step_ms = (time.perf_counter() - t0) * 1e3
         metrics = {k: float(v) for k, v in metrics.items()}
@@ -271,7 +320,7 @@ class Trainer:
                 batch_idx = 0
                 hooks = getattr(self.engine, "loss_hooks", ())
                 with self._batches(batch_iter_factory, hooks) as batches:
-                    for prepped, batch, data_ms in batches:
+                    for prepped, batch, data_ms, rows in batches:
                         if state is None:
                             state = self._start("fit")
                             for cb in self.callbacks:
@@ -283,7 +332,7 @@ class Trainer:
                             fn = self.engine.d_step if use_d else self.engine.g_step
                         else:
                             fn = self.engine.train_step
-                        state, metrics = self._step(fn, state, prepped)
+                        state, metrics = self._step(fn, state, prepped, rows)
                         metrics["data_ms"] = data_ms
                         loss = metrics.get("loss")
                         for hook in hooks:
@@ -315,12 +364,12 @@ class Trainer:
         sums: dict = {}
         n = 0
         with self._batches(batch_iter_factory) as batches:
-            for prepped, _, _ in batches:
+            for prepped, _, _, rows in batches:
                 if max_batches is not None and n >= max_batches:
                     break
                 if state is None:
                     state = self._start("validate")
-                state, metrics = self.engine.eval_step(state, prepped)
+                state, metrics = self._run(self.engine.eval_step, state, prepped, rows)
                 for k, v in metrics.items():
                     sums[k] = sums.get(k, 0.0) + float(v)
                 n += 1
@@ -406,13 +455,17 @@ class Trainer:
         return state
 
     def _crash_dump(self, state):
+        """The trainable parameters at the failed step, gathered on every
+        rank (a rank whose peers are gone fails here too), written by rank 0."""
         try:
             path = self.root_dir / f"last_exception.s{int(state.step)}.pt"
-            path.parent.mkdir(parents=True, exist_ok=True)
             params = {}
             for top, module in engine_modules(self.engine).items():
-                params.update({f"{top}.{n}": p.detach().cpu() for n, p in module.named_parameters()
+                params.update({f"{top}.{n}": full(p.detach()).cpu() for n, p in module.named_parameters()
                                if p.requires_grad})
+            if self.mesh is not None and not self.mesh.is_writer:
+                return
+            path.parent.mkdir(parents=True, exist_ok=True)
             torch.save({"step": int(state.step), "params": params}, path)
             logger.error(f"crash dump saved to {path}")
         except Exception:  # pragma: no cover

@@ -12,6 +12,7 @@ from typing import Optional
 import torch
 
 from ..modules.ema import EmaState
+from ..parallel.fsdp import is_dtensor
 
 
 @dataclasses.dataclass
@@ -33,8 +34,23 @@ class VAETrainState:
 
 
 def global_norm(tensors) -> torch.Tensor:
-    """L2 norm over all tensors, in fp32."""
+    """L2 norm over all tensors, in fp32. DTensors (sharded gradients) add
+    their local sums of squares, summed over the mesh dims they are sharded
+    on in one all-reduce a mesh: the whole tensors' norm."""
+    import torch.distributed as dist
+
     total = torch.zeros((), dtype=torch.float32, device=tensors[0].device)
+    sharded: dict = {}
     for t in tensors:
-        total = total + t.float().square().sum()
+        if is_dtensor(t):
+            key = (id(t.device_mesh), tuple(i for i, p in enumerate(t.placements) if p.is_shard()))
+            mesh, acc = sharded.get(key, (t.device_mesh, None))
+            s = t.to_local().float().square().sum()
+            sharded[key] = (mesh, s if acc is None else acc + s)
+        else:
+            total = total + t.float().square().sum()
+    for (_, dims), (mesh, acc) in sharded.items():
+        for d in dims:
+            dist.all_reduce(acc, group=mesh.get_group(d))
+        total = total + acc
     return total.sqrt()

@@ -43,12 +43,23 @@ from ..losses.discriminator_loss import adaptive_disc_weight
 from ..modules.distributions import DiagonalGaussian
 from ..modules.ema import ema_init, ema_swapped_in, ema_update
 from ..ops.dequant import dequant_image
+from ..parallel import rows
+from ..parallel.fsdp import resharded
 from .state import VAETrainState
 
 
 def _zero_grads(params) -> None:
     for p in params:
         p.grad = None
+
+
+def _settle_actnorm(module: Optional[nn.Module]) -> None:
+    """A first-batch ActNorm init made in an FSDP2 forward, into its sharded parameters."""
+    from ..losses.patchgan import ActNorm
+
+    for m in module.modules() if module is not None else ():
+        if isinstance(m, ActNorm):
+            m.settle()
 
 
 def _takes(fn, name: str) -> bool:
@@ -169,7 +180,9 @@ class AutoencodingEngine:
         w = self.decoder.conv_out.weight
         (nll_grad,) = torch.autograd.grad(self.loss.nll_scalar(x, recons), w, retain_graph=True)
         (g_grad,) = torch.autograd.grad(self.loss.g_scalar(recons), w, retain_graph=True)
-        return adaptive_disc_weight(nll_grad, g_grad, getattr(self.loss, "disc_weight", 1.0))
+        # the global batch's grads: each rank's is that of its rows' mean
+        return adaptive_disc_weight(rows.all_mean(nll_grad), rows.all_mean(g_grad),
+                                    getattr(self.loss, "disc_weight", 1.0))
 
     def g_step(self, state: VAETrainState, batch: dict, posterior_noise: Optional[torch.Tensor] = None):
         """Generator (autoencoder) update, optimizer_idx 0. Returns
@@ -189,6 +202,7 @@ class AutoencodingEngine:
         try:
             _, recons, reg_log = self.forward(x, state.generator, posterior_noise, train=True)
             extra = {"d_weight": self._adaptive_weight(x, recons)} if adaptive else {}
+            _settle_actnorm(discr)  # the weight's grads reshard a wrapped discriminator
             takes_reg = self._loss_takes_reg()
             if takes_reg:
                 extra["regularization_log"] = reg_log
@@ -206,6 +220,7 @@ class AutoencodingEngine:
                     total = total + q
                     log = dict(log, **{f"train/{key}": q.detach()})
             total.backward()
+            _settle_actnorm(discr)
         finally:
             if discr is not None:
                 discr.requires_grad_(True)
@@ -229,16 +244,21 @@ class AutoencodingEngine:
         _zero_grads(params)
         d_loss, log = self.loss(x, recons, state.step, optimizer_idx=1)
         d_loss.backward()
+        _settle_actnorm(self.discriminator)
         state.d_optimizer.step()
         state.step += 1
         return state, dict(log, total=d_loss.detach())
 
+    @contextlib.contextmanager
     def ema_scope(self, state: VAETrainState):
         """The generator's parameters hold the EMA shadows inside the block
-        (autoencoder.py:264-277; JAX's ``eval_params``)."""
+        (autoencoder.py:264-277; JAX's ``eval_params``); wrapped ones sharded
+        around the swap."""
         if state.ema is None:
-            return contextlib.nullcontext()
-        return ema_swapped_in(state.ema, self.g_parameters())
+            yield
+            return
+        with resharded(self), ema_swapped_in(state.ema, self.g_parameters()):
+            yield
 
     @torch.no_grad()
     def eval_step(self, state: VAETrainState, batch: dict, posterior_noise: Optional[torch.Tensor] = None):

@@ -37,7 +37,9 @@ def test_imports_no_jax_in_a_fresh_process():
     mods = out.stdout.split()
     assert len(mods) >= 45  # every module of the package was imported
     assert {f"neurosis_tpu_torch.{m}" for m in ("modules.regularizers", "losses.discriminator_loss", "optimizers.came",
-                                                "optimizers.adamw", "models.vae", "trainer.vae_engine")} <= set(mods)
+                                                "optimizers.adamw", "models.vae", "trainer.vae_engine",
+                                                "parallel.mesh", "parallel.fsdp", "parallel.rows", "data.sampler",
+                                                "tools.launch_pod")} <= set(mods)
 
 
 def test_sources_call_no_library_kernel():
@@ -391,6 +393,7 @@ def test_every_flash_row_of_the_configs_reaches_a_kernel(kernel_stub, monkeypatc
     ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc_tilesize128x128x64", "library conv"),
     ("sm90_xmma_dgrad_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc", "library conv"),
     ("nvjet_tst_128x256_64x4_1x2_h_bz_coopA_NTN", "library matmul"),
+    ("ncclDevKernel_ReduceScatter_Sum_f32_RING_LL(ncclDevKernelArgsStorage<4096ul>)", "collectives (NCCL)"),
 ])
 def test_profile_books_kernels_by_name(name, kind):
     """chip_smoke's profiles book the port's conv and flash kernels as the
