@@ -386,6 +386,15 @@ VQ_DIR = CLI_DIR / "data" / "vq" / "folder"
 VQ_SIZES = [(256 + 16 * (i % 4), 256 + 16 * (i // 4)) for i in range(VQ_IMAGES)]  # (width, height), >= 256
 VAE_CLI_PATHS = ("cli_vae", "cli_vq_f32", "cli_vq_bf16", "cli_vae_ddp")
 
+# phase 18: SDXL's level-1 self-attention at batch 2 (1024 px), split over a ring of n slices on one
+# card; each ring runs n x n flash blocks (q of S/n rows against kv of S/n rows) forward and backward
+RING_SHAPE = (2, 10, 4096, 64)
+RING_SIZES = (2, 4)
+RING_FLASH_SHAPES = {(2, 10, 4096 // n, 4096 // n, 64): (n * n, n * n) for n in RING_SIZES}
+# FrozenCLIPT5Encoder at its defaults: CLIP-L and T5 v1.1-XL (d_model 2048, 24 layers, 32 heads, d_ff 5120)
+CLIP_T5_PROMPTS = ("a photograph of an astronaut riding a horse", "a red fox in fresh snow, soft light")
+CLIP_T5_TOL = {"fp32": 1e-3, "bf16": 2e-2}  # PERF.md section 2's card-vs-CPU gates
+
 # path -> (its key in the report, the unit its launch tables count)
 PATHS = {"sd15": ("slice", "SD1.5 train step"),
          "sd15_f32": ("sd15_f32", "SD1.5 train step, fp32 UNet (sd15.example.yaml as written, 256 px, batch 1)"),
@@ -429,7 +438,9 @@ PATHS = {"sd15": ("slice", "SD1.5 train step"),
                                             "none, dots_names], Adafactor, batch 2) wrapped with FSDP2 at one NCCL "
                                             "rank (strategy fsdp), through tools/launch_pod"),
          "cli_vae_ddp": ("cli_vae_ddp", "G/D pair of vae.example.yaml (fp32, disc_start 1) under strategy ddp at one "
-                                        "NCCL rank, through tools/launch_pod")}
+                                        "NCCL rank, through tools/launch_pod"),
+         "ring": ("ring", "ring self-attention forward and backward on one card (in-process rotation): SDXL level 1, "
+                          "2x10x4096x64, at n = 2 and 4 slices, in bf16 and in fp32 (four rings)")}
 # a path whose shape tables are another's (the same step, reached another way; the towers of
 # sdxl-te train, but at 77 tokens their attention is under the flash gate)
 TABLES_OF = {"cli_sdxl_bf16": "sdxl", "cli_sdxl_te": "cli_sdxl_f32", "cli_sdxl_vpred": "sdxl", "cli_sdxl_remat": "sdxl",
@@ -582,7 +593,8 @@ def flash_tables(torch) -> list:
            [("cli_vq_f32", sh, n, f32) for sh, n in VQ_FLASH_SHAPES.items()] + \
            [("cli_vq_val", sh, (n, 0), f32) for sh, n in VQ_VAL_F32_FLASH_SHAPES.items()] + \
            [(path, sh, (n, 0), dtype) for path, tables in sampling_tables().items()
-            for dtype, table in zip((bf16, f32), tables[:2]) for sh, n in table.items()]
+            for dtype, table in zip((bf16, f32), tables[:2]) for sh, n in table.items()] + \
+           [("ring", sh, n, dtype) for dtype in (bf16, f32) for sh, n in RING_FLASH_SHAPES.items()]
 
 
 def check_flash(torch, log: list) -> dict:
@@ -2990,6 +3002,216 @@ def run_mesh_phase(torch, rows: dict, report: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: sequence parallelism on one card, the conditioners refused before
+# ---------------------------------------------------------------------------
+
+
+def ring_inputs(torch, dtype, n: int) -> list:
+    """q, k, v, dO at RING_SHAPE in ``dtype``, seeded by n and the dtype."""
+    g = torch.Generator("cuda").manual_seed(1800 + n + (dtype == torch.float32))
+    return [torch.randn(*RING_SHAPE, generator=g, device="cuda").to(dtype) for _ in range(4)]
+
+
+def run_ring(torch, rows: dict, log: list) -> dict:
+    """(a) ring_self_attention over LocalRing(n) (every slice on this card,
+    the rotation in place) at SDXL's level 1, n = 2 and 4, bf16 and fp32:
+    the four rings' forward and backward with the counters read around them
+    (n x n flash forward and backward launches each); then each held
+    against the full-sequence flash kernel and against the plain ring (JAX's
+    attention_with_stats and merge, the plain block backward) under TOL,
+    and timed beside the full-sequence kernel."""
+    from neurosis_tpu_torch import ops
+    from neurosis_tpu_torch.ops import flash_attention as fa
+    from neurosis_tpu_torch.ops import ring_attention as ra
+
+    cases = [(dtype, n) for dtype in (torch.bfloat16, torch.float32) for n in RING_SIZES]
+    inputs = {case: ring_inputs(torch, *case) for case in cases}
+
+    def ring_grads(q, k, v, do, n):
+        q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+        o = ra.ring_self_attention(q, k, v, ra.LocalRing(n))
+        return [o.detach()] + list(torch.autograd.grad(o, (q, k, v), do))
+
+    def full_grads(q, k, v, do):
+        q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+        o = fa.flash_attention(q, k, v)
+        return [o.detach()] + list(torch.autograd.grad(o, (q, k, v), do))
+
+    def plain_ring(q, k, v, do, n):
+        ring = ra.LocalRing(n)
+        qs, ks, vs = ring.slots(q), ring.slots(k), ring.slots(v)
+        os_, lses = ra.ring_forward(ring, qs, ks, vs, flash=False)
+        grads = ra.ring_backward(ring, qs, ks, vs, os_, lses, ring.slots(do), flash=False)
+        return [ring.gather(x) for x in [os_] + list(grads)]
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    got = {case: ring_grads(*inputs[case], case[1]) for case in cases}
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    check_launches(launches, step_totals(rows, "ring"), 1, "ring")
+
+    out = {"launches": launches, "cases": []}
+    for (dtype, n), ring_out in got.items():
+        q, k, v, do = inputs[dtype, n]
+        is_f32 = dtype == torch.float32
+        fwd_tol, bwd_tol = (TOL["flash_fwd_f32"], TOL["flash_bwd_f32"]) if is_f32 else (TOL["flash_fwd"], TOL["flash_bwd"])
+        tag = f"ring n={n} {'x'.join(map(str, RING_SHAPE))} {'fp32' if is_f32 else 'bf16'}"
+        case = dict(n=n, dtype="fp32" if is_f32 else "bf16")
+        for label, want in (("full-sequence kernel", full_grads(q, k, v, do)), ("plain ring", plain_ring(q, k, v, do, n))):
+            for name, g, w in zip(("O", "dq", "dk", "dv"), ring_out, want):
+                err, rel = rel_err(g, w)
+                check(f"{tag} {name} against the {label}", rel, fwd_tol if name == "O" else bwd_tol, log, err)
+                case[f"{name} vs {label}"] = rel
+        with torch.no_grad():
+            case["fwd_ms"] = time_ms(torch, lambda: ra.ring_self_attention(q, k, v, ra.LocalRing(n)), iters=5)
+            case["full_fwd_ms"] = time_ms(torch, lambda: fa.flash_attention(q, k, v), iters=5)
+        case["fwd_bwd_ms"] = time_ms(torch, lambda: ring_grads(q, k, v, do, n), iters=3, warmup=1)
+        case["full_fwd_bwd_ms"] = time_ms(torch, lambda: full_grads(q, k, v, do), iters=3, warmup=1)
+        print(f"{tag}: forward {case['fwd_ms']:.3f} ms (full-sequence kernel {case['full_fwd_ms']:.3f}), forward and "
+              f"backward {case['fwd_bwd_ms']:.3f} ms (full-sequence {case['full_fwd_bwd_ms']:.3f})", flush=True)
+        out["cases"].append(case)
+    del inputs, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def _set_compute_dtype(torch, module, dtype) -> None:
+    """Every layer of ``module`` that keeps a compute dtype computes in ``dtype``
+    (what building it with ``dtype=`` gives; its parameters stay fp32)."""
+    for m in module.modules():
+        if "dtype" in vars(m):
+            m.dtype = dtype
+
+
+def run_clip_t5(torch, log: list) -> dict:
+    """(b) FrozenCLIPT5Encoder at its default width (CLIP-L; T5 v1.1-XL, 4.9 GB of
+    fp32 weights drawn on the card from a seed, T5's q projections at HF's T5
+    init, (d_model·d_kv)^-½: at the lecun scale of every other projection its
+    unscaled logits have a standard deviation of √d_kv = 8, where a softmax is
+    nearly an argmax and a rounding flips it), two prompts of 77 ids (the
+    hash tokenizer's for CLIP, ByT5's bytes for T5), on the card against the
+    same module on the CPU in fp32 (CLIP_T5_TOL fp32); the card's bf16
+    outputs against the CPU's fp32 ones (the exact result) within CLIP_T5_TOL
+    bf16 or twice the CPU's own bf16 error, whichever is larger (a deep bf16
+    tower's output is as far from the exact one as its roundings take it, on
+    any device); device ms."""
+    from neurosis_tpu_torch.models.text_encoder import clip, t5
+    from neurosis_tpu_torch.models.text_encoder.t5 import byt5_tokenize
+    from neurosis_tpu_torch.modules.encoders.clip_t5 import FrozenCLIPT5Encoder
+    from neurosis_tpu_torch.trainer.loop import HashTokenizer
+
+    card = FrozenCLIPT5Encoder(device="cuda", generator=torch.Generator("cuda").manual_seed(18))
+    with torch.no_grad():
+        for block in card.t5_encoder.transformer.encoder.block:
+            attention = block.layer[0].SelfAttention
+            attention.q.weight.mul_(attention.d_kv ** -0.5)
+    n_params = sum(p.numel() for p in card.parameters())
+    saved = clip.init_parameters, t5.init_parameters
+    clip.init_parameters = t5.init_parameters = lambda module, generator: None  # filled from the card's below
+    try:
+        host = FrozenCLIPT5Encoder(device="cpu")
+    finally:
+        clip.init_parameters, t5.init_parameters = saved
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()}, strict=True)
+    ids = (torch.tensor(HashTokenizer()(list(CLIP_T5_PROMPTS)), dtype=torch.int64),
+           torch.tensor(byt5_tokenize(list(CLIP_T5_PROMPTS)), dtype=torch.int64))
+    ids_card = tuple(x.cuda() for x in ids)
+    out = {"params": n_params}
+    with torch.no_grad():
+        exact = host(ids)
+        for label, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+            for m in (card, host):
+                _set_compute_dtype(torch, m, dtype)
+            got = card(ids_card)
+            plain = host(ids) if dtype is not None else exact
+            for name, g, w, h in zip(("clip_z", "t5_z"), got, exact, plain):
+                if not bool(torch.isfinite(g.float()).all()) or tuple(g.shape) != tuple(w.shape):
+                    raise PhaseError(f"clip_t5 {label} {name}: not finite or of shape {tuple(g.shape)}")
+                tol = CLIP_T5_TOL[label]
+                if dtype is not None:
+                    out[f"{label}_{name}_cpu_rel"] = rel_err(h, w)[1]
+                    tol = max(tol, 2 * out[f"{label}_{name}_cpu_rel"])
+                    print(f"FrozenCLIPT5Encoder {label} {name}: the CPU's bf16 against its fp32, rel err "
+                          f"{out[f'{label}_{name}_cpu_rel']:.3e}", flush=True)
+                err, rel = rel_err(g.cpu(), w)
+                check(f"FrozenCLIPT5Encoder {label} {name} {tuple(g.shape)} card vs CPU fp32", rel, tol, log, err)
+                out[f"{label}_{name}_rel"] = rel
+            out[f"{label}_ms"] = time_ms(torch, lambda: card(ids_card), iters=5)
+            print(f"FrozenCLIPT5Encoder {label}: {out[f'{label}_ms']:.3f} ms on the card for 2 prompts", flush=True)
+    del card, host
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_context_unet(torch, log: list) -> dict:
+    """(c) The SDXL UNet at full width in bf16 (batch 1, 1024 px latents, the
+    label embedding), one forward and backward with ``context_axis`` set and
+    the ring of a one-rank NCCL group on the axis (the wiring of
+    context_parallel, whose ring of one runs the whole sequence, as JAX's
+    dispatch does) against the same UNet with no axis: output and loss equal
+    bit for bit, the grad norm within the bf16 gate (the flash backward sums
+    dQ by atomics). Its zero-initialised parameters are drawn at 0.02, so
+    that the output and every gradient are not 0."""
+    import torch.distributed as dist
+
+    from neurosis_tpu_torch.models.unet import UNetModel
+    from neurosis_tpu_torch.ops.ring_attention import P2PRing, on_axis
+    from neurosis_tpu_torch.parallel.mesh import DistEnv, init_distributed
+
+    init_distributed("cuda", DistEnv())
+    try:
+        unet = UNetModel(**SDXL_UNET, dtype=torch.bfloat16, device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(19))
+        g = torch.Generator("cuda").manual_seed(20)
+        with torch.no_grad():  # the zero-initialised layers (out conv, proj_outs, biases) drawn too: at zero
+            for p in unet.parameters():  # the output, the loss and every gradient but one layer's would be 0
+                if not bool(p.any()):
+                    p.normal_(0.0, 0.02, generator=g)
+        x = torch.randn(1, 128, 128, 4, generator=g, device="cuda")
+        t = torch.tensor([500.0], device="cuda")
+        ctx = torch.randn(1, 77, 2048, generator=g, device="cuda")
+        y = torch.randn(1, 2816, generator=g, device="cuda")
+
+        def step():
+            unet.zero_grad(set_to_none=True)
+            out = unet(x, t, ctx, y=y)
+            loss = out.float().square().mean()
+            loss.backward()
+            norm = torch.sqrt(sum(p.grad.float().square().sum() for p in unet.parameters() if p.grad is not None))
+            return out.detach().float(), float(loss), float(norm)
+
+        one = step()
+        unet.context_axis = "context"
+        with on_axis("context", P2PRing(dist.group.WORLD)):
+            wired = step()
+        unet.context_axis = None
+        out_diff = float((wired[0] - one[0]).abs().max())
+        loss_rel = abs(wired[1] - one[1]) / max(abs(one[1]), 1e-30)
+        norm_rel = abs(wired[2] - one[2]) / max(abs(one[2]), 1e-30)
+        if not (one[1] > 0 and one[2] > 0):
+            raise PhaseError(f"the SDXL UNet's loss {one[1]} or grad norm {one[2]} is 0: the comparison would hold nothing")
+        check("SDXL UNet bf16 with context_axis on a one-rank NCCL ring: output (abs)", out_diff, 0.0, log)
+        check("SDXL UNet bf16 with context_axis on a one-rank NCCL ring: loss", loss_rel, 0.0, log)
+        check("SDXL UNet bf16 with context_axis on a one-rank NCCL ring: grad norm", norm_rel, 5e-2, log)
+        return dict(loss=one[1], loss_rel=loss_rel, grad_norm=one[2], grad_norm_rel=norm_rel, out_max_diff=out_diff)
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+
+
+def run_ring_phase(torch, rows: dict, log: list) -> dict:
+    """Phase 18: (a) the ring on one card, (b) FrozenCLIPT5Encoder at full
+    width, (c) the SDXL UNet wired for context_parallel at one NCCL rank."""
+    t0 = time.perf_counter()
+    out = {"ring": run_ring(torch, rows, log), "clip_t5": run_clip_t5(torch, log),
+           "context_unet": run_context_unet(torch, log)}
+    out["ring"]["phase_s"] = time.perf_counter() - t0
+    print(f"phase 18: {out['ring']['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def kernel_kind(name: str) -> str:
     """Which layer a device kernel belongs to, by its name."""
     low = name.lower()
@@ -3133,6 +3355,8 @@ def main() -> int:
         report.update(run_vq_phase(torch, rows, log))
         torch.cuda.empty_cache()
         report.update(run_mesh_phase(torch, rows, report))
+        torch.cuda.empty_cache()
+        report.update(run_ring_phase(torch, rows, log))
         report["seconds"] = time.perf_counter() - t_start
         print(f"all phases: {report['seconds']:.1f} s", flush=True)
     except Exception as e:  # any failed phase ends the run without a result line

@@ -16,6 +16,11 @@ follow from the same rules: the UNet's label embedding
 ('model.transformer.resblocks.0.attn.q_proj.weight', 'model.ln_final.bias')
 and its bare parameters, which keep their names and layouts
 ('model.positional_embedding', 'model.text_projection' as [width, proj]).
+T5 names its modules with HF's dotted paths, so the same rules give
+'transformer.encoder.block.0.layer.0.SelfAttention.q.weight',
+'...relative_attention_bias.weight' and 'transformer.shared.weight' (under
+CLIP-T5's 'clip_encoder.'/'t5_encoder.'), and a ClassEmbedder's table
+'embedding.weight'.
 Two leaves are named by their place: a codebook (a bare ``embedding`` leaf
 at the root of the tree, or of a ``regularizer`` or ``quantizer``, where
 flax's ``nn.Embed`` always sits inside a named module) becomes

@@ -12,8 +12,6 @@ from __future__ import annotations
 REQUIRED = "<required>"  # an argument JAX's class takes without a default
 
 JAX_ONLY_ARGS: dict = {'bitsandbytes.optim.AdamW8bit': {'mask': None},
- 'neurosis.modules.diffusion.UNetModel': {'context_axis': None},
- 'neurosis.modules.diffusion.openaimodel.UNetModel': {'context_axis': None},
  'optax.adamw': {'mask': None},
  'torch.optim.AdamW': {'mask': None}}
 
@@ -23,7 +21,6 @@ JAX_ONLY_ARGS: dict = {'bitsandbytes.optim.AdamW8bit': {'mask': None},
 # torch parameter lists, not Flax trees: see ROADMAP Queue 1 item 8
 _ITEMS = {
     "8 (the optimizers: optax's mask)": ("mask",),
-    "10 (ring attention)": ("context_axis",),
 }
 
 

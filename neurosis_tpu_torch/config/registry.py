@@ -44,6 +44,13 @@ _PORTED = {
     "neurosis.models.text_encoder.FrozenOpenCLIPEmbedder2": ("modules.encoders.embedding",
                                                              "FrozenOpenCLIPEmbedder2"),
     _ENC + "metadata.ConcatTimestepEmbedderND": ("modules.encoders.embedding", "ConcatTimestepEmbedderND"),
+    "neurosis.models.text_encoder.FrozenCLIPT5Encoder": ("modules.encoders.clip_t5", "FrozenCLIPT5Encoder"),
+    _ENC + "misc.IdentityEncoder": ("modules.encoders.embedding", "IdentityEncoder"),
+    _ENC + "classed.ClassEmbedder": ("modules.encoders.misc", "ClassEmbedder"),
+    _ENC + "classed.ClassEmbedderForMultiCond": ("modules.encoders.misc", "ClassEmbedderForMultiCond"),
+    _ENC + "metadata.GaussianEncoder": ("modules.encoders.misc", "GaussianEncoder"),
+    _ENC + "embedding.SpatialRescaler": ("modules.encoders.misc", "SpatialRescaler"),
+    _ENC + "lowscale.LowScaleEncoder": ("modules.encoders.misc", "LowScaleEncoder"),
     "neurosis.models.DiffusionEngine": ("trainer.engine", "DiffusionEngine"),
     "neurosis.models.diffusion.DiffusionEngine": ("trainer.engine", "DiffusionEngine"),
     "neurosis.models.AutoencoderKL": ("models.autoencoder", "AutoencoderKL"),
@@ -116,10 +123,7 @@ _PORTED = {
 _NOT_PORTED: Dict[str, str] = {}
 _REST_ITEM = "11 (the rest)"
 _NOT_PORTED.update({p: _REST_ITEM for p in (
-    ["neurosis.models.text_encoder.FrozenCLIPT5Encoder", _ENC + "misc.IdentityEncoder",
-     _ENC + "classed.ClassEmbedder", _ENC + "classed.ClassEmbedderForMultiCond", _ENC + "metadata.GaussianEncoder",
-     _ENC + "embedding.SpatialRescaler", _ENC + "lowscale.LowScaleEncoder",
-     _AE + "losses.AutoencoderDreamsim", "neurosis.trainer.profile.NeurosisProfiler",
+    [_AE + "losses.AutoencoderDreamsim", "neurosis.trainer.profile.NeurosisProfiler",
      "neurosis.trainer.profile.profiler.NeurosisProfiler", "NeurosisProfiler"]
     + [_DS + m + "." + c + k for m in ("mongo", "mongo.aspect", "mongo.nobucket", "mongo.nocaption")
        for c in ("MongoAspect", "MongoSquare", "MongoVAE") for k in ("Dataset", "Module")])})

@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .._device import DeviceLike, resolve_device
-from ..modules.attention import SpatialTransformer
+from ..modules.attention import CrossAttention, SpatialTransformer
 from ..modules.layers import (
     Conv2d,
     Dense,
@@ -173,6 +173,9 @@ class UNetModel(nn.Module):
     (CUDA unless told otherwise) and draws its initial weights from
     ``generator``. ``remat_policy`` is one policy or one per level
     (``modules.attention.REMAT_POLICIES``), read when ``use_checkpoint``.
+    ``context_axis`` names the mesh axis whose ring every transformer's
+    self-attention rides (sequence parallelism; the trainer sets it for
+    ``context_parallel`` > 1, as JAX's loop clones the module with it).
     """
 
     def __init__(self, in_channels: int, model_channels: int, out_channels: int,
@@ -186,7 +189,8 @@ class UNetModel(nn.Module):
                  dropout: float = 0.0, conv_resample: bool = True, use_scale_shift_norm: bool = False,
                  resblock_updown: bool = False, disable_self_attentions: Optional[Sequence[bool]] = None,
                  num_attention_blocks: Optional[Sequence[int]] = None, disable_middle_self_attn: bool = False,
-                 disable_middle_transformer: bool = False, remat_policy: Union[str, Sequence[str]] = "full"):
+                 disable_middle_transformer: bool = False, remat_policy: Union[str, Sequence[str]] = "full",
+                 context_axis: Optional[str] = None):
         super().__init__()
         device = resolve_device(device)
         self.dtype = dtype
@@ -220,7 +224,8 @@ class UNetModel(nn.Module):
                 policy = remat_policy if isinstance(remat_policy, str) else remat_policy[level]
                 return SpatialTransformer(ch, nh, dh, d, context_dim, disable_self_attn=disable_sa,
                                           use_linear=use_linear_in_transformer, use_checkpoint=use_checkpoint,
-                                          dtype=dtype, device=device, dropout=dropout, remat_policy=policy)
+                                          dtype=dtype, device=device, dropout=dropout, remat_policy=policy,
+                                          context_axis=context_axis)
             if kind == "down":
                 if resblock_updown:
                     return ResBlock(spec[1], emb_dim, spec[1], down=True, **res)
@@ -264,6 +269,16 @@ class UNetModel(nn.Module):
             Conv2d(model_channels, out_channels, 3, zero_init=True, device=device),
         )
         init_parameters(self, generator if generator is not None else torch.Generator(device).manual_seed(0))
+
+    @property
+    def context_axis(self) -> Optional[str]:
+        return next((m.context_axis for m in self.modules() if isinstance(m, CrossAttention)), None)
+
+    @context_axis.setter
+    def context_axis(self, axis: Optional[str]) -> None:
+        for m in self.modules():
+            if isinstance(m, CrossAttention):
+                m.context_axis = axis
 
     @staticmethod
     def _run_layer(layer: nn.Module, h, emb, context, generator):

@@ -12,14 +12,20 @@ dispatcher ops the block runs:
   projections, JAX's ``dots_with_no_batch_dims_saveable``);
 - ``dots_all``: keep every matmul output (also ``bmm``/``baddbmm``);
 - ``names``: keep the flash forward's outputs, o and LSE
-  (``neurosis::flash_fwd``, JAX's ``attn_out``/``attn_lse``), so the
-  backward does not launch the forward kernel again;
+  (``neurosis::flash_fwd``, JAX's ``attn_out``/``attn_lse``), and the ring's
+  (``neurosis::ring_attention``, JAX's ``attn_out`` of the ring), so the
+  backward launches neither the forward kernel nor the ring again;
 - ``dots_names``: both of ``dots_all`` and ``names``;
 - ``none``: no checkpoint.
 
 Eager recompute re-runs every op it does not keep, so where JAX's compiler
 drops the work behind a kept value, the port repeats it: the plain attention
 of short rows is recomputed under every policy but ``none``.
+
+With ``context_axis`` the self-attention (``context is None``) of every
+block rides the ring of that mesh axis (``ops/attention.py``); a block that
+recomputes it in the backward does so on every rank of the ring, in the
+same order, since every context rank runs the same graph.
 
 Dropout draws from the generator a caller passes down (none: deterministic).
 Inside a checkpointed block it draws from a copy of that generator's state,
@@ -37,6 +43,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .._device import DeviceLike
+from ..ops import ring_attention  # noqa: F401  (registers neurosis::ring_attention)
 from ..ops.attention import dot_product_attention
 from .layers import Conv2d, Dense, GroupNorm32, LayerNorm32, dropout
 
@@ -52,7 +59,7 @@ def _saved_ops(policy: str) -> frozenset:
     if policy in ("dots_all", "dots_names"):
         saved |= {aten.bmm.default, aten.baddbmm.default}
     if policy in ("names", "dots_names"):
-        saved.add(torch.ops.neurosis.flash_fwd.default)
+        saved |= {torch.ops.neurosis.flash_fwd.default, torch.ops.neurosis.ring_attention.default}
     return frozenset(saved)
 
 
@@ -127,11 +134,14 @@ class FeedForward(nn.Module):
 
 
 class CrossAttention(nn.Module):
-    """Self-attention (context=None) or cross-attention over [B, S, C]."""
+    """Self-attention (context=None) or cross-attention over [B, S, C];
+    self-attention rides the ring of ``context_axis`` when one is set."""
 
     def __init__(self, query_dim: int, context_dim: Optional[int] = None, heads: int = 8,
-                 dim_head: int = 64, dropout: float = 0.0, dtype=None, device: DeviceLike = None):
+                 dim_head: int = 64, dropout: float = 0.0, dtype=None, device: DeviceLike = None,
+                 context_axis: Optional[str] = None):
         super().__init__()
+        self.context_axis = context_axis
         inner = heads * dim_head
         ctx_dim = context_dim or query_dim
         self.heads, self.dim_head, self.dropout = heads, dim_head, dropout
@@ -148,7 +158,7 @@ class CrossAttention(nn.Module):
         q = self.to_q(x).reshape(b, s, self.heads, self.dim_head).transpose(1, 2)
         k = self.to_k(ctx).reshape(b, t, self.heads, self.dim_head).transpose(1, 2)
         v = self.to_v(ctx).reshape(b, t, self.heads, self.dim_head).transpose(1, 2)
-        out = dot_product_attention(q, k, v)
+        out = dot_product_attention(q, k, v, context_axis=self.context_axis if context is None else None)
         out = self.to_out(out.transpose(1, 2).reshape(b, s, self.heads * self.dim_head))
         return dropout(out, self.dropout, generator)
 
@@ -157,14 +167,16 @@ class BasicTransformerBlock(nn.Module):
     """norm→attn1(self)→res, norm→attn2(cross)→res, norm→ff→res."""
 
     def __init__(self, dim: int, n_heads: int, d_head: int, context_dim: Optional[int] = None,
-                 disable_self_attn: bool = False, dropout: float = 0.0, dtype=None, device: DeviceLike = None):
+                 disable_self_attn: bool = False, dropout: float = 0.0, dtype=None, device: DeviceLike = None,
+                 context_axis: Optional[str] = None):
         super().__init__()
         self.disable_self_attn = disable_self_attn
         self.norm1 = LayerNorm32(dim, device=device)
         self.attn1 = CrossAttention(dim, context_dim if disable_self_attn else None, n_heads, d_head, dropout,
-                                    dtype=dtype, device=device)
+                                    dtype=dtype, device=device, context_axis=context_axis)
         self.norm2 = LayerNorm32(dim, device=device)
-        self.attn2 = CrossAttention(dim, context_dim, n_heads, d_head, dropout, dtype=dtype, device=device)
+        self.attn2 = CrossAttention(dim, context_dim, n_heads, d_head, dropout, dtype=dtype, device=device,
+                                    context_axis=context_axis)
         self.norm3 = LayerNorm32(dim, device=device)
         self.ff = FeedForward(dim, dropout=dropout, dtype=dtype, device=device)
 
@@ -183,7 +195,8 @@ class SpatialTransformer(nn.Module):
     def __init__(self, in_channels: int, n_heads: int, d_head: int, depth: int = 1,
                  context_dim: Optional[int] = None, disable_self_attn: bool = False,
                  use_linear: bool = False, use_checkpoint: bool = True, dtype=None,
-                 device: DeviceLike = None, dropout: float = 0.0, remat_policy: str = "full"):
+                 device: DeviceLike = None, dropout: float = 0.0, remat_policy: str = "full",
+                 context_axis: Optional[str] = None):
         super().__init__()
         if remat_policy not in REMAT_POLICIES:
             raise ValueError(f"unknown remat_policy {remat_policy!r}; known: {REMAT_POLICIES}")
@@ -200,7 +213,8 @@ class SpatialTransformer(nn.Module):
             self.proj_out = Conv2d(inner, in_channels, 1, padding=0, dtype=dtype, zero_init=True,
                                    device=device)
         self.transformer_blocks = nn.ModuleList(
-            BasicTransformerBlock(inner, n_heads, d_head, context_dim, disable_self_attn, dropout, dtype, device)
+            BasicTransformerBlock(inner, n_heads, d_head, context_dim, disable_self_attn, dropout, dtype, device,
+                                  context_axis)
             for _ in range(depth)
         )
 

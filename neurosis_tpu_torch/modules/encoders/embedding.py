@@ -10,11 +10,16 @@ numeric embedders read ``batch[input_key]``. Outputs route by rank: 2 →
 in embedder order (SDXL: CLIP-L 768 ⊕ bigG 1280 → 2048 on 'crossattn';
 pooled 1280 ⊕ 3×512 → 2816 on 'vector').
 
+An embedder with several token streams (``token_keys()``: CLIP-T5's
+``<key>_ids`` and ``<key>_t5_ids``) gets a tuple of them.
+
 Unconditional-guidance dropout (UCG, ``ucg_rate``) as the JAX package does it
-(embedding.py:241-295): a text embedder swaps the whole batch to
-``batch["uncond_ids"]`` with probability ucg_rate (one draw an embedder); a
-numeric embedder zeroes each sample's output with that probability (one
-Bernoulli mask an output). The draws come from the generator a caller passes
+(embedding.py:218-295): a text embedder swaps the whole batch to
+``batch["uncond_ids"]`` with probability ucg_rate (one draw an embedder; a
+multi-stream embedder swaps all its streams on that one draw, each to its
+own uncond row, ``<key>_t5_ids`` → ``uncond_t5_ids`` falling back to
+``uncond_ids``); a numeric embedder zeroes each sample's output with that
+probability (one Bernoulli mask an output). The draws come from the generator a caller passes
 (training); without one, as in sampling and evaluation, no UCG applies (the
 reference's ``zero_ucg``).
 """
@@ -41,7 +46,7 @@ class AbstractEmbModel(nn.Module):
     not require grad. ``base_lr`` (the builder's per-embedder learning rate)
     and ``emb_name`` are kept, as in JAX."""
 
-    def __init__(self, input_key: str, ucg_rate: float = 0.0, is_trainable: bool = False,
+    def __init__(self, input_key: str = "caption", ucg_rate: float = 0.0, is_trainable: bool = False,
                  base_lr: Optional[float] = None, emb_name: Optional[str] = None):
         super().__init__()
         self.input_key = input_key
@@ -53,6 +58,10 @@ class AbstractEmbModel(nn.Module):
     def token_key(self) -> Optional[str]:
         """Batch key of this embedder's tokenized input (None: it reads
         ``batch[input_key]``, a numeric tensor)."""
+        return None
+
+    def token_keys(self) -> Optional[list]:
+        """The batch keys of several token streams (None: one or none)."""
         return None
 
 
@@ -176,6 +185,19 @@ class ConcatTimestepEmbedderND(AbstractEmbModel):
         return (emb.reshape(b, dims * self.outdim),)
 
 
+class IdentityEncoder(AbstractEmbModel):
+    """Pass-through: ``batch[input_key]`` as it is."""
+
+    def forward(self, x: torch.Tensor) -> tuple:
+        return (x,)
+
+
+def _uncond_key(token_key: str, input_key: str) -> str:
+    """'caption_t5_ids' → 'uncond_t5_ids' (the caller falls back to 'uncond_ids')."""
+    suffix = token_key[len(input_key):] if token_key.startswith(input_key) else "_ids"
+    return f"uncond{suffix}"
+
+
 class GeneralConditioner(nn.Module):
     """Routes embedder outputs into {'vector', 'crossattn', 'concat'}."""
 
@@ -193,8 +215,18 @@ class GeneralConditioner(nn.Module):
         output: dict[str, torch.Tensor] = {}
         for embedder in self.embedders:
             tkey = embedder.token_key()
+            tkeys = embedder.token_keys()
             rate = embedder.ucg_rate if active else 0.0
-            if tkey is not None:
+            if tkeys is not None:
+                inputs = tuple(batch[k] for k in tkeys)
+                if rate > 0.0:
+                    swap = next(draws) if draws is not None else \
+                        torch.rand((), generator=generator, device=inputs[0].device) < rate
+                    inputs = tuple(torch.where(swap.to(x.device), batch.get(_uncond_key(k, embedder.input_key),
+                                                                          batch["uncond_ids"]).expand(x.shape), x)
+                                   for k, x in zip(tkeys, inputs))
+                tkey = tkeys[0]  # the token streams' UCG is done: no per-sample zeroing
+            elif tkey is not None:
                 inputs = batch[tkey]
                 if rate > 0.0:
                     swap = next(draws) if draws is not None else \
@@ -220,15 +252,17 @@ class GeneralConditioner(nn.Module):
                                        force_uc_zero_embeddings: Sequence[str] = (),
                                        force_cond_zero_embeddings: Sequence[str] = ()) -> tuple[dict, dict]:
         """(cond, uncond) for CFG sampling (embedding.py:165-183), without UCG.
-        Without ``batch_uc`` the uncond batch is ``batch_c`` with each text
-        embedder's ids replaced by ``batch_c['uncond_ids']`` broadcast to the
-        batch (the JAX package's per-key uncond ids serve the T5 embedder,
-        which is not ported); numeric inputs keep their values."""
+        Without ``batch_uc`` the uncond batch is ``batch_c`` with each token
+        stream replaced by its uncond row (``uncond_t5_ids`` for
+        ``<key>_t5_ids``, else ``uncond_ids``) broadcast to the batch; numeric
+        inputs keep their values."""
         c = self(batch_c, force_zero_embeddings=force_cond_zero_embeddings)
         if batch_uc is None:
             batch_uc = dict(batch_c)
             for embedder in self.embedders:
-                tkey = embedder.token_key()
-                if tkey is not None and tkey in batch_uc:
-                    batch_uc[tkey] = batch_c["uncond_ids"].expand(batch_c[tkey].shape)
+                tkeys = embedder.token_keys() or ([embedder.token_key()] if embedder.token_key() else [])
+                for tkey in tkeys:
+                    if tkey in batch_uc:
+                        unc = batch_c.get(_uncond_key(tkey, embedder.input_key), batch_c["uncond_ids"])
+                        batch_uc[tkey] = unc.expand(batch_c[tkey].shape)
         return c, self(batch_uc, force_zero_embeddings=force_uc_zero_embeddings)

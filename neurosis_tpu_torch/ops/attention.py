@@ -5,6 +5,13 @@ Long query rows without a mask go to the flash kernel; everything else
 matmul-softmax with fp32 logits (JAX ``_xla_attention``). There is no
 fallback from the kernel: a shape or dtype the kernel refuses raises.
 
+With ``context_axis`` (JAX ops/attention.py:96-148), self-attention rides
+the ring that the ambient mesh gives that axis (``ring_attention.on_axis``,
+which the trainer enters during fit): each rank of the context group runs
+its slice of the query rows round the ring and every rank gets the whole O.
+Without such a ring, with a ring of one rank, or with S not divisible by
+its size, the whole sequence runs on one program, as in JAX (:149-151).
+
 Layout: [B, H, S, D].
 """
 
@@ -15,6 +22,7 @@ from typing import Optional
 import torch
 
 from .flash_attention import flash_attention
+from .ring_attention import ring_of, ring_self_attention
 
 # query length from which the flash kernel takes a row (JAX _PALLAS_MIN_SEQ)
 FLASH_MIN_SEQ = 512
@@ -49,7 +57,13 @@ def dot_product_attention(
     k: torch.Tensor,
     v: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
+    context_axis: Optional[str] = None,
 ) -> torch.Tensor:
+    ring = ring_of(context_axis)
+    if ring is not None and ring.n > 1 and q.shape[-2] % ring.n == 0:
+        if mask is not None:
+            raise ValueError("ring attention takes no mask")
+        return ring_self_attention(q, k, v, ring)
     if uses_flash(q, mask):
         return flash_attention(q, k, v)
     return plain_attention(q, k, v, mask)

@@ -1,4 +1,4 @@
-"""FSDP2 over the (data, fsdp) mesh (port of neurosis_tpu/parallel/fsdp.py).
+"""FSDP2 over the (data, fsdp[, context]) mesh (port of neurosis_tpu/parallel/fsdp.py).
 
 ``wrap_engine`` applies ``fully_shard`` to the units the reference's
 ``DiffusionFsdpPolicy`` names (fsdp/diffusionpolicy.py:43-146): each layer
@@ -8,9 +8,15 @@ text tower; the VAE trainer's Encoder, Decoder, discriminator and a
 codebook module. Over a mesh with data and fsdp both > 1 that is HSDP:
 parameters shard over ``fsdp`` and replicate over ``data``; a data axis of
 one is plain FSDP, an fsdp axis of one is DDP, through one code path.
-Gradients are reduced in their own dtype (fp32: the port's parameters are
-fp32 in every precision) and averaged over all ranks, which is the
-one-card gradient of the global batch's mean loss (``parallel/mesh.py``).
+With a context axis the parameters replicate over data × context: HSDP's
+replicate dimension is then the data and context indices flattened, a
+(data·context, fsdp) mesh over the same ranks (``Mesh.fsdp_mesh``, replicate
+index d·C + c). Gradients are reduced in their own dtype (fp32: the port's
+parameters are fp32 in every precision) and averaged over all ranks, which
+is the one-card gradient of the global batch's mean loss
+(``parallel/mesh.py``): the context ranks of one data index hold the same
+rows and, after the ring's gathers, compute the same gradients, so their
+share of the average changes nothing.
 
 Frozen modules (the first stage, frozen towers, LPIPS) take no gradient
 and stay whole on each rank. JAX's PartitionSpecs are a layout choice of
@@ -86,7 +92,7 @@ def _units(engine) -> list:
 
 
 def wrap_engine(engine, mesh) -> list:
-    """``fully_shard`` the engine's trainable units over ``mesh.device_mesh``
+    """``fully_shard`` the engine's trainable units over ``mesh.fsdp_mesh``
     in place (before its optimizer is built); returns the units. A unit
     that cannot be wrapped raises: the run never trains unwrapped."""
     from torch.distributed.fsdp import fully_shard
@@ -99,14 +105,15 @@ def wrap_engine(engine, mesh) -> list:
                 if hasattr(p, a):
                     attrs[(id(unit), name, a)] = getattr(p, a)
     for unit in units:
-        fully_shard(unit, mesh=mesh.device_mesh)
+        fully_shard(unit, mesh=mesh.fsdp_mesh)
     for unit in units:
         for name, p in unit.named_parameters():
             for a in _PARAM_ATTRS:
                 if (id(unit), name, a) in attrs:
                     setattr(p, a, attrs[(id(unit), name, a)])
     engine.fsdp_units = units
-    logger.info(f"FSDP2 over mesh data={mesh.data} x fsdp={mesh.fsdp}: {len(units)} units")
+    logger.info(f"FSDP2 over mesh data={mesh.data} x fsdp={mesh.fsdp} x context={mesh.context}: "
+                f"{len(units)} units")
     return units
 
 

@@ -1,4 +1,4 @@
-"""The process group and the (data, fsdp) device mesh (port of
+"""The process group and the (data, fsdp[, context]) device mesh (port of
 neurosis_tpu/parallel/mesh.py).
 
 One process drives one card. ``init_distributed`` reads the launcher's
@@ -7,13 +7,16 @@ variables, ``tools/launch_pod.py``) and starts the process group: NCCL on
 CUDA, gloo only when the caller asks for the CPU (the tests). A node is the
 set of processes on one host, JAX's process: its ranks are contiguous.
 
-``make_mesh`` lays the ranks out as a (data, fsdp) ``DeviceMesh``: the
-parameters shard over ``fsdp`` (``parallel/fsdp.py``) and replicate over
-``data``. ``shard_batch`` keeps JAX's placement of a batch: its rows split
-over the data axis, each node's share over the node's part of the axis, and
-a leaf replicated where JAX replicates it. The ranks of one data group (the
-fsdp ranks of one data index) hold the same rows, as the chips of a JAX
-data group do.
+``make_mesh`` lays the ranks out as a (data, fsdp) ``DeviceMesh``, or,
+with ``context`` > 1, a (data, fsdp, context) one with the context axis
+last, as JAX's: the parameters shard over ``fsdp`` (``parallel/fsdp.py``)
+and replicate over ``data`` (and ``context``). ``shard_batch`` keeps JAX's
+placement of a batch: its rows split over the data axis only, each node's
+share over the node's part of the axis, and a leaf replicated where JAX
+replicates it. The ranks of one data index (its fsdp and context ranks)
+hold the same rows, as the chips of a JAX data group do; the context ranks
+of one (data, fsdp) index split each self-attention's sequence over their
+ring (``ops/ring_attention.py``) and compute the same gradients.
 """
 
 from __future__ import annotations
@@ -30,9 +33,6 @@ from .._device import DeviceLike, resolve_device
 from .rows import Rows
 
 logger = logging.getLogger(__name__)
-
-RING_ITEM = "ROADMAP Queue 1 item 10 (ring attention)"
-
 
 @dataclasses.dataclass(frozen=True)
 class DistEnv:
@@ -139,10 +139,11 @@ def init_distributed(device: DeviceLike = None, env: Optional[DistEnv] = None,
     return Dist(env, dev)
 
 
-def mesh_shape(n: int, data: Optional[int] = None, fsdp: int = 1, context: int = 1) -> tuple[int, int]:
-    """(data, fsdp) of ``n`` ranks; ``data=None`` takes what fsdp leaves.
-    Raises where JAX's ``make_mesh`` raises, with its message; a context axis
-    (ring attention) is not ported."""
+def mesh_shape(n: int, data: Optional[int] = None, fsdp: int = 1, context: int = 1) -> tuple[int, ...]:
+    """The mesh of ``n`` ranks as JAX's ``make_mesh`` shapes it: (data,
+    fsdp), or (data, fsdp, context) with ``context`` > 1; ``data=None`` takes
+    what fsdp and context leave. Raises where JAX's raises, with its
+    message."""
     context = int(context or 1)
     if data is None:
         if n % (fsdp * context):
@@ -150,17 +151,20 @@ def mesh_shape(n: int, data: Optional[int] = None, fsdp: int = 1, context: int =
         data = n // (fsdp * context)
     if data * fsdp * context != n:
         raise ValueError(f"mesh {data}x{fsdp}x{context} != {n} devices")
-    if context > 1:
-        raise NotImplementedError(f"context={context}: sequence parallelism is {RING_ITEM}")
-    return data, fsdp
+    return (data, fsdp, context) if context > 1 else (data, fsdp)
 
 
 @dataclasses.dataclass
 class Mesh:
-    """The (data, fsdp) ``DeviceMesh`` and this rank's place in it."""
+    """The (data, fsdp[, context]) ``DeviceMesh`` and this rank's place in
+    it. ``fsdp_mesh`` is the mesh the parameters shard over: the device mesh
+    itself without a context axis, else a (data·context, fsdp) one over the
+    same ranks (``parallel/fsdp.py``)."""
 
     device_mesh: Any  # torch.distributed.device_mesh.DeviceMesh
     dist: Dist
+    fsdp_mesh: Any = None
+    _ring: Any = None
 
     @property
     def data(self) -> int:
@@ -171,13 +175,37 @@ class Mesh:
         return self.device_mesh.size(1)
 
     @property
+    def context(self) -> int:
+        return self.device_mesh.size(2) if self.device_mesh.ndim == 3 else 1
+
+    @property
     def data_index(self) -> int:
         return self.device_mesh.get_local_rank("data")
 
     @property
+    def context_index(self) -> int:
+        return self.device_mesh.get_local_rank("context") if self.context > 1 else 0
+
+    @property
+    def context_group(self):
+        """The ranks of this rank's (data, fsdp) index, one a slice of the
+        sequence; None without a context axis."""
+        return self.device_mesh.get_group("context") if self.context > 1 else None
+
+    @property
+    def context_ring(self):
+        """The ring over ``context_group`` (``ops/ring_attention.P2PRing``),
+        made once; None without a context axis."""
+        if self._ring is None and self.context > 1:
+            from ..ops.ring_attention import P2PRing
+
+            self._ring = P2PRing(self.context_group)
+        return self._ring
+
+    @property
     def row_group(self):
         """The ranks that hold other rows of the batch than this one: this
-        rank's fsdp index, every data index."""
+        rank's fsdp and context index, every data index."""
         return self.device_mesh.get_group("data")
 
     @property
@@ -202,11 +230,20 @@ class Mesh:
 
 
 def make_mesh(dist_: Dist, data: Optional[int] = None, fsdp: int = 1, context: int = 1) -> Mesh:
-    """The (data, fsdp) mesh over every rank of the started group."""
-    from torch.distributed.device_mesh import init_device_mesh
+    """The (data, fsdp) mesh over every rank of the started group, or with
+    ``context`` > 1 the (data, fsdp, context) one (rank r at data r // (F·C),
+    fsdp r // C % F, context r % C), and its parameters' (data·context,
+    fsdp) mesh over the same ranks. Every rank calls it (it makes groups)."""
+    from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
-    shape = mesh_shape(dist_.world_size, data, fsdp, context)
-    return Mesh(init_device_mesh(dist_.device.type, shape, mesh_dim_names=("data", "fsdp")), dist_)
+    data, fsdp, context = (mesh_shape(dist_.world_size, data, fsdp, context) + (1,))[:3]
+    kind = dist_.device.type
+    if context == 1:
+        device_mesh = init_device_mesh(kind, (data, fsdp), mesh_dim_names=("data", "fsdp"))
+        return Mesh(device_mesh, dist_, device_mesh)
+    device_mesh = init_device_mesh(kind, (data, fsdp, context), mesh_dim_names=("data", "fsdp", "context"))
+    ranks = torch.arange(dist_.world_size).reshape(data, fsdp, context).permute(0, 2, 1).reshape(data * context, fsdp)
+    return Mesh(device_mesh, dist_, DeviceMesh(kind, ranks, mesh_dim_names=("replicate", "fsdp")))
 
 
 def _leading(x) -> Optional[int]:

@@ -4,7 +4,9 @@ torchelastic/SLURM-requeue parity, SURVEY.md §2.8).
 One process drives one card. Each process reads its place from the
 launcher's environment (``parallel.mesh.dist_env``), starts the process
 group over NCCL and runs the CLI, whose ``fit``/``validate``/``test`` then
-build the (data, fsdp) mesh over every rank:
+build the (data, fsdp[, context]) mesh over every rank (``context_parallel:
+N`` in the config's trainer node puts the UNet's self-attention on a ring of
+N ranks):
 
   # one node, N cards:
   torchrun --nproc-per-node N -m neurosis_tpu_torch.tools.launch_pod fit -c configs/sdxl/sdxl-tpu-v5e.yaml

@@ -19,17 +19,18 @@ latest step. ``data.init_args.num_workers`` (default 2) batches load ahead
 in spawned worker processes (``prefetch_mode`` or ``NEUROSIS_PREFETCH``:
 ``process`` or ``thread``; 0 loads them in this process).
 
-``fit``, ``validate`` and ``test`` train on a (data, fsdp) mesh of one
-process a card (``tools/launch_pod.py`` under ``torchrun``, SLURM or the
-``NEUROSIS_*`` environment): ``trainer.devices``, ``strategy`` and ``fsdp``
-give its shape as JAX's ``_mesh_args`` does (cli.py:78-95), the world must
-hold exactly the devices asked for, and ``strategy: ddp|fsdp`` wraps the
-model even on one card. ``predict`` runs on one.
+``fit``, ``validate`` and ``test`` train on a (data, fsdp[, context]) mesh
+of one process a card (``tools/launch_pod.py`` under ``torchrun``, SLURM or
+the ``NEUROSIS_*`` environment): ``trainer.devices``, ``strategy``, ``fsdp``
+and ``context_parallel`` give its shape as JAX's ``_mesh_args`` does
+(cli.py:78-95), the world must hold exactly the devices asked for, and
+``strategy: ddp|fsdp`` wraps the model even on one card.
+``context_parallel: N`` > 1 adds the context axis: the UNet's self-attention
+rides a ring of N ranks (``ops/ring_attention.py``). ``predict`` runs on one.
 
 Config nodes the port cannot honour yet raise ``NotImplementedError`` naming
 their ROADMAP Queue 1 item, never pass in silence: ``trainer.profiler:``
-(11), a remote checkpoint ``dirpath`` (11), ``context_parallel`` > 1 (10,
-ring attention).
+(11), a remote checkpoint ``dirpath`` (11).
 """
 
 from __future__ import annotations
@@ -96,11 +97,6 @@ def _refuse_unported(cfg: dict, trainer_cfg: dict) -> None:
     if trainer_cfg.get("profiler"):
         raise NotImplementedError("trainer.profiler: (NeurosisProfiler on torch.profiler) is not ported yet: "
                                   "ROADMAP Queue 1 item 11")
-    context = int(trainer_cfg.get("context_parallel", 1) or 1)
-    if context > 1:
-        from ..parallel.mesh import RING_ITEM
-
-        raise NotImplementedError(f"context_parallel={context}: sequence parallelism is {RING_ITEM}")
 
 
 def _mesh_args(trainer_cfg: dict, world_size: int):
@@ -126,7 +122,7 @@ def _mesh(trainer_cfg: dict, device: str):
     """The run's mesh, None for the one-card path (one process, no
     ``strategy: ddp|fsdp``). The world must hold the devices the config
     asks for: it never trains on fewer."""
-    from ..parallel.mesh import dist_env, init_distributed, make_mesh
+    from ..parallel.mesh import dist_env, init_distributed, make_mesh, mesh_shape
 
     env = dist_env()
     devices, fsdp, context = _mesh_args(trainer_cfg, env.world_size)
@@ -136,8 +132,9 @@ def _mesh(trainer_cfg: dict, device: str):
                          f"(WORLD_SIZE={env.world_size}): launch {asked} processes, one a card (torchrun "
                          f"--nproc-per-node {asked} -m neurosis_tpu_torch.tools.launch_pod ...), or set devices")
     strategy = str(trainer_cfg.get("strategy", "") or "")
-    if env.world_size == 1 and strategy not in ("ddp", "fsdp") and fsdp == 1:
+    if env.world_size == 1 and strategy not in ("ddp", "fsdp") and fsdp == 1 and context == 1:
         return None
+    mesh_shape(env.world_size, None, fsdp, context)  # a world the axes do not divide raises before the group starts
     return make_mesh(init_distributed(device, env), None, fsdp, context)
 
 

@@ -31,6 +31,16 @@ all of it) is cut to this rank's rows (``mesh.shard``) and the step runs
 under ``rows.sliced``, so its draws and batch statistics are the global
 batch's; the step's metrics are averaged over the ranks of the other rows.
 Global rank 0 writes the metrics file; a crash dump is gathered first.
+On a mesh with a context axis (``context_parallel`` > 1) the UNet's
+self-attention rides the context ring (its ``context_axis`` set to
+"context", as JAX's loop clones the module) while fit and validate run, as
+JAX enters its mesh around them.
+
+Captions are tokenized by the CLIP tokenizer into ``<caption>_ids`` (and
+the empty prompt's ``uncond_ids``), and, given a ``t5_tokenizer``, into
+``<caption>_t5_ids`` and ``uncond_t5_ids`` for the embedders that read a
+T5 stream (``FrozenCLIPT5Encoder``, ``FrozenT5Embedder``); an engine whose
+conditioner needs T5 ids that nothing makes raises, as JAX's loop does.
 """
 
 from __future__ import annotations
@@ -47,6 +57,7 @@ from typing import Any, Callable, Iterable, Optional, Sequence
 import numpy as np
 import torch
 
+from ..ops.ring_attention import on_axis
 from ..parallel import rows as rows_
 from ..parallel.fsdp import full, reshard, wrap_engine
 from .callbacks import STATE_FILE, checkpoint_steps, engine_modules, load_checkpoint, load_state_payload
@@ -165,6 +176,7 @@ class Trainer:
         fast_dev_run: bool = False,
         callbacks: Sequence[Any] = (),
         tokenizer=None,
+        t5_tokenizer=None,
         caption_key: str = "caption",
         token_max_length: int = 77,
         wandb_config: Optional[dict] = None,
@@ -173,6 +185,10 @@ class Trainer:
     ):
         self.engine = engine
         self.mesh = mesh  # parallel.mesh.Mesh: wrap the engine and run this rank's rows
+        if mesh is not None and mesh.context > 1:
+            model = getattr(engine, "model", None)
+            if model is not None and hasattr(model, "context_axis") and model.context_axis is None:
+                model.context_axis = "context"
         self._wrapped = False
         self.device = engine.device
         self.max_steps = 1 if fast_dev_run else max_steps
@@ -184,6 +200,7 @@ class Trainer:
         # the VAE trainer reads no captions, so it needs no vocabulary (JAX's loop asks for one all the same)
         self.tokenizer = tokenizer or (get_tokenizer(max_length=token_max_length, allow_fallback=fast_dev_run)
                                        if hasattr(engine, "conditioner") else None)
+        self.t5_tokenizer = t5_tokenizer
         self.caption_key = caption_key
         self.logger = JsonlLogger(self.root_dir / "logs", wandb_config=wandb_config) \
             if mesh is None or mesh.is_writer else NullLogger()
@@ -203,6 +220,15 @@ class Trainer:
         embedders = getattr(getattr(self.engine, "conditioner", None), "embedders", ()) or ()
         return max([int(getattr(e, "extended_chunks", 0) or 0) for e in embedders
                     if getattr(e, "input_key", None) == self.caption_key] + [0])
+
+    def _needs_t5_ids(self) -> bool:
+        """Whether an embedder reads a second '<caption>_t5_ids' token stream."""
+        t5_key = f"{self.caption_key}_t5_ids"
+        for emb in getattr(getattr(self.engine, "conditioner", None), "embedders", ()) or ():
+            keys = (emb.token_keys() or []) if hasattr(emb, "token_keys") else []
+            if emb.token_key() == t5_key or t5_key in keys:
+                return True
+        return False
 
     def prepare_batch(self, batch: dict) -> dict:
         """Host batch → tensors on the device: captions tokenized (int64 ids,
@@ -224,13 +250,30 @@ class Trainer:
                     out[f"{k}_ids"] = self.tokenizer.tokenize_extended(list(v), chunks)
                 else:
                     out[f"{k}_ids"] = self.tokenizer(list(v))
+                if self.t5_tokenizer is not None and f"{k}_t5_ids" not in batch:
+                    out[f"{k}_t5_ids"] = self.t5_tokenizer(list(v))
             elif isinstance(v, np.ndarray):
                 out[k] = v
             elif isinstance(v, (list, tuple)) and v and isinstance(v[0], (int, float)):
                 out[k] = np.asarray(v)
         if f"{self.caption_key}_ids" in out and "uncond_ids" not in out:
             out["uncond_ids"] = self.tokenizer([""])
+        if f"{self.caption_key}_t5_ids" in out and "uncond_t5_ids" not in out and self.t5_tokenizer is not None:
+            out["uncond_t5_ids"] = self.t5_tokenizer([""])
+        if self._needs_t5_ids() and f"{self.caption_key}_t5_ids" not in out:
+            raise ValueError(
+                "conditioner expects T5 token ids but no t5_tokenizer is set and "
+                f"the batch has no '{self.caption_key}_t5_ids' — pass Trainer(t5_tokenizer=...) "
+                "or tokenize in the dataset"
+            )
         return out
+
+    def _mesh_scope(self):
+        """The context axis's ring while fit or validate runs (JAX's ``with
+        mesh:``); nothing without one."""
+        if self.mesh is None or self.mesh.context == 1:
+            return contextlib.nullcontext()
+        return on_axis("context", self.mesh.context_ring)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -311,6 +354,10 @@ class Trainer:
     def fit(self, batch_iter_factory: Callable[[], Iterable[dict]]):
         """Run training over batches from ``batch_iter_factory()`` per epoch;
         returns the engine's state."""
+        with self._mesh_scope():
+            return self._fit(batch_iter_factory)
+
+    def _fit(self, batch_iter_factory):
         vae = hasattr(self.engine, "g_step")
         state = None
         global_step = 0
@@ -360,6 +407,10 @@ class Trainer:
 
     def validate(self, batch_iter_factory, max_batches: Optional[int] = None) -> dict:
         """Loss-only evaluation: mean metrics over the dataset (no updates)."""
+        with self._mesh_scope():
+            return self._validate(batch_iter_factory, max_batches)
+
+    def _validate(self, batch_iter_factory, max_batches: Optional[int]) -> dict:
         state = None
         sums: dict = {}
         n = 0

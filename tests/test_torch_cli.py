@@ -309,8 +309,8 @@ def test_configs_build_jax_names_and_shapes(config):
      "asks for 2 devices and the world has 1"),
     (("  fast_dev_run: true\n", "  fast_dev_run: true\n  devices: 8\n  fsdp: 2\n"), ValueError,
      "asks for 8 devices and the world has 1"),
-    (("  fast_dev_run: true\n", "  fast_dev_run: true\n  context_parallel: 2\n"), NotImplementedError,
-     r"item 10 \(ring attention\)"),
+    (("  fast_dev_run: true\n", "  fast_dev_run: true\n  context_parallel: 2\n"), ValueError,
+     r"1 devices not divisible by fsdp=1 x context=2"),
     (("  fast_dev_run: true\n", "  fast_dev_run: true\n  profiler:\n    class_path: NeurosisProfiler\n"),
      NotImplementedError, "item 11"),
     (("seed_everything: 42\n", "seed_everything: 42\nimage_logger:\n  log_step_type: every_epoch\n"),

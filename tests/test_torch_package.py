@@ -319,9 +319,9 @@ def test_every_flash_row_of_the_configs_reaches_a_kernel(kernel_stub, monkeypatc
         monkeypatch.setattr(mod, "init_parameters", lambda module, generator: None)
     rows = []
 
-    def watch(q, k, v, mask=None):
+    def watch(q, k, v, mask=None, context_axis=None):
         rows.append((tuple(q.shape), tuple(k.shape), q.dtype, attention.uses_flash(q, mask)))
-        return attention.dot_product_attention(q, k, v, mask)
+        return attention.dot_product_attention(q, k, v, mask, context_axis)
 
     monkeypatch.setattr(attn_module, "dot_product_attention", watch)
     monkeypatch.setattr(vae, "dot_product_attention", watch)

@@ -78,10 +78,20 @@ def test_mesh_shape_and_errors_are_jax_make_mesh_s(n, data, fsdp, context):
 
 
 def test_a_context_axis_is_refused_naming_the_ring():
+    """No longer refused: a context axis is the mesh's third, last as in
+    JAX's ``make_mesh``, and the CLI's axes give JAX's mesh."""
+    from neurosis_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from neurosis_tpu.trainer.cli import _mesh_args as jax_mesh_args
     from neurosis_tpu_torch.parallel.mesh import mesh_shape
+    from neurosis_tpu_torch.trainer.cli import _mesh_args
 
-    with pytest.raises(NotImplementedError, match=r"item 10 \(ring attention\)"):
-        mesh_shape(8, None, 2, 2)
+    jax_mesh = jax_make_mesh(None, 2, 2, devices=jax.devices()[:8])
+    assert mesh_shape(8, None, 2, 2) == (2, 2, 2) == tuple(jax_mesh.devices.shape)
+    assert jax_mesh.axis_names == ("data", "fsdp", "context")
+    cfg = {"strategy": "fsdp", "fsdp": 2, "context_parallel": 2}
+    devices, fsdp, context = _mesh_args(dict(cfg), 8)
+    assert (devices, fsdp, context) == jax_mesh_args(dict(cfg))
+    assert mesh_shape(8, None, fsdp, context) == (2, 2, 2)
 
 
 def _batch(rows: int, extra: dict = None) -> dict:

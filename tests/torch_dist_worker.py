@@ -12,12 +12,25 @@ worst error as a share of its tolerance (``|got - want| / (atol + rtol ·
 in ``tests/test_torch_distributed.py``. The fsdp-2 mesh also runs the step
 held against JAX's mesh step there (``jax_step``, from the inputs that file
 writes to ``OUT_DIR/jax_inputs.npz``), the data-2 mesh the CLI's ``fit``
-(``cli_fit``), which that file holds against a one-process fit.
+(``cli_fit``), which that file holds against the one-process fit that rank
+0 of the data-2 mesh runs first (``cli_one``).
+
+Sequence parallelism: the data-2 and the 4-rank sets run the ring
+(``ring_check``, over all their ranks: n = 2 and 4), forward and q/k/v
+gradients held against the port's plain attention on the whole sequence
+and written for the test to hold against JAX's ``ring_attention_sharded``;
+the fsdp-2 set runs the CLI's ``fit`` with ``context_parallel: 2`` and the
+4-rank set with fsdp 2 x context 2, both with the UNet's blocks
+checkpointed (the ring recomputed in the backward), held by the test
+against the one-process fit of the same config that rank 0 of the fsdp-2
+set runs first (``cli_one_remat``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import sys
 import time
 from pathlib import Path
@@ -331,26 +344,100 @@ def jax_step(mesh, inputs: Path) -> dict:
             "params": {k: v.numpy() for k, v in _cpu(run.payload())["params"].items()}}
 
 
+# -- ring attention over the ranks -----------------------------------------------------------
+
+RING_SHAPE = (2, 3, 64, 16)  # B, H, S, D: S splits over 2 and 4 ranks
+RING_ODD_S = 66  # divisible by 2, not by 4: ring at n = 2, the whole sequence at n = 4
+FWD = (3e-6, 1e-4)  # tests/test_flash_attention.py:51,58
+GRAD = (2e-5, 1e-3)
+
+
+def ring_inputs(s: int = RING_SHAPE[2]) -> list:
+    """q, k, v and dO [B, H, S, D] fp32, the same on every rank."""
+    rng = np.random.RandomState(7 + s)
+    b, h, _, d = RING_SHAPE
+    return [rng.randn(b, h, s, d).astype(np.float32) for _ in range(4)]
+
+
+def _attend(fn, arrays):
+    """fn(q, k, v) and its q/k/v gradients for dO, as numpy."""
+    q, k, v, do = (torch.tensor(a, requires_grad=i < 3) for i, a in enumerate(arrays))
+    o = fn(q, k, v)
+    grads = torch.autograd.grad(o, (q, k, v), do)
+    return [o.detach().numpy()] + [g.numpy() for g in grads]
+
+
+def ring_check(out: Path) -> dict:
+    """The ring over every rank of the world against the port's plain
+    attention on the whole sequence: O and q/k/v grads (each rank's gathered
+    ones equal rank 0's); at S not divisible by the ring, the dispatch's
+    whole-sequence path. Rank 0 writes its results for the test's JAX
+    comparison and returns the errors as shares of FWD and GRAD."""
+    import torch.distributed as dist
+
+    from neurosis_tpu_torch.ops.attention import dot_product_attention, plain_attention
+    from neurosis_tpu_torch.ops.ring_attention import P2PRing, on_axis
+
+    ring = P2PRing(dist.group.WORLD)
+    res, saved = {}, {}
+    for label, s in (("ring", RING_SHAPE[2]), ("odd", RING_ODD_S)):
+        arrays = ring_inputs(s)
+        with on_axis("context", ring):
+            got = _attend(lambda q, k, v: dot_product_attention(q, k, v, context_axis="context"), arrays)
+        want = _attend(plain_attention, arrays)
+        tols = (FWD, GRAD, GRAD, GRAD)
+        exact = label == "odd" and s % ring.n
+        for name, g, w, tol in zip(("o", "dq", "dk", "dv"), got, want, tols):
+            res[f"{label}/{name}"] = err(g, w, EXACT if exact else tol)
+            saved[f"{label}/{name}"] = g
+        mine = torch.tensor(np.stack(got))
+        every = [torch.empty_like(mine) for _ in range(ring.n)]
+        dist.all_gather(every, mine)
+        res[f"{label}/ranks_agree"] = max(err(e.numpy(), every[0].numpy(), EXACT) for e in every)
+    if dist.get_rank() == 0:
+        np.savez(out, **saved)
+    return res
+
+
 # -- the CLI's fit on the mesh ----------------------------------------------------------------
 
 
-def cli_fit(root: Path) -> None:
-    """``fit`` of ``cli_config(root)`` through the CLI's main, as under torchrun."""
+@contextlib.contextmanager
+def one_process():
+    """The launcher's variables hidden, so that the CLI runs the one-card path."""
+    keys = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+    saved = {k: os.environ.pop(k) for k in keys if k in os.environ}
+    try:
+        yield
+    finally:
+        os.environ.update(saved)
+
+
+def cli_fit(root: Path, strategy: str = "ddp", **kwargs) -> None:
+    """``fit`` of ``cli_config(root, strategy, ...)`` through the CLI's main,
+    as under torchrun (or in one process, under ``one_process``)."""
     from neurosis_tpu_torch.trainer.cli import main as cli_main
 
-    cli_main(["fit", "-c", str(cli_config(root, strategy="ddp")), "--device", "cpu"])
+    cli_main(["fit", "-c", str(cli_config(root, strategy=strategy, **kwargs)), "--device", "cpu"])
 
 
-def cli_config(root: Path, strategy: str = "") -> Path:
+def cli_config(root: Path, strategy: str = "", devices: int = 0, fsdp: int = 0, context: int = 0,
+               remat: bool = False) -> Path:
     """sd15-tiny in fp32 for 2 steps of 2 images, a checkpoint every step,
-    in ``root``; with ``strategy`` the mesh's."""
+    in ``root``; with ``strategy``, ``devices``, ``fsdp`` and
+    ``context`` (``context_parallel``) the mesh's; with ``remat`` the UNet's
+    transformer blocks checkpointed (remat policy full)."""
     text = (ROOT / "configs/smoke/sd15-tiny.yaml").read_text()
     edits = [("  precision: bf16-mixed\n", ""), ("  fast_dev_run: true\n", "  max_steps: 2\n"),
              ("  max_steps: 1\n", ""), ("    resolution: 64\n    image_key: image\n",
                                       "    resolution: 32\n    batch_size: 2\n    num_workers: 0\n    image_key: image\n"),
              ("seed_everything: 42\n", "seed_everything: 42\nmodel_checkpoint:\n  every_n_train_steps: 1\n"),
              ("  default_root_dir: ${oc.env:NEUROSIS_SMOKE_ROOT,./projects/smoke}\n",
-              f"  default_root_dir: {root}\n" + (f"  strategy: {strategy}\n" if strategy else ""))]
+              f"  default_root_dir: {root}\n" + (f"  strategy: {strategy}\n" if strategy else "")
+              + (f"  devices: {devices}\n" if devices else "") + (f"  fsdp: {fsdp}\n" if fsdp else "")
+              + (f"  context_parallel: {context}\n" if context else ""))]
+    if remat:
+        edits.append(("        context_dim: 64\n", "        context_dim: 64\n        use_checkpoint: true\n"))
     for old, new in edits:
         assert text.count(old) == 1, old
         text = text.replace(old, new)
@@ -381,6 +468,11 @@ def main():
     times, ref, res = {}, {}, {}
     one_rank_ckpt = OUT / f"one_rank_{name}.pt"
     if rank == 0:
+        with one_process():  # the one-process fits the test holds the mesh fits against
+            if name == "data2":
+                cli_fit(OUT / "cli_one", strategy="")
+            if name == "fsdp2":
+                cli_fit(OUT / "cli_one_remat", strategy="", remat=True)
         for opt in OPTIMIZERS:
             ref[opt] = sd_run(opt, ema=opt == "adafactor", rows=REPLICATED_ROWS if opt == "adamw8bit" else SD_BATCH)
         ref["vae"] = vae_run()
@@ -390,6 +482,10 @@ def main():
             ref["resumed"] = resumed(ref["adafactor"]["payload"])
     times["reference"] = time.perf_counter() - t0
     dist.barrier()
+    if name in ("data2", "data2xfsdp2"):  # the ring over 2 and over 4 ranks
+        ring = ring_check(OUT / f"ring_{name}.npz")
+        if rank == 0:
+            res["ring"] = ring
     mesh = make_mesh(dist_, data, fsdp)
     for opt in OPTIMIZERS:
         got = sd_run(opt, mesh, ema=opt == "adafactor", rows=REPLICATED_ROWS if opt == "adamw8bit" else SD_BATCH)
@@ -414,6 +510,15 @@ def main():
                      **{"params/" + k: v for k, v in got["params"].items()})
     if name == "data2":
         cli_fit(OUT / "cli_mesh")
+    if name in ("fsdp2", "data2xfsdp2"):  # the UNet's self-attention on the ring, through the CLI
+        from neurosis_tpu_torch.ops.ring_attention import ring_self_attention
+
+        calls = ring_self_attention.calls
+        if name == "fsdp2":
+            cli_fit(OUT / "cli_context2", strategy="", devices=2, context=2, remat=True)
+        else:
+            cli_fit(OUT / "cli_fsdp2_context2", strategy="fsdp", devices=4, fsdp=2, context=2, remat=True)
+        res["context_fit_ring_calls"] = ring_self_attention.calls - calls
     times[name] = time.perf_counter() - t0
     if rank == 0:
         (OUT / f"{name}.json").write_text(json.dumps({"results": res, "seconds": times}, indent=1))
