@@ -17,8 +17,10 @@ a training run of configs/sdxl/sdxl-te.example.yaml as written (fp32 UNet,
 both text towers trainable, 8-bit AdamW, the legacy cosine schedule) that
 saves a checkpoint and is resumed from it, and the SD training path's
 options (objectives, remat policies, caption dropout, loss hooks), the
-VAE-GAN stack's VQ autoencoders with the optimizers left, and training on
-the (data, fsdp) mesh through tools/launch_pod at one NCCL rank.
+VAE-GAN stack's VQ autoencoders with the optimizers left, training on
+the (data, fsdp) mesh through tools/launch_pod at one NCCL rank, the ring
+on the context axis, and the DreamSim VAE fit (vae.example.yaml with the
+AutoencoderDreamsim loss) with trainer.profiler:.
 
 Phases, each fatal on failure:
   1. environment: Python, torch and CUDA versions, the card's name and power limit;
@@ -141,7 +143,25 @@ Phases, each fatal on failure:
      resumed from a one-card save, against one card within 1e-3; with two
      cards, the copy at devices 2 as data 2 and as fsdp 2 against one rank,
      else the line that says tier-1's gloo tests hold them. The run
-     directory, with two SDXL checkpoints, is deleted afterwards.
+     directory, with two SDXL checkpoints, is deleted afterwards;
+ 18. the context axis: ring_self_attention over LocalRing(n) against the
+     full-sequence flash kernel and the plain ring, FrozenCLIPT5Encoder at
+     full width card vs CPU, the SDXL UNet wired for context_parallel;
+ 19. DreamSim, in chiprun_out/cli/: fit of vae.example.yaml with its loss:
+     swapped for AutoencoderDreamsim (l1, weights 1.0, the dino/clip1/clip2
+     ensemble, towers at 224 px) as written (fp32) and in a bf16-mixed
+     copy, 3 steps each on phase 11's PNGs, the third profiled (device ms
+     by kind, busy share, peak, launches); the bf16 copy for 4 steps with a
+     trainer.profiler: node (skip_first 1, warmup 1, active 1,
+     capture_depth 2): its run_000/trace.json holds device kernels, the
+     summary's module rows hold the three towers and the VAE, every port
+     kernel of the traced step sits under a VAE module, and the towers'
+     share of the step's device time; the VAE at vae-tiny.yaml's dims with
+     AutoencoderDreamsim, 2 generator steps card vs CPU in fp32 and bf16;
+     at full width, batch 1, fp32 within 1e-3: one DreamSim distance,
+     FrozenOpenCLIPImageEmbedder at ViT-H-14's widths and
+     create_dinov2("dinov2_vitb14") at 224 px; the path's kernel rows of
+     phase 3 printed again.
 Phases 11, 13 and 14 load batches in 2 spawned prefetch worker processes
 (the CLI's default num_workers), which see no CUDA device.
 Then one JSON line of kernels, the nvidia-smi line and, last, the result line.
@@ -384,7 +404,8 @@ VQ_CONV_SHAPES = {(8, 64, 64, 512, 512): (2, 1), (8, 64, 64, 256, 256): (0, 9), 
 VQ_VAL_F32_FLASH_SHAPES = {(8, 1, 1024, 1024, 512): 14}
 VQ_DIR = CLI_DIR / "data" / "vq" / "folder"
 VQ_SIZES = [(256 + 16 * (i % 4), 256 + 16 * (i // 4)) for i in range(VQ_IMAGES)]  # (width, height), >= 256
-VAE_CLI_PATHS = ("cli_vae", "cli_vq_f32", "cli_vq_bf16", "cli_vae_ddp")
+VAE_CLI_PATHS = ("cli_vae", "cli_vq_f32", "cli_vq_bf16", "cli_vae_ddp", "cli_ds_f32", "cli_ds_bf16",
+                 "cli_ds_profiler")
 
 # phase 18: SDXL's level-1 self-attention at batch 2 (1024 px), split over a ring of n slices on one
 # card; each ring runs n x n flash blocks (q of S/n rows against kv of S/n rows) forward and backward
@@ -394,6 +415,20 @@ RING_FLASH_SHAPES = {(2, 10, 4096 // n, 4096 // n, 64): (n * n, n * n) for n in 
 # FrozenCLIPT5Encoder at its defaults: CLIP-L and T5 v1.1-XL (d_model 2048, 24 layers, 32 heads, d_ff 5120)
 CLIP_T5_PROMPTS = ("a photograph of an astronaut riding a horse", "a red fox in fresh snow, soft light")
 CLIP_T5_TOL = {"fp32": 1e-3, "bf16": 2e-2}  # PERF.md section 2's card-vs-CPU gates
+
+# phase 19: configs/vae/vae.example.yaml with its loss swapped for AutoencoderDreamsim (the three
+# ViT-B/16 towers at 224 px, fp32, frozen; no discriminator, so every step is a generator step).
+# The towers' attention (197 tokens) and products are plain matmuls, as JAX's einsums are. As
+# written (fp32) a step launches cli_vae's kernels; the bf16-mixed copy (256 px, batch 2) launches
+# the mid attention's flash pair and both conv kernels at 64x64 and 32x32, per generator step:
+DS_FLASH_SHAPES = {(2, 1, 1024, 1024, 512): (2, 2)}
+DS_CONV_SHAPES = {(2, 64, 64, 512, 512): (1, 10), (2, 64, 64, 256, 512): (0, 1), (2, 32, 32, 512, 512): (0, 18)}
+DS_GN_CONV_SHAPES = {(2, 64, 64, 256, 512): 1, (2, 64, 64, 512, 512): 9, (2, 32, 32, 512, 512): 18}
+DS_STEPS = 3
+DS_PROFILED_STEPS = 4  # skip_first 1, warmup 1, active 1: the profiler starts after step 3 and traces step 4
+DS_TOWERS = ("dino", "clip1", "clip2")
+DS_TOL = {"fp32": (1e-3, 1e-2), "bf16": (2e-2, 5e-2)}  # PERF.md section 2: losses, grad norms
+DS_FULL_WIDTH_TOL = 1e-3  # fp32 card vs CPU at full width
 
 # path -> (its key in the report, the unit its launch tables count)
 PATHS = {"sd15": ("slice", "SD1.5 train step"),
@@ -440,12 +475,19 @@ PATHS = {"sd15": ("slice", "SD1.5 train step"),
          "cli_vae_ddp": ("cli_vae_ddp", "G/D pair of vae.example.yaml (fp32, disc_start 1) under strategy ddp at one "
                                         "NCCL rank, through tools/launch_pod"),
          "ring": ("ring", "ring self-attention forward and backward on one card (in-process rotation): SDXL level 1, "
-                          "2x10x4096x64, at n = 2 and 4 slices, in bf16 and in fp32 (four rings)")}
+                          "2x10x4096x64, at n = 2 and 4 slices, in bf16 and in fp32 (four rings)"),
+         "cli_ds_f32": ("cli_ds_f32", "generator step of vae.example.yaml with its loss AutoencoderDreamsim (ensemble, "
+                                      "l1; fp32, 256 px, batch 2) through the CLI"),
+         "cli_ds_bf16": ("cli_ds_bf16", "generator step of that DreamSim copy with precision bf16-mixed through the "
+                                        "CLI"),
+         "cli_ds_profiler": ("cli_ds_profiler", "generator step of the bf16-mixed DreamSim copy with trainer.profiler: "
+                                                "(module spans on) through the CLI")}
 # a path whose shape tables are another's (the same step, reached another way; the towers of
 # sdxl-te train, but at 77 tokens their attention is under the flash gate)
 TABLES_OF = {"cli_sdxl_bf16": "sdxl", "cli_sdxl_te": "cli_sdxl_f32", "cli_sdxl_vpred": "sdxl", "cli_sdxl_remat": "sdxl",
              "cli_vpred_logger": "cli_logger", "cli_sd15_edm": "sd15_f32", "cli_sd15_rf": "sd15_f32",
-             "cli_vae_val": "cli_vae_logger", "cli_sdxl_fsdp": "sdxl"}
+             "cli_vae_val": "cli_vae_logger", "cli_sdxl_fsdp": "sdxl", "cli_ds_f32": "cli_vae",
+             "cli_ds_profiler": "cli_ds_bf16"}
 
 # tolerances on max|kernel - plain| / max|plain|, same bf16 inputs on both sides
 TOL = {
@@ -594,7 +636,8 @@ def flash_tables(torch) -> list:
            [("cli_vq_val", sh, (n, 0), f32) for sh, n in VQ_VAL_F32_FLASH_SHAPES.items()] + \
            [(path, sh, (n, 0), dtype) for path, tables in sampling_tables().items()
             for dtype, table in zip((bf16, f32), tables[:2]) for sh, n in table.items()] + \
-           [("ring", sh, n, dtype) for dtype in (bf16, f32) for sh, n in RING_FLASH_SHAPES.items()]
+           [("ring", sh, n, dtype) for dtype in (bf16, f32) for sh, n in RING_FLASH_SHAPES.items()] + \
+           [("cli_ds_bf16", sh, n, bf16) for sh, n in DS_FLASH_SHAPES.items()]
 
 
 def check_flash(torch, log: list) -> dict:
@@ -740,7 +783,8 @@ def check_conv(torch, log: list) -> dict:
              [("vae_gan", sh, n) for sh, n in VAE_CONV_SHAPES.items()] + \
              [("sdxl", sh, n) for sh, n in SDXL_CONV_SHAPES.items()] + \
              [("cli_vq_bf16", sh, n) for sh, n in VQ_CONV_SHAPES.items()] + \
-             [(path, sh, (n, 0)) for path, t in sampling.items() for sh, n in t[2].items()]
+             [(path, sh, (n, 0)) for path, t in sampling.items() for sh, n in t[2].items()] + \
+             [("cli_ds_bf16", sh, n) for sh, n in DS_CONV_SHAPES.items()]
     measured = {}  # (kind, shape) -> its row: another path's row at that shape reuses it
     for path, shape, (n_fwd, n_dgrad) in tables:
         if all((kind, shape) in measured for kind, n in (("fwd", n_fwd), ("dgrad", n_dgrad)) if n):
@@ -777,7 +821,8 @@ def check_conv(torch, log: list) -> dict:
                 [("vae_gan", sh, n) for sh, n in VAE_GN_CONV_SHAPES.items()] + \
                 [("sdxl", sh, n) for sh, n in SDXL_GN_CONV_SHAPES.items()] + \
                 [("cli_vq_bf16", sh, n) for sh, n in VQ_GN_CONV_SHAPES.items()] + \
-                [(path, sh, n) for path, t in sampling.items() for sh, n in t[3].items()]
+                [(path, sh, n) for path, t in sampling.items() for sh, n in t[3].items()] + \
+                [("cli_ds_bf16", sh, n) for sh, n in DS_GN_CONV_SHAPES.items()]
     for path, shape, n in gn_tables:
         if ("gn", shape) in measured:
             rows["gn_silu_conv3x3"].append(dict(measured["gn", shape], path=path, per_step=n))
@@ -3212,6 +3257,315 @@ def run_ring_phase(torch, rows: dict, log: list) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the DreamSim VAE fit, the profiler, the vision towers
+# ---------------------------------------------------------------------------
+
+DS_LOSS_NODE = ("    loss:\n      class_path: neurosis.modules.autoencoding.losses.AutoencoderDreamsim\n"
+                "      init_args:\n        recon_type: l1\n        recon_weight: 1.0\n        dreamsim_weight: 1.0\n"
+                "        ensemble: true\n\n")
+DS_PROFILER_NODE = ("  profiler:\n    init_args:\n      dirpath: profiles/dreamsim\n      capture_depth: 2\n"
+                    "      schedule:\n        skip_first: 1\n        warmup: 1\n        active: 1\n")
+
+
+def phase19_configs(repo: Path) -> dict:
+    """Copies of configs/vae/vae.example.yaml with its ``loss:`` node
+    swapped for AutoencoderDreamsim (l1, the weights 1.0, the ensemble) and
+    fast_dev_run off: {"f32": 3 steps as written, "bf16": 3 steps,
+    precision bf16-mixed, "profiled": the bf16 copy for 4 steps with a
+    trainer.profiler: node}, written into CLI_DIR; each checked to differ
+    from the file in those keys only."""
+    from neurosis_tpu_torch.config.loader import load_config
+
+    src = repo / "configs" / "vae" / "vae.example.yaml"
+    text = src.read_text()
+    start, end = text.index("    loss:\n"), text.index("    optimizer:\n")
+    base = text[:start] + DS_LOSS_NODE + text[end:]
+    written = "  fast_dev_run: true\n"
+    if base.count(written) != 1:
+        raise PhaseError(f"{src} no longer has the line {written!r}")
+    trainers = {"f32": f"  fast_dev_run: false\n  max_steps: {DS_STEPS}\n",
+                "bf16": f"  fast_dev_run: false\n  max_steps: {DS_STEPS}\n  precision: bf16-mixed\n",
+                "profiled": f"  fast_dev_run: false\n  max_steps: {DS_PROFILED_STEPS}\n  precision: bf16-mixed\n"
+                            + DS_PROFILER_NODE}
+    want = load_config(src)
+    want["model"]["init_args"]["loss"] = {
+        "class_path": "neurosis.modules.autoencoding.losses.AutoencoderDreamsim",
+        "init_args": {"recon_type": "l1", "recon_weight": 1.0, "dreamsim_weight": 1.0, "ensemble": True}}
+    out = {}
+    for name, trainer in trainers.items():
+        path = (CLI_DIR / f"vae-dreamsim-{name}.yaml").resolve()
+        path.write_text(base.replace(written, trainer))
+        cfg = load_config(path)
+        expect = json.loads(json.dumps(want))
+        expect["trainer"].update(fast_dev_run=False, max_steps=DS_PROFILED_STEPS if name == "profiled" else DS_STEPS)
+        if name != "f32":
+            expect["trainer"]["precision"] = "bf16-mixed"
+        if name == "profiled":
+            expect["trainer"]["profiler"] = {"init_args": {"dirpath": "profiles/dreamsim", "capture_depth": 2,
+                                                           "schedule": {"skip_first": 1, "warmup": 1, "active": 1}}}
+        if cfg != expect:
+            raise PhaseError(f"the DreamSim copy {path.name} differs from vae.example.yaml in more than its keys")
+        out[name] = path
+    return out
+
+
+def _busy_share(run: dict) -> dict:
+    """The profiled step's device ms by kind beside the host ms of the step before it (unprofiled)."""
+    prof = run["profiles"][0]
+    host = run["metrics"][-2]["step_ms"]
+    share = None if prof["device_ms"] is None else prof["device_ms"] / host
+    return dict(device_ms=prof["device_ms"], kinds_ms=prof["kinds_ms"], launches=prof["launches"],
+                host_step_ms=host, busy_share=share, peak_gb=run["peak_bytes"] / 1e9)
+
+
+def run_dreamsim_profiler(torch, rows: dict, config: Path) -> dict:
+    """(b) The bf16 DreamSim copy for DS_PROFILED_STEPS steps with its
+    trainer.profiler: node: profiles/dreamsim/run_000/trace.json holds
+    device kernels; the summary's module rows hold the three towers and the
+    VAE; every port kernel of the traced step is claimed by a CPU op (a
+    ``neurosis::`` op or the flash function's backward) and sits under a
+    VAE module; the towers' share of the step's device time."""
+    import shutil
+
+    from neurosis_tpu_torch.trainer import cli
+    from neurosis_tpu_torch.trainer import profile as profile_mod
+
+    shutil.rmtree("profiles/dreamsim", ignore_errors=True)
+    made, inner_profiler, inner_aggregate, kept = [], cli._profiler, profile_mod.aggregate, []
+
+    def profiler(node):
+        made.append(inner_profiler(node))
+        return made[-1]
+
+    def aggregate(events, cuda):
+        kept.append(events)
+        return inner_aggregate(events, cuda)
+
+    cli._profiler, profile_mod.aggregate = profiler, aggregate
+    try:
+        run = run_cli(torch, rows, config, "CLI fit DreamSim VAE bf16-mixed, trainer.profiler:", "cli_ds_profiler",
+                      DS_PROFILED_STEPS, profiled=False)
+    finally:
+        cli._profiler, profile_mod.aggregate = inner_profiler, inner_aggregate
+    if len(made) != 1 or len(kept) != 1:
+        raise PhaseError(f"the profiled fit made {len(made)} profilers and {len(kept)} traces, not 1 and 1")
+    prof, events = made[0], kept[0]
+    trace = Path("profiles/dreamsim/run_000") / profile_mod.TRACE_FILE
+    if not trace.exists() or Path("profiles/dreamsim/run_001").exists():
+        raise PhaseError(f"the profiler did not write {trace} alone")
+    trace_bytes = trace.stat().st_size
+    device_events = sum(1 for e in json.loads(trace.read_text())["traceEvents"] if e.get("cat") == "kernel")
+    shutil.rmtree("profiles/dreamsim")  # tens of MB: read here, not brought back
+    if not device_events:
+        raise PhaseError(f"{trace} holds no device kernels")
+    ops_rows, mod_rows = prof.key_averages("op"), prof.key_averages("module")
+    total_us = sum(r["device_time_us"] for r in mod_rows)
+    for title, table in (("op", ops_rows), ("module", mod_rows)):
+        for r in table[:10]:
+            print(f"profiler summary by {title}: {r['key'][:70]:70s} {r['count']:6d} x, {r['device_time_us']:12.1f} us, "
+                  f"{100 * r['device_time_us'] / total_us:5.1f}%", flush=True)
+    towers = {t: sum(r["device_time_us"] for r in mod_rows if r["key"].startswith(f"dreamsim.{t}(")) for t in DS_TOWERS}
+    vae_us = sum(r["device_time_us"] for r in mod_rows if r["key"].split("(")[0].split(".")[0] in
+                 ("Encoder", "Decoder", "down", "up", "mid", "conv_in", "conv_out", "norm_out"))
+    if not all(towers.values()) or not vae_us:
+        raise PhaseError(f"the module rows lack a tower or the VAE: towers {towers} us, VAE {vae_us} us")
+    # the port's kernels of the traced step: each claimed by its launching CPU op, under a VAE module
+    cuda = torch.autograd.DeviceType.CUDA
+    module_of = profile_mod.module_resolver(events)
+    port = lambda name: kernel_kind(name) == "port kernels"  # noqa: E731
+    traced = sum(1 for e in events if e.device_type == cuda and port(e.name))
+    by_module: dict = {}
+    for e in events:
+        if e.device_type != cuda:
+            for k in e.kernels:
+                if port(k.name):
+                    key = (module_of(e), e.name)
+                    by_module[key] = by_module.get(key, 0) + 1
+    for (mod, op), n in sorted(by_module.items()):
+        print(f"profiler: port kernels under {mod} from {op}: {n}", flush=True)
+    claimed = sum(by_module.values())
+    if not traced or claimed != traced or any(mod == profile_mod.NO_SPAN or mod.startswith("dreamsim")
+                                              for mod, _ in by_module):
+        raise PhaseError(f"of {traced} port kernels in the trace {claimed} were claimed by a CPU op, under "
+                         f"{sorted(set(m for m, _ in by_module))}")
+    share = sum(towers.values()) / total_us
+    print(f"profiler: the towers take {share:.4f} of the traced step's {total_us / 1e3:.3f} device ms "
+          f"({', '.join(f'{t} {us / 1e3:.3f} ms' for t, us in towers.items())}); the VAE's modules "
+          f"{vae_us / 1e3:.3f} ms; trace {trace_bytes} bytes, {device_events} device kernels", flush=True)
+    run.update(towers_ms={t: us / 1e3 for t, us in towers.items()}, towers_share=share, vae_ms=vae_us / 1e3,
+               traced_device_ms=total_us / 1e3, trace_bytes=trace_bytes, trace_kernels=device_events,
+               top_ops=ops_rows[:10], top_modules=mod_rows[:10],
+               port_kernels_by_module={f"{m} / {o}": n for (m, o), n in by_module.items()})
+    return run
+
+
+def _host_copy(torch, module_cls, card, kwargs: dict, *patched):
+    """``module_cls(**kwargs)`` on the CPU without drawing its init (each of
+    ``patched``' init_parameters stubbed), holding the card module's weights."""
+    saved = [m.init_parameters for m in patched]
+    for m in patched:
+        m.init_parameters = lambda module, generator: None
+    try:
+        host = module_cls(**kwargs, device="cpu", generator=torch.Generator("cpu"))
+    finally:
+        for m, f in zip(patched, saved):
+            m.init_parameters = f
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()}, strict=True)
+    return host
+
+
+def reference_dreamsim(torch, log: list) -> dict:
+    """(c) The VAE at configs/smoke/vae-tiny.yaml's dims with
+    AutoencoderDreamsim (full-width towers, AdamW 1e-4): 2 generator steps on
+    the card against the CPU from the same weights and posterior noise, fp32
+    and bf16, under DS_TOL (losses, grad norms)."""
+    from neurosis_tpu_torch import ops
+    from neurosis_tpu_torch.losses import dreamsim
+    from neurosis_tpu_torch.models.vae import Decoder, Encoder
+    from neurosis_tpu_torch.optimizers.adamw import adamw
+    from neurosis_tpu_torch.trainer.vae_engine import AutoencodingEngine
+
+    card_loss = dreamsim.AutoencoderDreamsim(device="cuda", generator=torch.Generator("cuda").manual_seed(19))
+    host_loss = _host_copy(torch, dreamsim.AutoencoderDreamsim, card_loss, {}, dreamsim)
+    images = make_images(torch, "cpu", 2, 64, torch.Generator("cpu").manual_seed(20))
+    eps = torch.randn(2, 32, 32, TINY_VAE["z_channels"], generator=torch.Generator("cpu").manual_seed(21))
+    out = {}
+    for label, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+        engines = {}
+        for dev, loss in (("cpu", host_loss), ("cuda", card_loss)):
+            g = torch.Generator(dev).manual_seed(22)
+            enc = Encoder(**TINY_VAE, double_z=True, in_channels=3, dtype=dtype, device=dev, generator=g)
+            dec = Decoder(**TINY_VAE, out_ch=3, dtype=dtype, device=dev, generator=g)
+            if dev == "cuda":  # the CPU's weights
+                enc.load_state_dict(engines["cpu"].encoder.state_dict())
+                dec.load_state_dict(engines["cpu"].decoder.state_dict())
+            engines[dev] = AutoencodingEngine(enc, dec, loss, g_optimizer=lambda ps: adamw(ps, 1e-4), kl_weight=1e-6,
+                                              device=dev)
+        metrics, before = {}, ops.launch_counts()
+        for dev, eng in engines.items():
+            state, steps = eng.init(seed=0), []
+            for _ in range(2):
+                state, lg = eng.g_step(state, {"image": images.to(dev)}, posterior_noise=eps.to(dev))
+                norm = float(torch.stack([p.grad.float().norm() for p in eng.g_parameters()]).norm())
+                steps.append(dict(total=float(lg["total"]), rec=float(lg["train/loss/rec"]),
+                                  dreamsim=float(lg["train/loss/dreamsim"]), grad_norm=norm))
+            if any(p.grad is not None for p in eng.loss.parameters()):
+                raise PhaseError("a DreamSim tower took a grad")
+            metrics[dev] = steps
+        launched = {k: n - before[k] for k, n in ops.launch_counts().items() if n != before[k]}
+        print(f"reference DreamSim VAE {label}: launches {launched}", flush=True)
+        tol_loss, tol_norm = DS_TOL[label]
+        for i, (c, h) in enumerate(zip(metrics["cuda"], metrics["cpu"])):
+            for key in ("total", "rec", "dreamsim", "grad_norm"):
+                tol = tol_norm if key == "grad_norm" else tol_loss
+                check(f"DreamSim VAE at vae-tiny's dims {label} step {i + 1} {key}: cuda {c[key]:.6g} vs cpu "
+                      f"{h[key]:.6g}", abs(c[key] - h[key]) / abs(h[key]), tol, log)
+        out[label] = dict(metrics, launches=launched)
+    del card_loss, host_loss
+    torch.cuda.empty_cache()
+    return out
+
+
+def full_width_towers(torch, log: list) -> dict:
+    """(c) At full width, batch 1, fp32, card against CPU within
+    DS_FULL_WIDTH_TOL: one AutoencoderDreamsim distance (256 px pair, the
+    three ViT-B/16 at 224), FrozenOpenCLIPImageEmbedder at ViT-H-14's widths
+    (256 px in, resized to 224) and create_dinov2("dinov2_vitb14") at 224 px
+    (no checkpoint: the seeded init); each one's device ms."""
+    import tempfile
+
+    from neurosis_tpu_torch.losses import dreamsim
+    from neurosis_tpu_torch.models import dinov2
+    from neurosis_tpu_torch.models.text_encoder import clip_image
+
+    g = torch.Generator("cpu").manual_seed(23)
+    x = make_images(torch, "cpu", 2, 256, g).float() / 127.5 - 1.0
+    cases = {}
+    card = dreamsim.AutoencoderDreamsim(device="cuda", generator=torch.Generator("cuda").manual_seed(24))
+    cases["AutoencoderDreamsim distance"] = (card, _host_copy(torch, dreamsim.AutoencoderDreamsim, card, {}, dreamsim),
+                                             lambda m, t: m(t[:1], t[1:])[1]["train/loss/dreamsim"][None])
+    card = clip_image.FrozenOpenCLIPImageEmbedder(device="cuda", generator=torch.Generator("cuda").manual_seed(25))
+    cases["FrozenOpenCLIPImageEmbedder ViT-H-14"] = (
+        card, _host_copy(torch, clip_image.FrozenOpenCLIPImageEmbedder, card, {}, clip_image),
+        lambda m, t: m(t[:1])[0])
+    with tempfile.TemporaryDirectory(dir=CLI_DIR) as empty:
+        card, _ = dinov2.create_dinov2("dinov2_vitb14", data_dir=empty, device="cuda",
+                                       generator=torch.Generator("cuda").manual_seed(26))
+    host = _host_copy(torch, dinov2.DinoVisionTransformer, card, dict(
+        embed_dim=768, depth=12, heads=12, ffn_layer="mlp", init_values=1.0, interpolate_offset=0.1), dinov2)
+
+    def dino_tokens(m, t):
+        o = m((t[:1, 16:240, 16:240] + 1) / 2)  # 224 px in [0, 1]
+        return torch.cat([o["x_norm_clstoken"], o["x_norm_patchtokens"].flatten(1)], dim=1)
+
+    cases["create_dinov2 dinov2_vitb14"] = (card, host, dino_tokens)
+    out = {}
+    x_card = x.cuda()
+    with torch.no_grad():
+        for label, (card, host, fn) in cases.items():
+            got, want = fn(card, x_card), fn(host, x)
+            if not bool(torch.isfinite(got).all()) or tuple(got.shape) != tuple(want.shape):
+                raise PhaseError(f"{label}: not finite or of shape {tuple(got.shape)}")
+            err, rel = rel_err(got.cpu(), want)
+            check(f"{label} {tuple(got.shape)} card vs CPU fp32", rel, DS_FULL_WIDTH_TOL, log, err)
+            ms = time_ms(torch, lambda: fn(card, x_card), iters=5)
+            print(f"{label}: {ms:.3f} ms on the card, batch 1", flush=True)
+            out[label] = dict(rel_err=rel, max_abs_err=err, ms=ms,
+                              params=sum(p.numel() for p in card.parameters()))
+    del cases, card, host
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_dreamsim_phase(torch, rows: dict, log: list) -> dict:
+    """Phase 19, in CLI_DIR: (a) the DreamSim copies of vae.example.yaml
+    (fp32 as written, and bf16-mixed) for DS_STEPS steps, the last profiled
+    alone; (b) the bf16 copy with trainer.profiler:; (c) the small engine
+    and the full-width towers, card against CPU. Phase 3 held this path's
+    kernels (cli_ds_bf16's rows, cli_vae's for fp32) at its shapes."""
+    import os
+
+    t0 = time.perf_counter()
+    folder = CLI_DIR / "data" / "dataset" / "folder"
+    if not any(folder.glob("*.png")):
+        write_image_folder(torch, folder)
+    configs = phase19_configs(Path.cwd().resolve())
+    out = {}
+    cwd, prefetch = os.getcwd(), os.environ.get("NEUROSIS_PREFETCH")
+    os.chdir(CLI_DIR)
+    # the prefetch workers as threads: a spawned worker's start (~10 s) each fit, not measured here
+    os.environ["NEUROSIS_PREFETCH"] = "thread"
+    try:
+        for key, name, label in (("cli_ds_f32", "f32", "fp32"), ("cli_ds_bf16", "bf16", "bf16-mixed")):
+            out[key] = run_cli(torch, rows, configs[name], f"CLI fit DreamSim VAE ({label})", key, DS_STEPS,
+                               profiled=False, profile_step=DS_STEPS)
+            if "train/loss/dreamsim" not in out[key]["metrics"][0]:
+                raise PhaseError(f"{key}: the step logged no train/loss/dreamsim")
+            out[key]["step"] = _busy_share(out[key])
+            print(f"{key}: profiled step busy share {out[key]['step']['busy_share']:.4f} of the host step before it "
+                  f"({out[key]['step']['host_step_ms']:.1f} ms)", flush=True)
+        out["cli_ds_profiler"] = run_dreamsim_profiler(torch, rows, configs["profiled"])
+    finally:
+        os.chdir(cwd)
+        if prefetch is None:
+            os.environ.pop("NEUROSIS_PREFETCH", None)
+        else:
+            os.environ["NEUROSIS_PREFETCH"] = prefetch
+    out["reference_dreamsim"] = reference_dreamsim(torch, log)
+    out["dreamsim_full_width"] = full_width_towers(torch, log)
+    for name, rs in rows.items():
+        for r in rs:
+            if r["path"] in ("cli_ds_bf16", "cli_vae"):
+                lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.3f}"
+                print(f"phase 19 {name} {r['shape']} ({r['path']}, {r['per_step']} a step): {r['ms']:.3f} ms, "
+                      f"bound {r['bound_ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, library {lib} ms, max abs err "
+                      f"{r['max_abs_err']:.3e}", flush=True)
+    out["cli_ds_f32"]["phase_s"] = time.perf_counter() - t0
+    print(f"phase 19: {out['cli_ds_f32']['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def kernel_kind(name: str) -> str:
     """Which layer a device kernel belongs to, by its name."""
     low = name.lower()
@@ -3357,6 +3711,8 @@ def main() -> int:
         report.update(run_mesh_phase(torch, rows, report))
         torch.cuda.empty_cache()
         report.update(run_ring_phase(torch, rows, log))
+        torch.cuda.empty_cache()
+        report.update(run_dreamsim_phase(torch, rows, log))
         report["seconds"] = time.perf_counter() - t_start
         print(f"all phases: {report['seconds']:.1f} s", flush=True)
     except Exception as e:  # any failed phase ends the run without a result line

@@ -20,7 +20,13 @@ T5 names its modules with HF's dotted paths, so the same rules give
 'transformer.encoder.block.0.layer.0.SelfAttention.q.weight',
 '...relative_attention_bias.weight' and 'transformer.shared.weight' (under
 CLIP-T5's 'clip_encoder.'/'t5_encoder.'), and a ClassEmbedder's table
-'embedding.weight'.
+'embedding.weight'. The vision towers' leaves follow too: the patch convs
+('model.visual.conv1.weight', 'dreamsim.dino.patch_embed.proj.weight', OIHW),
+the bare tokens and embeddings, which keep their names and layouts
+('model.visual.class_embedding', '...positional_embedding', 'cls_token',
+'pos_embed', 'register_tokens', and 'model.visual.proj' as [width, out],
+used as ``x @ proj``), DINOv2's LayerScales ('blocks.0.ls1.gamma') and its
+SwiGLU ('blocks.0.mlp.w12.weight', '...mlp.w3.weight').
 Two leaves are named by their place: a codebook (a bare ``embedding`` leaf
 at the root of the tree, or of a ``regularizer`` or ``quantizer``, where
 flax's ``nn.Embed`` always sits inside a named module) becomes

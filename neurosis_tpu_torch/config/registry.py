@@ -113,6 +113,10 @@ _PORTED = {
     _AE + "losses.GeneralLPIPSWithDiscriminator": ("losses.discriminator_loss", "GeneralLPIPSWithDiscriminator"),
     _AE + "losses.VQLPIPSWithDiscriminator": ("losses.discriminator_loss", "VQLPIPSWithDiscriminator"),
     _AE + "losses.LatentLPIPS": ("losses.vae_loss", "LatentLPIPS"),
+    _AE + "losses.AutoencoderDreamsim": ("losses.dreamsim", "AutoencoderDreamsim"),
+    **{p: ("trainer.profile", "NeurosisProfiler") for p in (
+        "neurosis.trainer.profile.NeurosisProfiler", "neurosis.trainer.profile.profiler.NeurosisProfiler",
+        "NeurosisProfiler")},
     **{_AE + "regularizers." + n: ("modules.regularizers", n) for n in (
         "DiagonalGaussianRegularizer", "IdentityRegularizer")},
     **{_AE + "regularizers.quantize." + n: ("modules.regularizers", n) for n in (
@@ -123,10 +127,8 @@ _PORTED = {
 _NOT_PORTED: Dict[str, str] = {}
 _REST_ITEM = "11 (the rest)"
 _NOT_PORTED.update({p: _REST_ITEM for p in (
-    [_AE + "losses.AutoencoderDreamsim", "neurosis.trainer.profile.NeurosisProfiler",
-     "neurosis.trainer.profile.profiler.NeurosisProfiler", "NeurosisProfiler"]
-    + [_DS + m + "." + c + k for m in ("mongo", "mongo.aspect", "mongo.nobucket", "mongo.nocaption")
-       for c in ("MongoAspect", "MongoSquare", "MongoVAE") for k in ("Dataset", "Module")])})
+    [_DS + m + "." + c + k for m in ("mongo", "mongo.aspect", "mongo.nobucket", "mongo.nocaption")
+     for c in ("MongoAspect", "MongoSquare", "MongoVAE") for k in ("Dataset", "Module")])})
 
 
 def resolve_class_path(path: str) -> Any:

@@ -28,9 +28,13 @@ and ``context_parallel`` give its shape as JAX's ``_mesh_args`` does
 ``context_parallel: N`` > 1 adds the context axis: the UNet's self-attention
 rides a ring of N ranks (``ops/ring_attention.py``). ``predict`` runs on one.
 
+``trainer.profiler:`` adds a ``NeurosisProfiler`` (``trainer/profile.py``,
+torch.profiler) callback, as JAX's cli.py:142-160 builds it: ``dirpath``, the
+five ``schedule`` keys, ``record_module_names`` and ``capture_depth``.
+
 Config nodes the port cannot honour yet raise ``NotImplementedError`` naming
-their ROADMAP Queue 1 item, never pass in silence: ``trainer.profiler:``
-(11), a remote checkpoint ``dirpath`` (11).
+their ROADMAP Queue 1 item, never pass in silence: a remote checkpoint
+``dirpath`` (11).
 """
 
 from __future__ import annotations
@@ -90,13 +94,6 @@ def _wandb_config(trainer_cfg: dict):
                 cfg["dir"] = ia["save_dir"]
             return cfg
     return None
-
-
-def _refuse_unported(cfg: dict, trainer_cfg: dict) -> None:
-    """Raise on every node the port cannot honour yet (see the module doc)."""
-    if trainer_cfg.get("profiler"):
-        raise NotImplementedError("trainer.profiler: (NeurosisProfiler on torch.profiler) is not ported yet: "
-                                  "ROADMAP Queue 1 item 11")
 
 
 def _mesh_args(trainer_cfg: dict, world_size: int):
@@ -181,7 +178,23 @@ def _callbacks(trainer_cfg: dict) -> list:
                 callbacks.append(resolve_class_path(cp)(**ia))
             except Exception:
                 logger.warning(f"skipping unsupported trainer callback {cp!r}")
+    if trainer_cfg.get("profiler"):
+        callbacks.append(_profiler(trainer_cfg["profiler"]))
     return callbacks
+
+
+def _profiler(node):
+    """``trainer.profiler:`` (the reference's NeurosisProfiler) → the port's
+    step-windowed torch.profiler callback with module-name spans."""
+    from .profile import NeurosisProfiler, ProfilerSchedule
+
+    ia = (node.get("init_args") or {}) if isinstance(node, dict) else {}
+    sched = ia.get("schedule") or {}
+    known = {k: sched[k] for k in ("skip_first", "wait", "warmup", "active", "repeat") if k in sched}
+    return NeurosisProfiler(dirpath=ia.get("dirpath", "./profiles"),
+                            schedule=ProfilerSchedule(**known) if known else None,
+                            record_module_names=ia.get("record_module_names", True),
+                            capture_depth=ia.get("capture_depth", -1))
 
 
 def _build(args):
@@ -195,7 +208,6 @@ def _build(args):
 
     cfg = load_config(args.config)
     trainer_cfg = cfg.get("trainer", {}) or {}
-    _refuse_unported(cfg, trainer_cfg)
     predict = getattr(args, "command", None) == "predict"
     mesh = None if predict else _mesh(trainer_cfg, args.device)
     if predict:

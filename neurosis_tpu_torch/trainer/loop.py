@@ -8,7 +8,10 @@ g/d steps on its schedule) → metrics to ``<root>/logs/metrics.jsonl``
 (``step_ms``, the step and a device sync) and the data time before it
 (``data_ms``: next batch, tokenize, copy to the device) are logged beside
 its metrics; each step runs inside a ``torch.profiler.record_function``
-span named ``STEP_SPAN``, which a profiler reads.
+span named ``STEP_SPAN``, which a profiler reads. A ``NeurosisProfiler``
+callback (``trainer.profiler:``) steps its trace window at each batch's end;
+with its ``record_module_names`` the whole fit runs inside
+``utils/profiling.record_module_names`` (JAX's loop.py:286-295).
 
 An engine's loss hooks (``forward_hooks``) run at JAX's places
 (loop.py:361-385): ``pre_hook`` on the host batch before it is tokenized
@@ -60,6 +63,7 @@ import torch
 from ..ops.ring_attention import on_axis
 from ..parallel import rows as rows_
 from ..parallel.fsdp import full, reshard, wrap_engine
+from ..utils.profiling import record_module_names
 from .callbacks import STATE_FILE, checkpoint_steps, engine_modules, load_checkpoint, load_state_payload
 
 logger = logging.getLogger(__name__)
@@ -354,7 +358,14 @@ class Trainer:
     def fit(self, batch_iter_factory: Callable[[], Iterable[dict]]):
         """Run training over batches from ``batch_iter_factory()`` per epoch;
         returns the engine's state."""
-        with self._mesh_scope():
+        with contextlib.ExitStack() as ctx:
+            # a NeurosisProfiler callback with record_module_names: "[mod]" spans over the whole fit
+            # (JAX's loop.py:286-295)
+            for cb in self.callbacks:
+                if getattr(cb, "record_module_names", False):
+                    ctx.enter_context(record_module_names(getattr(cb, "capture_depth", -1)))
+                    break
+            ctx.enter_context(self._mesh_scope())
             return self._fit(batch_iter_factory)
 
     def _fit(self, batch_iter_factory):

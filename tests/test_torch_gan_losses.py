@@ -38,7 +38,7 @@ def _pair(vq: bool, **kw):
     cfg = dict(CFG, **kw)
     jm = getattr(jd, name)(**cfg)
     x, _ = _images(0)
-    v = jm.init(jax.random.PRNGKey(0), jnp.asarray(x), jnp.asarray(x), jnp.asarray(0), optimizer_idx=0)
+    v = jax.jit(lambda k, a: jm.init(k, a, a, jnp.asarray(0), optimizer_idx=0))(jax.random.PRNGKey(0), jnp.asarray(x))
     p = perturb(v["params"], 1, 0.01)
     m = getattr(td, name)(**cfg, device=CPU)
     m.load_state_dict({**jax_params_to_state_dict(to_np(p)), **jax_params_to_state_dict(to_np(v["batch_stats"]))},
@@ -120,13 +120,12 @@ def test_adaptive_disc_weight_matches_jax_s_engine():
     jeng = JEngine(encoder=JEnc(**dd), decoder=JDec(out_ch=3, **dd), loss=JL(**cfg), g_optimizer=optax.adam(1e-3),
                    d_optimizer=optax.adam(1e-3), sample_posterior=False, adaptive_disc_weight=True)
     images = np.random.RandomState(4).randint(0, 256, size=(2, 32, 32, 3)).astype(np.uint8)
-    jstate = jeng.init(jax.random.PRNGKey(0), {"image": jnp.asarray(images.copy())})
+    jstate = jax.jit(jeng.init)(jax.random.PRNGKey(0), {"image": jnp.asarray(images.copy())})
     params = perturb(jstate.params, 5, 0.02)
     from neurosis_tpu.ops.dequant import dequant_image as jdequant
 
-    want = jeng._compute_adaptive_weight(
-        jstate.replace(params=jax.tree_util.tree_map(jnp.asarray, params)), jdequant(jnp.asarray(images.copy())),
-        None)
+    want = jax.jit(lambda st, x: jeng._compute_adaptive_weight(st, x, None))(
+        jstate.replace(params=jax.tree_util.tree_map(jnp.asarray, params)), jdequant(jnp.asarray(images.copy())))
 
     enc, dec = Encoder(**dd, device=CPU), Decoder(out_ch=3, **dd, device=CPU)
     loss = GeneralLPIPSWithDiscriminator(**cfg, device=CPU)
@@ -180,7 +179,7 @@ def test_actnorm_discriminator_initialises_from_its_first_batch():
 
     x = np.random.RandomState(7).randn(2, 32, 32, 3).astype(np.float32)
     jm = JD(ndf=8, n_layers=2, use_actnorm=True)
-    out, v = jm.init_with_output(jax.random.PRNGKey(0), jnp.asarray(x.copy()))
+    out, v = jax.jit(jm.init_with_output)(jax.random.PRNGKey(0), jnp.asarray(x.copy()))
     assert "batch_stats" not in v
     m = NLayerDiscriminator(ndf=8, n_layers=2, use_actnorm=True, device=CPU)
     state = jax_params_to_state_dict(to_np(v["params"]))
@@ -213,11 +212,12 @@ def test_latent_lpips_matches_jax():
         return torch.tanh(z).repeat_interleave(8, dim=1).repeat_interleave(8, dim=2)
 
     jm = JLL(perceptual_weight=0.5, latent_weight=2.0)
-    p = perturb(jm.init(jax.random.PRNGKey(0), jdecode, jnp.asarray(a), jnp.asarray(b))["params"], 9, 0.01)
+    p = perturb(jax.jit(lambda k, aa, bb: jm.init(k, jdecode, aa, bb))(jax.random.PRNGKey(0), jnp.asarray(a),
+                                                                          jnp.asarray(b))["params"], 9, 0.01)
     m = LatentLPIPS(perceptual_weight=0.5, latent_weight=2.0, device=CPU)
     load_into(m, p)
-    (want, jlog), gb = jax.value_and_grad(lambda bb: (lambda o: (jnp.mean(o[0]), o[1]))(
-        jm.apply({"params": p}, jdecode, jnp.asarray(a), bb)), has_aux=True)(jnp.asarray(b))
+    (want, jlog), gb = jax.jit(jax.value_and_grad(lambda bb: (lambda o: (jnp.mean(o[0]), o[1]))(
+        jm.apply({"params": p}, jdecode, jnp.asarray(a), bb)), has_aux=True))(jnp.asarray(b))
     tb = t(b, requires_grad=True)
     loss, log = m(tdecode, t(a), tb)
     np.testing.assert_allclose(float(loss.mean()), float(want), rtol=1e-5)

@@ -78,7 +78,7 @@ def test_lpips_matches_jax(net):
     load_into(m, p)
 
     want = jm.apply({"params": p}, jx, jy)
-    gy = jax.grad(lambda a: jnp.sum(jm.apply({"params": p}, jx, a)))(jy)
+    gy = jax.jit(jax.grad(lambda p_, a: jnp.sum(jm.apply({"params": p_}, jx, a)), argnums=1))(p, jy)
     ty = t(y, requires_grad=True)
     got = m(t(x), ty)
     assert tuple(got.shape) == (2, 1, 1, 1)
@@ -115,8 +115,9 @@ def test_discriminator_and_batchnorm_stats(n_layers):
     assert rel_err(got.detach().numpy(), want) < 1e-5
     for k, val in jax_params_to_state_dict(to_np(upd["batch_stats"])).items():
         np.testing.assert_allclose(m.get_buffer(k).numpy(), val.numpy(), rtol=1e-6, atol=1e-6, err_msg=k)
-    gx = jax.grad(lambda a: jnp.sum(jm.apply({"params": p, "batch_stats": v["batch_stats"]}, a, train=True,
-                                             mutable=["batch_stats"])[0] ** 2))(jx)
+    gx = jax.jit(jax.grad(lambda p_, s_, a: jnp.sum(jm.apply({"params": p_, "batch_stats": s_}, a, train=True,
+                                                             mutable=["batch_stats"])[0] ** 2), argnums=2))(
+        p, v["batch_stats"], jx)
     (got**2).sum().backward()
     assert rel_err(tx.grad.numpy(), gx) < 1e-4
 
@@ -163,7 +164,7 @@ def test_lpips_with_discr_matches_jax(idx):
                                     optimizer_idx=idx, mutable=["batch_stats"])
         return jnp.mean(loss), (log, upd)
 
-    (want, (jlog, upd)), (gp, gr) = jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True)(p, jr)
+    (want, (jlog, upd)), (gp, gr) = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True))(p, jr)
     tr = t(r, requires_grad=True)
     loss, log = m(t(x), tr, 3, optimizer_idx=idx)
     np.testing.assert_allclose(float(loss.mean()), float(want), rtol=1e-5)
@@ -196,7 +197,7 @@ def test_autoencoder_perceptual_matches_jax():
         m = AutoencoderPerceptual(recon_type=recon_type, perceptual_weight=0.3, device=CPU)
         load_into(m, p)
         jloss, jlog = jm.apply({"params": p}, jx, jr)
-        gr = jax.grad(lambda a: jnp.mean(jm.apply({"params": p}, jx, a)[0]))(jr)
+        gr = jax.jit(jax.grad(lambda p_, a: jnp.mean(jm.apply({"params": p_}, jx, a)[0]), argnums=1))(p, jr)
         tr = t(r, requires_grad=True)
         loss, log = m(t(x), tr)
         np.testing.assert_allclose(loss.detach().numpy(), np.asarray(jloss), rtol=1e-5)

@@ -98,7 +98,7 @@ def test_resblock_fp32():
     m = ResBlock(32, 16, 64, device=CPU)
     load_into(m, p)
 
-    gp = jax.grad(lambda p_: jnp.sum(jm.apply({"params": p_}, jx, je) ** 2))(p)
+    gp = jax.jit(jax.grad(lambda p_: jnp.sum(jm.apply({"params": p_}, jx, je) ** 2)))(p)
     out = m(t(x), t(emb))
     assert rel_err(out.detach().numpy(), jm.apply({"params": p}, jx, je)) < 1e-5
     (out**2).sum().backward()

@@ -138,7 +138,7 @@ def test_vae_log_images_equal_jax():
 
     jengine = dataclasses.replace(V._jax_engine(), use_ema=True, sample_posterior=True)
     x = np.random.RandomState(3).randint(0, 256, (2, 64, 64, 3)).astype(np.uint8)
-    jstate = jengine.init(jax.random.PRNGKey(0), {"image": jnp.asarray(x)})
+    jstate = jax.jit(jengine.init)(jax.random.PRNGKey(0), {"image": jnp.asarray(x)})
     params = dict(jstate.params, encoder=perturb(jstate.params["encoder"], 1),
                   decoder=perturb(jstate.params["decoder"], 2), loss=perturb(jstate.params["loss"], 3))
     shadows = {k: perturb(params[k], 4 + i, scale=0.05) for i, k in enumerate(("encoder", "decoder"))}

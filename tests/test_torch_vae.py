@@ -31,11 +31,11 @@ TINY_DD = dict(ch=32, ch_mult=[1, 2], num_res_blocks=1, attn_resolutions=[], res
 
 def _fwd_and_grads(jm, m, p, x, tol_fwd, tol_grad):
     jx = jnp.asarray(x.copy())
-    loss = lambda p_, a: jnp.sum(jm.apply({"params": p_}, a) ** 2)
-    gp, gx = jax.grad(loss, argnums=(0, 1))(p, jx)
+    apply = jax.jit(lambda p_, a: jm.apply({"params": p_}, a))
+    gp, gx = jax.jit(jax.grad(lambda p_, a: jnp.sum(apply(p_, a) ** 2), argnums=(0, 1)))(p, jx)
     tx = t(x, requires_grad=True)
     out = m(tx)
-    assert rel_err(out.detach().numpy(), jm.apply({"params": p}, jx)) < tol_fwd
+    assert rel_err(out.detach().numpy(), apply(p, jx)) < tol_fwd
     (out**2).sum().backward()
     assert rel_err(tx.grad.numpy(), gx) < tol_grad
     check_grads(m, gp, tol_grad)

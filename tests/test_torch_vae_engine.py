@@ -63,22 +63,41 @@ def _jax_grads(engine, state, batch, idx, recons=None):
     from neurosis_tpu.ops.dequant import dequant_image
 
     x = dequant_image(batch["image"])
+    g_grads, d_grads = _jitted_grads(engine)
     if idx == 0:
-        def loss_fn(g):
-            params = dict(state.params, **g)
-            _, recons, reg_log, _ = engine.forward_with_stats(params, x, None, state.reg_stats, train=True)
-            (loss, _), _ = engine._loss_apply(params["loss"], state.batch_stats, x, recons, state.step, 0)
-            return jnp.mean(loss) + KL_WEIGHT * jnp.mean(reg_log["kl_loss"])
-
-        return jax.grad(loss_fn)({k: state.params[k] for k in ("encoder", "decoder")})
+        return g_grads(state.params, state.batch_stats, x, state.step)
     if recons is None:
         _, recons, _ = engine.forward(state.params, x, None)
+    return {"loss": d_grads(state.params["loss"], state.batch_stats, x, recons, state.step)}
 
-    def d_loss_fn(lp):
-        (d_loss, _), _ = engine._loss_apply(lp, state.batch_stats, x, jax.lax.stop_gradient(recons), state.step, 1)
-        return d_loss
 
-    return {"loss": jax.grad(d_loss_fn)(state.params["loss"])}
+_JITTED: dict = {}
+
+
+def _jitted_grads(engine):
+    """The G and D steps' grads as functions of the state's arrays, compiled
+    once an engine (the engine kept alive beside them)."""
+    if id(engine) not in _JITTED:
+        @jax.jit
+        def g_grads(all_params, batch_stats, x, step):
+            def loss_fn(g):
+                params = dict(all_params, **g)
+                _, recons, reg_log, _ = engine.forward_with_stats(params, x, None, None, train=True)
+                (loss, _), _ = engine._loss_apply(params["loss"], batch_stats, x, recons, step, 0)
+                return jnp.mean(loss) + KL_WEIGHT * jnp.mean(reg_log["kl_loss"])
+
+            return jax.grad(loss_fn)({k: all_params[k] for k in ("encoder", "decoder")})
+
+        @jax.jit
+        def d_grads(loss_params, batch_stats, x, recons, step):
+            def d_loss_fn(lp):
+                (d_loss, _), _ = engine._loss_apply(lp, batch_stats, x, jax.lax.stop_gradient(recons), step, 1)
+                return d_loss
+
+            return jax.grad(d_loss_fn)(loss_params)
+
+        _JITTED[id(engine)] = (engine, g_grads, d_grads)
+    return _JITTED[id(engine)][1:]
 
 
 def _with_port_discr(loss_params, engine) -> dict:

@@ -73,7 +73,7 @@ def _vq_pair():
     jeng = JEngine(encoder=JEnc(**DD, double_z=False), decoder=JDec(out_ch=3, **DD), loss=JL(**LOSS),
                    regularizer=JVQ(n_e=16, e_dim=4, beta=0.25, log_perplexity=True), g_optimizer=optax.sgd(LR),
                    d_optimizer=optax.sgd(LR), **opts)
-    jstate = jeng.init(jax.random.PRNGKey(0), {"image": jnp.asarray(_images())})
+    jstate = jax.jit(jeng.init)(jax.random.PRNGKey(0), {"image": jnp.asarray(_images())})
     params = perturb(jstate.params, 1, 0.01)
     params["regularizer"]["embedding"] = np.random.RandomState(2).randn(16, 4).astype(np.float32)
     jstate = dataclasses.replace(jstate, params=jax.tree_util.tree_map(jnp.asarray, params))

@@ -26,11 +26,11 @@ DD = dict(ch=32, ch_mult=[1, 2], num_res_blocks=1, resolution=32, z_channels=4)
 
 def _fwd_and_grads(jm, m, p, x, tol_fwd=1e-5, tol_grad=5e-4, tol_in=None, **kw):
     jx = jnp.asarray(x.copy())
-    loss = lambda p_, a: jnp.sum(jm.apply({"params": p_}, a, **kw) ** 2)
-    gp, gx = jax.grad(loss, argnums=(0, 1))(p, jx)
+    apply = jax.jit(lambda p_, a: jm.apply({"params": p_}, a, **kw))
+    gp, gx = jax.jit(jax.grad(lambda p_, a: jnp.sum(apply(p_, a) ** 2), argnums=(0, 1)))(p, jx)
     tx = t(x, requires_grad=True)
     out = m(tx, **kw)
-    assert rel_err(out.detach().numpy(), jm.apply({"params": p}, jx, **kw)) < tol_fwd
+    assert rel_err(out.detach().numpy(), apply(p, jx)) < tol_fwd
     (out**2).sum().backward()
     assert rel_err(tx.grad.numpy(), gx) < (tol_in or tol_fwd)
     check_grads(m, gp, tol_grad)
@@ -174,7 +174,7 @@ def test_pixel_space_model_matches_jax(use_timestep, context):
     m = Model(**kw, in_channels=5 if context else 3, device=CPU)
     load_into(m, p)
     assert ("temb.dense.0.weight" in m.state_dict()) == use_timestep
-    gp, gx = jax.grad(lambda p_, a: jnp.sum(jm.apply({"params": p_}, a, jt, jc) ** 2), argnums=(0, 1))(
+    gp, gx = jax.jit(jax.grad(lambda p_, a: jnp.sum(jm.apply({"params": p_}, a, jt, jc) ** 2), argnums=(0, 1)))(
         p, jnp.asarray(x.copy()))
     tx = t(x, requires_grad=True)
     out = m(tx, t(ts) if use_timestep else None, t(ctx) if context else None)

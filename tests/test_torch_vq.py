@@ -56,7 +56,7 @@ def test_vector_quantizer_matches_jax(log_perplexity):
         z_q, log = jm.apply({"params": p}, zz)
         return jnp.sum(z_q * w) + log["loss/vq"], (z_q, log)
 
-    (_, (jzq, jlog)), (gp, gz) = jax.value_and_grad(jfn, argnums=(0, 1), has_aux=True)(
+    (_, (jzq, jlog)), (gp, gz) = jax.jit(jax.value_and_grad(jfn, argnums=(0, 1), has_aux=True))(
         jax.tree_util.tree_map(jnp.asarray, params), jnp.asarray(z.copy()))
     tz = t(z, requires_grad=True)
     zq, log = m(tz)
@@ -98,7 +98,7 @@ def test_gumbel_quantizer_matches_jax_with_its_draw(straight_through):
             z_q, log = jm.apply({"params": p}, zz, rng)
             return jnp.sum(z_q * w) + log["loss/vq"], (z_q, log)
 
-        (_, (jzq, jlog)), (gp, gz) = jax.value_and_grad(jfn, argnums=(0, 1), has_aux=True)(
+        (_, (jzq, jlog)), (gp, gz) = jax.jit(jax.value_and_grad(jfn, argnums=(0, 1), has_aux=True))(
             jax.tree_util.tree_map(jnp.asarray, params), jz)
         m.zero_grad()
         tz = t(z, requires_grad=True)

@@ -442,7 +442,11 @@ def cli_config(root: Path, strategy: str = "", devices: int = 0, fsdp: int = 0, 
         assert text.count(old) == 1, old
         text = text.replace(old, new)
     path = root.parent / f"{root.name}.yaml"
-    path.write_text(text)
+    # every rank writes the same file: each through its own temporary, renamed over it, so that no
+    # rank reads the file while another has truncated it
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    tmp.write_text(text)
+    os.replace(tmp, path)
     return path
 
 
