@@ -19,8 +19,9 @@ saves a checkpoint and is resumed from it, and the SD training path's
 options (objectives, remat policies, caption dropout, loss hooks), the
 VAE-GAN stack's VQ autoencoders with the optimizers left, training on
 the (data, fsdp) mesh through tools/launch_pod at one NCCL rank, the ring
-on the context axis, and the DreamSim VAE fit (vae.example.yaml with the
-AutoencoderDreamsim loss) with trainer.profiler:.
+on the context axis, the DreamSim VAE fit (vae.example.yaml with the
+AutoencoderDreamsim loss) with trainer.profiler:, and fits from the Mongo
+datasets with checkpoints in a blob store and a resume from it.
 
 Phases, each fatal on failure:
   1. environment: Python, torch and CUDA versions, the card's name and power limit;
@@ -161,8 +162,21 @@ Phases, each fatal on failure:
      at full width, batch 1, fp32 within 1e-3: one DreamSim distance,
      FrozenOpenCLIPImageEmbedder at ViT-H-14's widths and
      create_dinov2("dinov2_vitb14") at 224 px; the path's kernel rows of
-     phase 3 printed again.
-Phases 11, 13 and 14 load batches in 2 spawned prefetch worker processes
+     phase 3 printed again;
+ 20. Mongo and blob checkpoints, in chiprun_out/cli/: a Mongo metadata
+     cache in the port's format for a fixed query, its rows phase 11's
+     PNGs (fs_type file, path_prefix; no server, no pymongo), then (a) fit
+     of the bf16-mixed SDXL copy from MongoAspectDataset (SDXLBucketList,
+     batch 2) with ProgressCallback and SaveConfigCallback by their JAX
+     class paths, 2 steps, the second profiled (device only): its batches
+     equal the CPU's for the seed, each of one bucket, config.yaml reads
+     back as the resolved config, pymongo never imported; (b) fit of
+     vae.example.yaml from MongoVAEDataset (EMA on) for 3 steps, saving each
+     to memory://phase20/vae (save_top_k 2), then a fit to step 4 with
+     trainer.remote_checkpoint_url: the store holds steps 2-3, then 3-4, the
+     resumed parameters, EMA shadows and step equal the saved ones bitwise;
+     the checkpoint's bytes, serialize, write, wait and resume seconds.
+Phases 11, 13, 14 and 20 (a) load batches in 2 spawned prefetch worker processes
 (the CLI's default num_workers), which see no CUDA device.
 Then one JSON line of kernels, the nvidia-smi line and, last, the result line.
 Everything measured also goes to chiprun_out/chip_smoke.json.
@@ -405,7 +419,7 @@ VQ_VAL_F32_FLASH_SHAPES = {(8, 1, 1024, 1024, 512): 14}
 VQ_DIR = CLI_DIR / "data" / "vq" / "folder"
 VQ_SIZES = [(256 + 16 * (i % 4), 256 + 16 * (i // 4)) for i in range(VQ_IMAGES)]  # (width, height), >= 256
 VAE_CLI_PATHS = ("cli_vae", "cli_vq_f32", "cli_vq_bf16", "cli_vae_ddp", "cli_ds_f32", "cli_ds_bf16",
-                 "cli_ds_profiler")
+                 "cli_ds_profiler", "cli_mongo_vae", "cli_mongo_vae_resume")
 
 # phase 18: SDXL's level-1 self-attention at batch 2 (1024 px), split over a ring of n slices on one
 # card; each ring runs n x n flash blocks (q of S/n rows against kv of S/n rows) forward and backward
@@ -481,13 +495,20 @@ PATHS = {"sd15": ("slice", "SD1.5 train step"),
          "cli_ds_bf16": ("cli_ds_bf16", "generator step of that DreamSim copy with precision bf16-mixed through the "
                                         "CLI"),
          "cli_ds_profiler": ("cli_ds_profiler", "generator step of the bf16-mixed DreamSim copy with trainer.profiler: "
-                                                "(module spans on) through the CLI")}
+                                                "(module spans on) through the CLI"),
+         "cli_mongo_sdxl": ("cli_mongo_sdxl", "SDXL train step of the bf16-mixed copy fit from MongoAspectDataset "
+                                              "(SDXLBucketList, batch 2) through the CLI"),
+         "cli_mongo_vae": ("cli_mongo_vae", "generator step of vae.example.yaml (fp32, EMA) fit from MongoVAEDataset, "
+                                            "saving each step to a memory:// store, through the CLI"),
+         "cli_mongo_vae_resume": ("cli_mongo_vae_resume", "generator step of that copy resumed from the memory:// "
+                                                          "store (trainer.remote_checkpoint_url)")}
 # a path whose shape tables are another's (the same step, reached another way; the towers of
 # sdxl-te train, but at 77 tokens their attention is under the flash gate)
 TABLES_OF = {"cli_sdxl_bf16": "sdxl", "cli_sdxl_te": "cli_sdxl_f32", "cli_sdxl_vpred": "sdxl", "cli_sdxl_remat": "sdxl",
              "cli_vpred_logger": "cli_logger", "cli_sd15_edm": "sd15_f32", "cli_sd15_rf": "sd15_f32",
              "cli_vae_val": "cli_vae_logger", "cli_sdxl_fsdp": "sdxl", "cli_ds_f32": "cli_vae",
-             "cli_ds_profiler": "cli_ds_bf16"}
+             "cli_ds_profiler": "cli_ds_bf16", "cli_mongo_sdxl": "sdxl", "cli_mongo_vae": "cli_vae",
+             "cli_mongo_vae_resume": "cli_vae"}
 
 # tolerances on max|kernel - plain| / max|plain|, same bf16 inputs on both sides
 TOL = {
@@ -1595,9 +1616,9 @@ def run_cli_phase(torch, rows: dict) -> dict:
         out["cli_sdxl_bf16"] = run_cli(torch, rows, bf16, "CLI fit sdxl bf16-mixed copy", "cli_sdxl_bf16",
                                        4, profiled=False)
         out["cli_sdxl_f32"] = run_cli(torch, rows, sdxl, "CLI fit sdxl.example.yaml (fp32)", "cli_sdxl_f32", 1,
-                                      profiled=True)
+                                      profiled=False, profile_step=1, device_only=True)
         out["cli_sdxl_bf16_profiled"] = run_cli(torch, rows, bf16_two, "CLI fit sdxl bf16-mixed, profiled",
-                                                "cli_sdxl_bf16", 2, profiled=False, profile_step=2)
+                                                "cli_sdxl_bf16", 2, profiled=False, profile_step=2, device_only=True)
         out["cli_vae"] = run_cli(torch, rows, vae, "CLI fit vae.example.yaml (fp32)", "cli_vae", 1, profiled=False)
     finally:
         os.chdir(cwd)
@@ -2036,7 +2057,7 @@ def run_te_phase(torch, rows: dict) -> dict:
         os.environ["NEUROSIS_ALLOW_HASH_TOKENIZER"] = "1"
         ckpt = Path("projects/checkpoints")
         out["save_run"] = run_cli(torch, rows, cfgs[TE_SAVE_STEPS], "CLI fit sdxl-te (save)", "cli_sdxl_te",
-                                  TE_SAVE_STEPS, profiled=False, profile_step=TE_SAVE_STEPS)
+                                  TE_SAVE_STEPS, profiled=False, profile_step=TE_SAVE_STEPS, device_only=True)
         first = started.pop()
         saver = next(cb for cb in first["trainer"].callbacks if isinstance(cb, CheckpointCallback))
         n_params = sum(p.numel() for p in first["trainer"].engine.trainable_parameters())
@@ -2374,7 +2395,8 @@ def run_options_phase(torch, rows: dict, report: dict, log: list) -> dict:
     try:
         os.environ["NEUROSIS_ALLOW_HASH_TOKENIZER"] = "1"
         run = run_cli(torch, rows, paths["sdxl-vpred"], "CLI fit sdxl v-prediction copy", "cli_sdxl_vpred",
-                      VPRED_STEPS, profiled=False, logger=("cli_vpred_logger", 1), profile_step=VPRED_PROFILED_STEP)
+                      VPRED_STEPS, profiled=False, logger=("cli_vpred_logger", 1), profile_step=VPRED_PROFILED_STEP,
+                      device_only=True)
         out["cli_sdxl_vpred"], out["cli_vpred_logger"] = run, dict(launches=run.pop("logger_launches"))
         run.pop("images")
         scales = [r.get("train/tag_loss_scale_mean") for r in run["metrics"]]
@@ -2382,7 +2404,8 @@ def run_options_phase(torch, rows: dict, report: dict, log: list) -> dict:
             raise PhaseError(f"the v-prediction run's metrics lack the tag hook's loss scale: {scales}")
         print(f"v-prediction run: tag loss scale means {scales}", flush=True)
         out["cli_sdxl_remat"] = run_cli(torch, rows, paths["sdxl-remat"], "CLI fit sdxl bf16 remat [none, none, "
-                                        "dots_names], profiled", "cli_sdxl_remat", 2, profiled=False, profile_step=2)
+                                        "dots_names], profiled", "cli_sdxl_remat", 2, profiled=False, profile_step=2,
+                                        device_only=True)
         out["cli_sd15_edm"] = run_cli(torch, rows, paths["sd15-edm"], "CLI fit sd15 EDM copy", "cli_sd15_edm",
                                       OPTION_STEPS, profiled=False)
         run = run_cli(torch, rows, paths["sd15-rf"], "CLI fit sd15 rectified-flow copy", "cli_sd15_rf",
@@ -3566,6 +3589,261 @@ def run_dreamsim_phase(torch, rows: dict, log: list) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the Mongo datasets and checkpoints in a blob store
+# ---------------------------------------------------------------------------
+
+# the query of phase 20's metadata cache; its rows point at phase 11's PNGs (fs_type file, path_prefix)
+MONGO_SETTINGS = dict(uri="mongodb://phase20", database="neurosis", collection="images",
+                      query={"filter": {"split": "train"}})
+MONGO_CACHE = "data/mongo_cache"  # under CLI_DIR, where the fits run
+MONGO_STEPS = 2  # SDXL steps, the second profiled (device only)
+VAE_STORE = "memory://phase20/vae"
+VAE_STEPS, VAE_RESUMED_TO = 3, 4
+MONGO_SETTINGS_NODE = ("    settings:\n      class_path: neurosis_tpu.data.mongo.MongoSettings\n      init_args:\n"
+                       f"        uri: {MONGO_SETTINGS['uri']}\n        database: {MONGO_SETTINGS['database']}\n"
+                       f"        collection: {MONGO_SETTINGS['collection']}\n        query:\n          filter:\n"
+                       "            split: train\n"
+                       f"    cache_dir: {MONGO_CACHE}\n    fs_type: file\n    path_prefix: data/dataset/folder\n")
+MONGO_SDXL_DATA = ("data:\n  class_path: neurosis.dataset.mongo.MongoAspectDataset\n  init_args:\n"
+                   + MONGO_SETTINGS_NODE + "    image_key: image\n    caption_key: caption\n    buckets:\n"
+                   "      class_path: neurosis.dataset.aspect.SDXLBucketList\n    batch_size: 2\n    seed: 20\n")
+MONGO_VAE_DATA = ("data:\n  class_path: neurosis.dataset.mongo.MongoVAEDataset\n  init_args:\n" + MONGO_SETTINGS_NODE
+                  + "    image_key: image\n    resolution: 256\n    batch_size: 2\n    seed: 20\n")
+PHASE20_CALLBACKS = ("  callbacks:\n    - class_path: neurosis_tpu.trainer.callbacks.ProgressCallback\n      init_args:\n"
+                     "        every_n: 1\n    - class_path: neurosis_tpu.trainer.callbacks.SaveConfigCallback\n")
+VAE_CHECKPOINT = f"model_checkpoint:\n  dirpath: {VAE_STORE}\n  every_n_train_steps: 1\n  save_top_k: 2\n"
+
+
+def phase20_configs(repo: Path) -> dict:
+    """{"sdxl": the bf16-mixed copy of sdxl.example.yaml (phase 11's) with
+    ``data:`` a MongoAspectDataset (SDXLBucketList, batch 2) over phase 20's
+    cache, ProgressCallback and SaveConfigCallback by their JAX class paths,
+    MONGO_STEPS steps; "vae": vae.example.yaml with ``data:`` a
+    MongoVAEDataset over the same rows, EMA on (so a resume has shadows to
+    restore), a ``model_checkpoint:`` in the memory store, VAE_STEPS steps;
+    "vae_resume": that copy with ``trainer.remote_checkpoint_url`` and
+    VAE_RESUMED_TO steps}, written into CLI_DIR, each checked to differ
+    from its source in those keys only."""
+    from neurosis_tpu_torch.config.loader import load_config
+
+    settings = {"class_path": "neurosis_tpu.data.mongo.MongoSettings",
+                "init_args": {k: MONGO_SETTINGS[k] for k in ("uri", "database", "collection", "query")}}
+    common = dict(settings=settings, cache_dir=MONGO_CACHE, fs_type="file", path_prefix="data/dataset/folder")
+    written = {"sdxl": "  fast_dev_run: true  # disable to actually train\n", "vae": "  fast_dev_run: true\n"}
+    trainers = {"sdxl": f"  fast_dev_run: false\n  max_steps: {MONGO_STEPS}\n  precision: bf16-mixed\n"
+                        + PHASE20_CALLBACKS,
+                "vae": f"  fast_dev_run: false\n  max_steps: {VAE_STEPS}\n",
+                "vae_resume": f"  fast_dev_run: false\n  max_steps: {VAE_RESUMED_TO}\n"
+                              f"  remote_checkpoint_url: {VAE_STORE}\n"}
+    out = {}
+    for name, trainer in trainers.items():
+        src = repo / "configs" / ("sdxl/sdxl.example.yaml" if name == "sdxl" else "vae/vae.example.yaml")
+        text = src.read_text()
+        line = written["sdxl" if name == "sdxl" else "vae"]
+        if text.count(line) != 1 or text.count("\ndata:\n") != 1:
+            raise PhaseError(f"{src} no longer has the line {line!r} and one data: node")
+        head = text[:text.index("\ndata:\n") + 1].replace(line, trainer)
+        if name == "sdxl":
+            body = head + MONGO_SDXL_DATA
+        else:
+            body = head.replace("    use_ema: false\n", "    use_ema: true\n") + MONGO_VAE_DATA + VAE_CHECKPOINT
+        path = (CLI_DIR / f"phase20-{name}.yaml").resolve()
+        path.write_text(body)
+        expect = load_config(src)
+        expect["trainer"].update(fast_dev_run=False, max_steps=MONGO_STEPS if name == "sdxl" else
+                                 VAE_STEPS if name == "vae" else VAE_RESUMED_TO)
+        if name == "sdxl":
+            expect["trainer"].update(precision="bf16-mixed", callbacks=[
+                {"class_path": "neurosis_tpu.trainer.callbacks.ProgressCallback", "init_args": {"every_n": 1}},
+                {"class_path": "neurosis_tpu.trainer.callbacks.SaveConfigCallback"}])
+            expect["data"] = {"class_path": "neurosis.dataset.mongo.MongoAspectDataset", "init_args": dict(
+                common, image_key="image", caption_key="caption",
+                buckets={"class_path": "neurosis.dataset.aspect.SDXLBucketList"}, batch_size=2, seed=20)}
+        else:
+            expect["model"]["init_args"]["use_ema"] = True
+            expect["data"] = {"class_path": "neurosis.dataset.mongo.MongoVAEDataset", "init_args": dict(
+                common, image_key="image", resolution=256, batch_size=2, seed=20)}
+            expect["model_checkpoint"] = {"dirpath": VAE_STORE, "every_n_train_steps": 1, "save_top_k": 2}
+            if name == "vae_resume":
+                expect["trainer"]["remote_checkpoint_url"] = VAE_STORE
+        if load_config(path) != expect:
+            raise PhaseError(f"phase 20's copy {path.name} differs from {src.name} in more than its keys")
+        out[name] = path
+    return out
+
+
+def write_mongo_cache(folder: Path) -> list:
+    """Phase 20's metadata cache, as a pull of MONGO_SETTINGS' query would
+    write it: a row for each PNG of ``folder`` (its name under the prefix,
+    caption, aspect, size); no Mongo server and no pymongo."""
+    from neurosis_tpu_torch.data import mongo
+    from neurosis_tpu_torch.data.png import read_size
+
+    rows = []
+    for i, png in enumerate(sorted(folder.glob("*.png"))):
+        w, h = read_size(png)
+        rows.append({"_id": i, "s3_url": png.name, "caption": png.with_suffix(".txt").read_text(),
+                     "aspect": w / h, "resolution": [w, h], "split": "train"})
+    source = mongo.BaseMongoDataset(settings=mongo.MongoSettings(**MONGO_SETTINGS), cache_dir=MONGO_CACHE,
+                                    skip_preload=True)
+    print(f"phase 20: {len(rows)} metadata rows cached in {source.write_cache(rows)}", flush=True)
+    return rows
+
+
+def _check_mongo_batches(torch, config: Path, seen: list) -> None:
+    """The fit's host batches against the same dataset's on the CPU for the
+    seed (images exact, captions, sizes), each of one bucket."""
+    import numpy as np
+
+    from neurosis_tpu_torch.config.loader import instantiate, load_config
+    from neurosis_tpu_torch.data.prefetch import get_batch, seeded_batches
+
+    ds = instantiate(load_config(config)["data"])
+    for n, ((indices, seed), got) in enumerate(zip(seeded_batches(ds, ds.get_batch_iterator()), seen)):
+        if len({int(ds.bucket_idx[i]) for i in indices}) != 1:
+            raise PhaseError(f"phase 20 (a): batch {n} {indices} mixes buckets")
+        want = get_batch(ds, indices, seed)
+        for k, v in want.items():
+            same = np.array_equal(got[k], v) if isinstance(v, np.ndarray) else list(got[k]) == list(v)
+            if not same:
+                raise PhaseError(f"phase 20 (a): the fit's batch {n} differs from the CPU's in {k}")
+        print(f"phase 20 (a): batch {n} = the CPU's for the seed (rows {indices}, bucket "
+              f"{ds.buckets[int(ds.bucket_idx[indices[0]])].size}, {want['image'].shape})", flush=True)
+    if len(seen) != MONGO_STEPS:
+        raise PhaseError(f"phase 20 (a): the fit took {len(seen)} batches, not {MONGO_STEPS}")
+
+
+def run_mongo_phase(torch, rows: dict) -> dict:
+    """Phase 20, in CLI_DIR after phase 19 (phase 11's PNGs): the metadata
+    cache, then (a) the bf16 SDXL copy fit from MongoAspectDataset for
+    MONGO_STEPS steps (the last profiled, device only), its batches against
+    the CPU's, its config.yaml read back, pymongo never imported; (b)
+    vae.example.yaml's copy fit from MongoVAEDataset for VAE_STEPS steps,
+    saving every step to the memory store (keep 2), then fit again to
+    VAE_RESUMED_TO from ``remote_checkpoint_url``: the store's steps, the
+    resumed state against the saved one bitwise, the checkpoint's bytes,
+    serialize, write, wait and resume seconds. Launches held to the sdxl
+    and cli_vae tables."""
+    import os
+
+    import numpy as np
+
+    from neurosis_tpu_torch.checkpoint.blob import BlobCheckpointIO
+    from neurosis_tpu_torch.config.loader import load_config
+    from neurosis_tpu_torch.config.yaml_reader import safe_load
+    from neurosis_tpu_torch.trainer import cli
+    from neurosis_tpu_torch.trainer.callbacks import CheckpointCallback, state_payload
+    from neurosis_tpu_torch.trainer.loop import Trainer
+
+    t0 = time.perf_counter()
+    folder = CLI_DIR / "data" / "dataset" / "folder"
+    if not any(folder.glob("*.png")):
+        write_image_folder(torch, folder)
+    configs = phase20_configs(Path.cwd().resolve())
+    out = {}
+    cwd, saved_env = os.getcwd(), {k: os.environ.get(k) for k in ("NEUROSIS_ALLOW_HASH_TOKENIZER", "NEUROSIS_PREFETCH")}
+    os.chdir(CLI_DIR)
+    seen, inner_factory = [], cli._batch_factory
+    stores, resumed, inner_end, inner_resume = [], [], CheckpointCallback.on_fit_end, Trainer._maybe_resume
+
+    def recording(cfg, dataset, mesh=None):
+        make = inner_factory(cfg, dataset, mesh)
+
+        def batches():
+            for b in make():
+                seen.append({k: v.copy() if isinstance(v, np.ndarray) else list(v) for k, v in b.items()})
+                yield b
+
+        return batches
+
+    def fit_end(self, trainer, state):
+        inner_end(self, trainer, state)
+        b = self.blob
+        stores.append(dict(bytes=b.last_bytes, serialize_s=b.last_serialize_s, write_s=b.last_write_s,
+                           waited_s=b.waited_s, steps=b.list_steps()))
+
+    def resume(self, state):
+        t1 = time.perf_counter()
+        state = inner_resume(self, state)
+        seconds = time.perf_counter() - t1
+        payload = state_payload(self.engine, state)
+        resumed.append(dict(seconds=seconds, step=payload["step"], ema_num_updates=payload.get("ema_num_updates"),
+                            params={k: v.detach().cpu().clone() for k, v in payload["params"].items()},
+                            ema_params={k: v.detach().cpu().clone() for k, v in payload["ema_params"].items()}))
+        return state
+
+    try:
+        os.environ["NEUROSIS_ALLOW_HASH_TOKENIZER"] = "1"
+        write_mongo_cache(Path("data/dataset/folder"))
+        cli._batch_factory = recording
+        out["cli_mongo_sdxl"] = run_cli(torch, rows, configs["sdxl"], "CLI fit SDXL bf16 from MongoAspectDataset",
+                                        "cli_mongo_sdxl", MONGO_STEPS, profiled=False, profile_step=MONGO_STEPS,
+                                        device_only=True)
+        cli._batch_factory = inner_factory
+        if "pymongo" in sys.modules:
+            raise PhaseError("phase 20 (a) imported pymongo: the fit read no metadata cache")
+        _check_mongo_batches(torch, configs["sdxl"], seen)
+        if safe_load(Path("projects/config.yaml").read_text()) != load_config(configs["sdxl"]):
+            raise PhaseError("phase 20 (a): projects/config.yaml does not read back as the resolved config")
+        prof = out["cli_mongo_sdxl"]["profiles"][0]
+        print(f"phase 20 (a): config.yaml read back equal; step {MONGO_STEPS}: host "
+              f"{out['cli_mongo_sdxl']['metrics'][-1]['step_ms']:.1f} ms (profiled), data "
+              f"{out['cli_mongo_sdxl']['metrics'][-1]['data_ms']:.1f} ms, device {prof['device_ms']} ms", flush=True)
+
+        os.environ["NEUROSIS_PREFETCH"] = "thread"
+        CheckpointCallback.on_fit_end, Trainer._maybe_resume = fit_end, resume
+        out["cli_mongo_vae"] = run_cli(torch, rows, configs["vae"], "CLI fit vae.example.yaml from MongoVAEDataset, "
+                                       "saving to the memory store", "cli_mongo_vae", VAE_STEPS, profiled=False)
+        store = BlobCheckpointIO(VAE_STORE)
+        if store.list_steps() != [VAE_STEPS - 1, VAE_STEPS]:
+            raise PhaseError(f"phase 20 (b): the store holds steps {store.list_steps()} after the first fit")
+        saved = store.load_checkpoint(VAE_STEPS)
+        resumed.clear()
+        out["cli_mongo_vae_resume"] = run_cli(torch, rows, configs["vae_resume"], "CLI fit vae.example.yaml resumed "
+                                              "from the memory store", "cli_mongo_vae_resume",
+                                              VAE_RESUMED_TO - VAE_STEPS, profiled=False, first_step=VAE_STEPS + 1)
+        if store.list_steps() != [VAE_STEPS, VAE_RESUMED_TO]:
+            raise PhaseError(f"phase 20 (b): the store holds steps {store.list_steps()} after the resumed fit")
+        if len(resumed) != 1 or resumed[0]["step"] != VAE_STEPS:
+            raise PhaseError(f"phase 20 (b): the second fit resumed at {[r['step'] for r in resumed]}")
+        got = resumed[0]
+        for key in ("params", "ema_params"):
+            if sorted(got[key]) != sorted(saved[key]) or not all(
+                    got[key][k].dtype == saved[key][k].dtype and torch.equal(got[key][k], saved[key][k])
+                    for k in saved[key]):
+                raise PhaseError(f"phase 20 (b): the resumed {key} differ from the saved step's")
+        if got["ema_num_updates"] != saved["ema_num_updates"]:
+            raise PhaseError("phase 20 (b): the resumed EMA count differs from the saved one")
+        print(f"phase 20 (b): resumed step {got['step']}: {len(saved['params'])} parameters and "
+              f"{len(saved['ema_params'])} EMA shadows bitwise the saved ones, in {got['seconds']:.3f} s; store steps "
+              f"{store.list_steps()}", flush=True)
+        for n, s in enumerate(stores):
+            print(f"phase 20 (b) fit {n + 1}: checkpoint {s['bytes']} bytes, serialized in {s['serialize_s']:.3f} s, "
+                  f"written in {s['write_s']:.3f} s on its thread, {s['waited_s']:.3f} s waited at the fit's end",
+                  flush=True)
+        out["cli_mongo_vae"].update(store=stores[0], resume_store=stores[1:], resume_s=got["seconds"])
+    finally:
+        cli._batch_factory = inner_factory
+        CheckpointCallback.on_fit_end, Trainer._maybe_resume = inner_end, inner_resume
+        os.chdir(cwd)
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    for name, rs in rows.items():
+        for r in rs:
+            if r["path"] in ("sdxl", "cli_vae"):
+                lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.3f}"
+                print(f"phase 20 {name} {r['shape']} ({r['path']}, {r['per_step']} a step): {r['ms']:.3f} ms, bound "
+                      f"{r['bound_ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, library {lib} ms, max abs err "
+                      f"{r['max_abs_err']:.3e}", flush=True)
+    out["cli_mongo_sdxl"]["phase_s"] = time.perf_counter() - t0
+    print(f"phase 20: {out['cli_mongo_sdxl']['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def kernel_kind(name: str) -> str:
     """Which layer a device kernel belongs to, by its name."""
     low = name.lower()
@@ -3652,8 +3930,17 @@ def main() -> int:
 
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
-    report: dict = {"card": smi, "paths": {path: unit for path, (_key, unit) in PATHS.items()}}
+    report: dict = {"card": smi, "paths": {path: unit for path, (_key, unit) in PATHS.items()}, "phase_s": {}}
     log: list = []
+    last = [t_start]
+
+    def lap(phases: str) -> None:
+        """Seconds since the previous lap, printed and kept under ``phases``."""
+        now = time.perf_counter()
+        report["phase_s"][phases] = now - last[0]
+        last[0] = now
+        print(f"phases {phases}: {report['phase_s'][phases]:.1f} s", flush=True)
+
     try:
         print(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
               f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}", flush=True)
@@ -3665,6 +3952,7 @@ def main() -> int:
         print(f"build: {report['build_s']:.1f} s ({', '.join(f'{k} {v:.1f} s' for k, v in compile_s.items())})",
               flush=True)
 
+        lap("1-2")
         rows = {**check_flash(torch, log), **check_overlap(torch, log), **check_conv(torch, log)}
         report["kernel_rows"] = rows
         for name, rs in rows.items():
@@ -3681,38 +3969,56 @@ def main() -> int:
         report["reference_vae_gan"] = reference_vae_pair(torch, log)
         report["reference_vae_gan_f32"] = reference_vae_pair(torch, log, fp32=True)
         report["reference_vae_tiny"] = reference_vae_pair(torch, log, fp32=True, tiny=True)
+        lap("3")
         report["reference_encode"] = reference_encode(torch, log)
+        lap("4")
         report["slice"] = run_slice(torch, rows)
         torch.cuda.empty_cache()
         report["sd15_f32"] = run_slice(torch, rows, "sd15_f32")
         torch.cuda.empty_cache()
+        lap("5-6b")
         report["vae_gan"] = run_vae_gan(torch, rows)
         torch.cuda.empty_cache()
         report["vae_gan_f32"] = run_vae_gan(torch, rows, "vae_gan_f32")
         torch.cuda.empty_cache()
+        lap("7-8")
         report["sdxl"] = run_slice(torch, rows, "sdxl")
         sdxl_engine = report["sdxl"].pop("engine")
+        lap("9")
         report["reference_sample"] = reference_sample(torch, log)
         report.update(run_sample(torch, rows, sdxl_engine))
         del sdxl_engine
         torch.cuda.empty_cache()
+        lap("12")
         report["overlap"] = run_overlap(torch, rows, log)
         torch.cuda.empty_cache()
+        lap("10")
         report.update(run_cli_phase(torch, rows))
         torch.cuda.empty_cache()
+        lap("11")
         report.update(run_cli_sampling(torch, rows))
         torch.cuda.empty_cache()
+        lap("13")
         report["cli_sdxl_te"] = run_te_phase(torch, rows)
         torch.cuda.empty_cache()
+        lap("14")
         report.update(run_options_phase(torch, rows, report, log))
         torch.cuda.empty_cache()
+        lap("15")
         report.update(run_vq_phase(torch, rows, log))
         torch.cuda.empty_cache()
+        lap("16")
         report.update(run_mesh_phase(torch, rows, report))
         torch.cuda.empty_cache()
+        lap("17")
         report.update(run_ring_phase(torch, rows, log))
         torch.cuda.empty_cache()
+        lap("18")
         report.update(run_dreamsim_phase(torch, rows, log))
+        torch.cuda.empty_cache()
+        lap("19")
+        report.update(run_mongo_phase(torch, rows))
+        lap("20")
         report["seconds"] = time.perf_counter() - t_start
         print(f"all phases: {report['seconds']:.1f} s", flush=True)
     except Exception as e:  # any failed phase ends the run without a result line

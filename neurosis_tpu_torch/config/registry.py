@@ -3,7 +3,11 @@
 
 Every path the JAX registry knows either resolves to a port class or raises
 ``NotImplementedError`` naming the ROADMAP item (Queue 1) that ports it, so a
-config node the port cannot honour never passes in silence. The JAX
+config node the port cannot honour never passes in silence. A path into the
+JAX package, ``neurosis_tpu.<module>.<Name>`` (which JAX's registry imports
+as it stands), resolves to ``neurosis_tpu_torch.<module>.<Name>`` where the
+port has that module and name, and raises ``ImportError`` otherwise; the
+JAX package is never imported. The JAX
 registry maps ``torch.optim.AdamW``, ``Adam`` and ``SGD`` to optax's
 ``adamw``, ``adam`` and ``sgd``, and so does the port (to its counterparts
 of them, which train optax's math and take optax's arguments). Of the other
@@ -13,6 +17,7 @@ real imports the JAX registry falls back to, the port keeps only ``torch.*``.
 from __future__ import annotations
 
 import importlib
+import inspect
 from typing import Any, Dict
 
 _D = "neurosis.modules.diffusion."
@@ -123,12 +128,16 @@ _PORTED = {
         "VectorQuantizer", "GumbelQuantizer", "EMAVectorQuantizer", "VectorQuantizerWithInputProjection")},
 }
 
+_PORTED.update({_DS + m + c + k: ("data.mongo", c + "Dataset")
+                for m, c in (("mongo.", "MongoAspect"), ("mongo.", "MongoSquare"), ("mongo.", "MongoVAE"),
+                             ("mongo.aspect.", "MongoAspect"), ("mongo.nobucket.", "MongoSquare"),
+                             ("mongo.nocaption.", "MongoVAE"))
+                for k in ("Dataset", "Module")})
+
 # paths the JAX registry knows and the port has not ported, by ROADMAP Queue 1 item
 _NOT_PORTED: Dict[str, str] = {}
 _REST_ITEM = "11 (the rest)"
-_NOT_PORTED.update({p: _REST_ITEM for p in (
-    [_DS + m + "." + c + k for m in ("mongo", "mongo.aspect", "mongo.nobucket", "mongo.nocaption")
-     for c in ("MongoAspect", "MongoSquare", "MongoVAE") for k in ("Dataset", "Module")])})
+_JAX_PACKAGE = "neurosis_tpu."
 
 
 def resolve_class_path(path: str) -> Any:
@@ -137,6 +146,8 @@ def resolve_class_path(path: str) -> Any:
         return getattr(importlib.import_module(f"neurosis_tpu_torch.{module}"), name)
     if path in _NOT_PORTED:
         raise NotImplementedError(f"class_path {path!r} is not ported yet: ROADMAP Queue 1 item {_NOT_PORTED[path]}")
+    if path.startswith(_JAX_PACKAGE):
+        return _port_counterpart(path)
     if path.startswith("optax."):
         raise NotImplementedError(f"class_path {path!r} is not ported yet (of optax the port takes adam, adamw "
                                   f"and sgd): ROADMAP Queue 1 item {_REST_ITEM}")
@@ -147,6 +158,18 @@ def resolve_class_path(path: str) -> Any:
         except (ImportError, AttributeError) as e:
             raise ImportError(f"cannot resolve class_path {path!r}: {e}") from e
     raise ImportError(f"cannot resolve class_path {path!r}: no port class has that path")
+
+
+def _port_counterpart(path: str) -> Any:
+    """``neurosis_tpu.<module>.<Name>`` → ``neurosis_tpu_torch.<module>.<Name>``."""
+    module, _, name = path[len(_JAX_PACKAGE):].rpartition(".")
+    try:
+        found = getattr(importlib.import_module(f"neurosis_tpu_torch.{module}"), name) if module else None
+    except (ImportError, AttributeError):
+        found = None
+    if found is None or inspect.ismodule(found):
+        raise ImportError(f"cannot resolve class_path {path!r}: the port has no neurosis_tpu_torch.{module}.{name}")
+    return found
 
 
 def known_paths() -> dict:

@@ -3,7 +3,8 @@ in place of ``yaml.safe_load`` (the card's machine has no PyYAML).
 
 Read: block mappings and block sequences by indentation (sequences of
 mappings, and sequences at their key's indent, included); flow sequences on
-one line (``[1, 2]``, ``[none, none, dots_names]``); ``#`` comments outside
+one line (``[1, 2]``, ``[none, none, dots_names]``), and the empty flow
+mapping ``{}`` as a value (``config/yaml_writer.py`` writes it); ``#`` comments outside
 quotes; single- and double-quoted scalars; PyYAML's YAML 1.1 resolution of
 plain scalars (ints with ``_``, ``0x``, ``0b``, octal and base-60 forms;
 floats only with a dot, so ``4.5e-6`` is a float and ``1e-4`` a string;
@@ -12,7 +13,7 @@ the empty value). A repeated key keeps its last value, as PyYAML does.
 
 Everything else raises ``ValueError`` with the file and line, rather than
 reading a config some other way than PyYAML would: anchors, aliases, tags,
-block scalars (``|``, ``>``), flow mappings, merge keys, complex keys,
+block scalars (``|``, ``>``), other flow mappings, merge keys, complex keys,
 timestamps, multi-line scalars, document markers and tabs in indentation.
 """
 
@@ -238,6 +239,8 @@ class _Reader:
                 self.fail(no, "text after a quoted scalar")
             return val
         if c == "{":
+            if text == "{}":
+                return {}
             self.fail(no, "a flow mapping")
         if c == "[":
             val, end = self._flow_seq(text, 0, no)

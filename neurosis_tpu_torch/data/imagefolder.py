@@ -1,6 +1,7 @@
-"""ImageFolder datasets: aspect-bucketed and square variants (port of
+"""ImageFolder datasets: aspect-bucketed and square variants, and the
+aspect variant with captions drawn from a tag list (port of
 neurosis_tpu/data/imagefolder.py; parity: dataset/imagefolder/aspect.py:26-191,
-nobucket.py:19-123, nocaption.py:19-78).
+nobucket.py:19-123, nocaption.py:19-78, meme.py:26-204).
 
 Without pandas: the sample table is lists and numpy arrays. The merge of
 undersized portrait buckets and the batch schedule keep the JAX package's
@@ -28,6 +29,7 @@ from .utils import (
     image_to_array,
     load_bucket_image_file,
     load_crop_image_file,
+    same_bucket_batches,
 )
 
 logger = logging.getLogger(__name__)
@@ -90,12 +92,10 @@ class ImageFolderDataset:
         self.captions: list[str] = []
         resolutions, bucket_idx = [], []
         for path in image_files:
-            caption_file = path.with_suffix(self.caption_ext)
-            if not caption_file.exists():
-                raise FileNotFoundError(f"Caption {self.caption_ext} for image {path} does not exist.")
+            caption = self._read_caption(path)
             width, height = image_size(path)
             self.image_paths.append(str(path))
-            self.captions.append(caption_file.read_text(encoding="utf-8"))
+            self.captions.append(caption)
             resolutions.append((width, height))
             bucket_idx.append(self.buckets.bucket_idx(float(width) / float(height)))
         self.resolutions = np.asarray(resolutions, np.int32)
@@ -109,6 +109,12 @@ class ImageFolderDataset:
                 continue
             if self.buckets[int(bucket_id)].aspect < 1.0:
                 self.bucket_idx[self.bucket_idx == bucket_id] = int(bucket_id) + 1
+
+    def _read_caption(self, path: Path) -> str:
+        caption_file = path.with_suffix(self.caption_ext)
+        if not caption_file.exists():
+            raise FileNotFoundError(f"Caption {self.caption_ext} for image {path} does not exist.")
+        return caption_file.read_text(encoding="utf-8")
 
     # -- items -------------------------------------------------------------
 
@@ -151,35 +157,7 @@ class ImageFolderDataset:
     # -- batch schedule (aspect.py:160-191) --------------------------------
 
     def get_batch_iterator(self) -> Generator[list[int], None, None]:
-        ids, counts = np.unique(self.bucket_idx, return_counts=True)
-        index_sched = np.arange(counts.max(), dtype=np.int64)
-        self.rng.shuffle(index_sched)
-
-        bucket_dict = {
-            idx: (np.flatnonzero(self.bucket_idx == idx), int(n), 0)
-            for idx, n in zip(ids, counts)
-            if n >= self.batch_size
-        }
-
-        bucket_sched = []
-        for idx, (indices, _, _) in bucket_dict.items():
-            bucket_sched.extend([idx] * (len(indices) // self.batch_size))
-        self.rng.shuffle(bucket_sched)
-
-        def batch_iterator():
-            buckets = dict(bucket_dict)
-            for idx in bucket_sched:
-                indices, b_len, b_offs = buckets[idx]
-                batch = []
-                while len(batch) < self.batch_size:
-                    k = index_sched[b_offs]
-                    if k < b_len:
-                        batch.append(int(indices[k]))
-                    b_offs += 1
-                buckets[idx] = (indices, b_len, b_offs)
-                yield batch
-
-        return batch_iterator()
+        return same_bucket_batches(self.bucket_idx, self.batch_size, self.rng)
 
 
 class FolderSquareDataset:
@@ -257,3 +235,36 @@ class FolderVAEDataset(FolderSquareDataset):
     def _item(self, index: int, rng: np.random.Generator) -> dict:
         image, _ = load_crop_image_file(str(self.paths[index]), self.resolution, rng=rng)
         return {self.image_key: image_to_array(image, self.image_dtype)}
+
+
+class MemeAspectDataset(ImageFolderDataset):
+    """Aspect dataset whose captions are drawn from a global tag list
+    (meme.py:26-204): each sample gets ``tags_per_img`` tags of
+    ``tag_list_path`` (relative to the folder unless absolute), without
+    repeats, and ``prepend_tag`` first with probability ``prepend_rate``;
+    the draws follow the crop's, from the same generator, in the JAX
+    package's order. No caption files are read."""
+
+    def __init__(self, folder, tag_list_path="tag_list.txt", tags_per_img: int = 50, prepend_tag: Optional[str] = None,
+                 prepend_rate: float = 0.0, **kwargs):
+        tag_path = Path(tag_list_path)
+        if not tag_path.is_absolute():
+            tag_path = Path(folder) / tag_path
+        self.tag_list = [t.strip() for t in tag_path.read_text().splitlines() if t.strip()]
+        self.tags_per_img = tags_per_img
+        self.prepend_tag = prepend_tag
+        self.prepend_rate = prepend_rate
+        kwargs.setdefault("process_tags", False)
+        super().__init__(folder, **kwargs)
+
+    def _read_caption(self, path: Path) -> str:
+        return ""  # drawn per sample
+
+    def _item(self, index: int, rng: np.random.Generator) -> dict:
+        sample = super()._item(index, rng)
+        n = min(self.tags_per_img, len(self.tag_list))
+        tags = [self.tag_list[i] for i in rng.choice(len(self.tag_list), size=n, replace=False)]
+        if self.prepend_tag and rng.random() < self.prepend_rate:
+            tags = [self.prepend_tag] + tags
+        sample[self.caption_key] = self.tag_sep.join(tags)
+        return sample

@@ -98,7 +98,11 @@ def read_png(path) -> tuple[np.ndarray, str, Optional[Union[int, tuple]]]:
     """(pixels, mode, transparency) of an 8-bit PNG: mode 'L', 'LA', 'RGB' or
     'RGBA'; transparency is the tRNS key (an int for L, an (r, g, b) tuple
     for RGB) or None."""
-    data = Path(path).read_bytes()
+    return decode_png(Path(path).read_bytes(), path)
+
+
+def decode_png(data: bytes, path="<bytes>") -> tuple[np.ndarray, str, Optional[Union[int, tuple]]]:
+    """``read_png`` of a PNG's bytes; ``path`` names them in errors."""
     if data[:8] != SIGNATURE:
         raise ValueError(f"{path}: not a PNG")
     header = None

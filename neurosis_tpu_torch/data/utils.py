@@ -72,13 +72,36 @@ def decode_image(path) -> np.ndarray:
     except ImportError as e:
         raise ImportError(f"{path}: only .png decodes without Pillow, which is not installed") from e
     with Image.open(path) as im:
-        if im.mode not in ("RGB", "RGBA"):
-            im = im.convert("RGBA") if "transparency" in im.info else im.convert("RGB")
-        if im.mode == "RGBA":
-            canvas = Image.new("RGBA", im.size, (255, 255, 255))
-            canvas.alpha_composite(im)
-            im = canvas.convert("RGB")
-        return np.asarray(im)
+        return pillow_to_rgb(im)
+
+
+def decode_image_bytes(data: bytes, source: str = "<bytes>") -> np.ndarray:
+    """An encoded image's bytes → RGB uint8 HWC: a PNG (by its signature)
+    through ``data/png.py``, another format through Pillow."""
+    if data[:8] == png.SIGNATURE:
+        pixels, _mode, transparency = png.decode_png(data, source)
+        return pil_ensure_rgb(pixels, transparency)
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(f"{source}: only PNG decodes without Pillow, which is not installed") from e
+    import io
+
+    with Image.open(io.BytesIO(data)) as im:
+        return pillow_to_rgb(im)
+
+
+def pillow_to_rgb(im) -> np.ndarray:
+    """A Pillow image → RGB uint8 HWC, as the JAX package's pil_ensure_rgb."""
+    if im.mode not in ("RGB", "RGBA"):
+        im = im.convert("RGBA") if "transparency" in im.info else im.convert("RGB")
+    if im.mode == "RGBA":
+        from PIL import Image
+
+        canvas = Image.new("RGBA", im.size, (255, 255, 255))
+        canvas.alpha_composite(im)
+        im = canvas.convert("RGB")
+    return np.asarray(im)
 
 
 def image_size(path) -> tuple[int, int]:
@@ -259,6 +282,65 @@ def clean_caption(
         else:
             tags = [tags[i] for i in rng.permutation(len(tags))]
     return tag_sep.join(tags).strip()
+
+
+def cropped_sample_fields(image: np.ndarray, bucket=None, resolution=None, rng=None, clamp_orig: bool = True):
+    """Cover-resize and random-crop RGB pixels to an aspect bucket or a fixed
+    square: (the float image in [-1, 1], its SDXL size conditionings), the
+    original size clamped to the crop's target with ``clamp_orig`` (the JAX
+    package's helper shared by the Mongo datasets and the HF adapter)."""
+    orig = (image.shape[1], image.shape[0])
+    if bucket is not None:
+        image, crop = pil_crop_bucket(image, bucket, rng=rng)
+        target = bucket.size
+    else:
+        resolution = (resolution, resolution) if isinstance(resolution, int) else tuple(resolution)
+        image, crop = pil_crop_square(image, resolution, rng=rng)
+        target = resolution
+    osize = (min(orig[0], target[0]), min(orig[1], target[1])) if clamp_orig else tuple(orig)
+    return image_to_array(image), {"original_size_as_tuple": osize, "crop_coords_top_left": crop,
+                                   "target_size_as_tuple": tuple(target)}
+
+
+def shuffled_chunk_batches(n: int, batch_size: int, rng: np.random.Generator):
+    """Shuffled fixed-size index chunks, the ragged tail dropped (the
+    square datasets' and the HF adapter's schedule)."""
+    order = np.arange(n, dtype=np.int64)
+    rng.shuffle(order)
+    return iter([[int(i) for i in order[b * batch_size:(b + 1) * batch_size]] for b in range(n // batch_size)])
+
+
+def same_bucket_batches(bucket_idx: np.ndarray, batch_size: int, rng: np.random.Generator):
+    """Batches of ``batch_size`` rows of one bucket each (aspect.py:160-191):
+    one shuffled row schedule as long as the largest bucket, walked from
+    each bucket's offset (an entry past a bucket's size is skipped), and the
+    buckets' turns shuffled; buckets in sorted order, those smaller than a
+    batch left out."""
+    ids, counts = np.unique(bucket_idx, return_counts=True)
+    index_sched = np.arange(counts.max(), dtype=np.int64)
+    rng.shuffle(index_sched)
+
+    bucket_dict = {idx: (np.flatnonzero(bucket_idx == idx), int(n), 0) for idx, n in zip(ids, counts)
+                   if n >= batch_size}
+    bucket_sched = []
+    for idx, (indices, _, _) in bucket_dict.items():
+        bucket_sched.extend([idx] * (len(indices) // batch_size))
+    rng.shuffle(bucket_sched)
+
+    def batch_iterator():
+        buckets = dict(bucket_dict)
+        for idx in bucket_sched:
+            indices, b_len, b_offs = buckets[idx]
+            batch = []
+            while len(batch) < batch_size:
+                k = index_sched[b_offs]
+                if k < b_len:
+                    batch.append(int(indices[k]))
+                b_offs += 1
+            buckets[idx] = (indices, b_len, b_offs)
+            yield batch
+
+    return batch_iterator()
 
 
 def collate_dict_stack(samples: Sequence[dict]) -> dict:

@@ -1,13 +1,17 @@
-"""The trainer callbacks the configs name (port of the part of
-neurosis_tpu/trainer/callbacks.py they use): device memory stats, the model
-summary, the image logger and checkpoints.
+"""The trainer callbacks (port of neurosis_tpu/trainer/callbacks.py):
+device memory stats, the model summary, the image logger, checkpoints, the
+progress line with its smoothed loss and the resolved config's copy.
+``HFHubCheckpoint`` (uploads to the Hugging Face Hub) is not ported.
 
 Checkpoints are the port's own format, not the JAX package's orbax trees:
 one directory a step under ``dirpath`` (default ``<root>/checkpoints``), as
 orbax's manager lays them out, holding ``state.pt``, a ``torch.save`` of
 JAX's ``_state_payload`` (``params``, ``step``, ``opt_state``, ``ema_params``,
 ``ema_num_updates``) readable with ``torch.load(weights_only=True)``.
-``load_checkpoint`` reads one back into an engine's state.
+``load_checkpoint`` reads one back into an engine's state. A remote
+``dirpath`` (``gs://``, ``s3://``, ``memory://``, ...) holds the same payload
+as ``step_<NNNNNNNN>.pt`` files (``checkpoint/blob.py``), written on a
+background thread.
 
 On a mesh (``trainer.mesh``) every rank takes part in what is a collective
 (gathering a sharded state, a sampling run through the wrapped UNet), and
@@ -32,7 +36,9 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..checkpoint.blob import BlobCheckpointIO, is_remote_url
 from ..parallel.fsdp import assign, full, full_state, shard_optimizer_state
+from ..utils.fs import split_url
 
 logger = logging.getLogger(__name__)
 
@@ -259,11 +265,6 @@ CHECKPOINT_FORMAT = "neurosis_tpu_torch/1"
 STATE_FILE = "state.pt"
 
 
-def is_remote_url(path) -> bool:
-    """True for fsspec URLs (gs://, s3://, memory://, ...), not local paths."""
-    return bool(path) and "://" in str(path) and not str(path).startswith("file://")
-
-
 def _named_params(engine) -> list:
     """(name, parameter) of what a checkpoint holds: the diffusion engine's
     trainable parameters, or every parameter of the VAE trainer's encoder,
@@ -367,45 +368,54 @@ def load_checkpoint(path: Path) -> dict:
         raise ValueError(f"cannot read checkpoint {path}: {e}") from e
 
 
+def check_store_reach(url: str, mesh) -> None:
+    """A ``memory://`` store is one process's: under a mesh of several
+    processes the others would neither see a save nor resume from it."""
+    if mesh is not None and mesh.dist.world_size > 1 and split_url(url)[0] == "memory":
+        raise ValueError(f"{url}: a memory:// store is per process, and the mesh has {mesh.dist.world_size} processes")
+
+
 class CheckpointCallback:
     """State checkpointing (ModelCheckpoint's role): every
     ``every_n_train_steps`` steps the state goes to ``<dirpath>/<step>/state.pt``,
     written under ``<step>.tmp`` and then renamed, so an interrupted save
-    leaves the earlier ones readable; only the newest ``keep`` are kept.
-    Remote ``dirpath``s (``checkpoint/blob.py``) are not ported."""
+    leaves the earlier ones readable; only the newest ``keep`` are kept. A
+    remote ``dirpath`` (with its ``storage_options``) goes through
+    ``BlobCheckpointIO``: written on a thread, pruned to ``keep`` after each
+    write, the last write waited for at the fit's end. A ``file://`` URL
+    names a local directory (JAX hands it to orbax as a relative path)."""
 
-    def __init__(self, dirpath: Optional[str] = None, every_n_train_steps: int = 1000, keep: int = 3):
-        if is_remote_url(dirpath):
-            raise NotImplementedError(f"model_checkpoint dirpath {dirpath!r}: remote checkpoints "
-                                      "(checkpoint/blob.py) are not ported yet: ROADMAP Queue 1 item 11")
+    def __init__(self, dirpath: Optional[str] = None, every_n_train_steps: int = 1000, keep: int = 3,
+                 storage_options: Optional[dict] = None):
         self.dirpath = dirpath
         self.every_n = every_n_train_steps
         self.keep = keep
+        self.blob = BlobCheckpointIO(dirpath, storage_options) if is_remote_url(dirpath) else None
+        if self.blob is not None:
+            _ = self.blob.fs  # an unknown scheme or a missing package raises before the fit
         self.last_save_s: Optional[float] = None  # seconds of the last save, for the caller's records
 
     def root(self, trainer) -> Path:
-        return Path(self.dirpath or (Path(trainer.root_dir) / "checkpoints")).absolute()
+        return Path(split_url(self.dirpath)[1] if self.dirpath else Path(trainer.root_dir) / "checkpoints").absolute()
 
-    def save(self, trainer, state, step: int) -> Path:
+    def on_fit_start(self, trainer, state):
+        if self.blob is not None:
+            check_store_reach(self.dirpath, getattr(trainer, "mesh", None))
+
+    def save(self, trainer, state, step: int):
+        """The state of ``step``: its directory, or for a remote ``dirpath``
+        the path of its file in the store."""
         t0 = time.perf_counter()
         mesh = getattr(trainer, "mesh", None)
-        root = self.root(trainer)
-        tmp, final = root / f"{step}.tmp", root / str(step)
         if mesh is not None:
             mesh.barrier()
         payload = state_payload(trainer.engine, state)
+        final = None
         if mesh is None or mesh.is_writer:
-            root.mkdir(parents=True, exist_ok=True)
-            shutil.rmtree(tmp, ignore_errors=True)
-            tmp.mkdir()
-            with open(tmp / STATE_FILE, "wb") as f:
-                torch.save(payload, f)
-                f.flush()
-                os.fsync(f.fileno())
-            shutil.rmtree(final, ignore_errors=True)
-            os.rename(tmp, final)
-            for old in checkpoint_steps(root)[:-self.keep]:
-                shutil.rmtree(root / str(old))
+            if self.blob is not None:
+                final = self.blob.save_checkpoint(payload, step, keep=self.keep)
+            else:
+                final = self._save_local(self.root(trainer), payload, step)
         del payload
         if mesh is not None:
             mesh.barrier()
@@ -413,6 +423,100 @@ class CheckpointCallback:
         logger.info(f"saved checkpoint at step {step} to {final} in {self.last_save_s:.1f} s")
         return final
 
+    def _save_local(self, root: Path, payload: dict, step: int) -> Path:
+        tmp, final = root / f"{step}.tmp", root / str(step)
+        root.mkdir(parents=True, exist_ok=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+        tmp.mkdir()
+        with open(tmp / STATE_FILE, "wb") as f:
+            torch.save(payload, f)
+            f.flush()
+            os.fsync(f.fileno())
+        shutil.rmtree(final, ignore_errors=True)
+        os.rename(tmp, final)
+        for old in checkpoint_steps(root)[:-self.keep]:
+            shutil.rmtree(root / str(old))
+        return final
+
     def on_train_batch_end(self, trainer, state, batch, metrics, step: int):
         if step % self.every_n == 0:
             self.save(trainer, state, step)
+
+    def on_fit_end(self, trainer, state):
+        if self.blob is not None:
+            self.blob.wait()
+
+
+# -- console progress and the config's copy -----------------------------------------------
+
+
+class EMATracker:
+    """Scalar loss smoothing (trainer/util.py:59)."""
+
+    def __init__(self, steps: int = 64):
+        self.alpha = 2.0 / (steps + 1)
+        self.value: Optional[float] = None
+
+    def update(self, v: float) -> float:
+        self.value = v if self.value is None else self.alpha * v + (1 - self.alpha) * self.value
+        return self.value
+
+
+class ProgressCallback:
+    """Throughput and smoothed loss on the console (NeurosisProgressBar's
+    role): every ``every_n`` steps, from the second such step on,
+    ``step S loss L (ema E) R it/s``."""
+
+    def __init__(self, every_n: int = 10):
+        self.every_n = every_n
+        self.ema = EMATracker()
+        self._last_time = None
+        self._last_step = 0
+
+    def on_train_batch_end(self, trainer, state, batch, metrics, step: int):
+        loss = float(metrics.get("loss", metrics.get("total", 0.0)))
+        smoothed = self.ema.update(loss)
+        if step % self.every_n != 0:
+            return
+        now = time.time()
+        if self._last_time is not None:
+            rate = (step - self._last_step) / max(now - self._last_time, 1e-9)
+            logger.info(f"step {step} loss {loss:.4f} (ema {smoothed:.4f}) {rate:.2f} it/s")
+        self._last_time = now
+        self._last_step = step
+
+
+class SaveConfigCallback:
+    """The resolved config as ``<root>/config.yaml`` at the fit's start
+    (LoggerSaveConfigCallback, trainer/callbacks/wandb.py:15-34), written by
+    ``config/yaml_writer.py``; with an active wandb run also its hyper-
+    parameters, the file as a ``config`` artifact and, with ``log_code``, the
+    package's source. The CLI hands a node that gives no ``config`` the
+    run's own (JAX's CLI passes only the node's arguments)."""
+
+    def __init__(self, config: Optional[dict] = None, log_code: bool = False):
+        self.config = config
+        self.log_code = log_code
+
+    def on_fit_start(self, trainer, state):
+        from ..config.yaml_writer import safe_dump
+
+        if not self.config:
+            return
+        mesh = getattr(trainer, "mesh", None)
+        if mesh is not None and not mesh.is_writer:
+            return
+        path = Path(trainer.root_dir) / "config.yaml"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(safe_dump(self.config))
+        wb = getattr(trainer.logger, "wandb", None)
+        if wb is not None:
+            try:
+                wb.config.update({"resolved_config": self.config}, allow_val_change=True)
+                if hasattr(wb, "log_artifact"):
+                    wb.log_artifact(str(path), type="config")
+                if self.log_code and hasattr(wb, "log_code"):
+                    wb.log_code(root=str(Path(__file__).resolve().parents[1]))
+            except Exception:
+                logger.exception("wandb config artifact upload failed")
+        logger.info(f"saved resolved config → {path}")

@@ -15,9 +15,14 @@ into ``--out`` (default ``<root>/predictions``).
 The ``model_checkpoint:`` node saves the run's state every
 ``every_n_train_steps`` (keeping ``save_top_k``) under ``dirpath`` or
 ``<root>/checkpoints``, and a run started in the same root resumes from its
-latest step. ``data.init_args.num_workers`` (default 2) batches load ahead
-in spawned worker processes (``prefetch_mode`` or ``NEUROSIS_PREFETCH``:
-``process`` or ``thread``; 0 loads them in this process).
+latest step. A remote ``dirpath`` (``gs://``, ``s3://``, ``memory://``, ...,
+with the node's ``storage_options``) is a blob store, and the run resumes
+from it, as from ``trainer.remote_checkpoint_url`` (cli.py:180-213). A
+``SaveConfigCallback`` in ``trainer.callbacks`` that gives no ``config``
+writes the run's resolved config. ``data.init_args.num_workers`` (default
+2) batches load ahead in spawned worker processes (``prefetch_mode`` or
+``NEUROSIS_PREFETCH``: ``process`` or ``thread``; 0 loads them in this
+process).
 
 ``fit``, ``validate`` and ``test`` train on a (data, fsdp[, context]) mesh
 of one process a card (``tools/launch_pod.py`` under ``torchrun``, SLURM or
@@ -31,10 +36,6 @@ rides a ring of N ranks (``ops/ring_attention.py``). ``predict`` runs on one.
 ``trainer.profiler:`` adds a ``NeurosisProfiler`` (``trainer/profile.py``,
 torch.profiler) callback, as JAX's cli.py:142-160 builds it: ``dirpath``, the
 five ``schedule`` keys, ``record_module_names`` and ``capture_depth``.
-
-Config nodes the port cannot honour yet raise ``NotImplementedError`` naming
-their ROADMAP Queue 1 item, never pass in silence: a remote checkpoint
-``dirpath`` (11).
 """
 
 from __future__ import annotations
@@ -156,13 +157,14 @@ def _image_logger(node: dict):
     )
 
 
-def _callbacks(trainer_cfg: dict) -> list:
+def _callbacks(cfg: dict) -> list:
     """trainer.callbacks (Lightning class paths → the port's callbacks;
     unknown or unported entries warn and are skipped, so reference configs
-    run unmodified)."""
+    run unmodified); a SaveConfigCallback without a ``config`` gets ``cfg``."""
     from ..config.registry import resolve_class_path
-    from .callbacks import DeviceStatsCallback, ModelSummaryCallback
+    from .callbacks import DeviceStatsCallback, ModelSummaryCallback, SaveConfigCallback
 
+    trainer_cfg = cfg.get("trainer", {}) or {}
     callbacks = []
     for node in trainer_cfg.get("callbacks") or []:
         cp = (node.get("class_path") or "") if isinstance(node, dict) else str(node)
@@ -175,7 +177,10 @@ def _callbacks(trainer_cfg: dict) -> list:
             pass  # the schedule's lr is each param group's "lr", in the optimizer's state
         else:
             try:
-                callbacks.append(resolve_class_path(cp)(**ia))
+                cls = resolve_class_path(cp)
+                if cls is SaveConfigCallback and ia.get("config") is None:
+                    ia = dict(ia, config=cfg)
+                callbacks.append(cls(**ia))
             except Exception:
                 logger.warning(f"skipping unsupported trainer callback {cp!r}")
     if trainer_cfg.get("profiler"):
@@ -202,6 +207,7 @@ def _build(args):
     import torch
 
     from .._device import resolve_device
+    from ..checkpoint.blob import is_remote_url
     from ..config.loader import instantiate, load_config
     from .builder import build_engine
     from .loop import Trainer
@@ -221,16 +227,19 @@ def _build(args):
     engine = build_engine(cfg["model"], precision=trainer_cfg.get("precision"), device=device,
                           generator=torch.Generator(device).manual_seed(seed))
     dataset = instantiate(cfg["data"]) if "data" in cfg else None
-    callbacks = _callbacks(trainer_cfg)
+    callbacks = _callbacks(cfg)
     if cfg.get("image_logger"):
         callbacks.append(_image_logger(cfg["image_logger"]))
+    mc = dict(cfg.get("model_checkpoint") or {})
     if cfg.get("model_checkpoint"):
         from .callbacks import CheckpointCallback
 
-        mc = dict(cfg["model_checkpoint"])
         callbacks.append(CheckpointCallback(dirpath=mc.get("dirpath"),
                                             every_n_train_steps=mc.get("every_n_train_steps", 1000),
-                                            keep=mc.get("save_top_k", mc.get("keep", 3)) or 3))
+                                            keep=mc.get("save_top_k", mc.get("keep", 3)) or 3,
+                                            storage_options=mc.get("storage_options")))
+    remote = trainer_cfg.get("remote_checkpoint_url") or (mc.get("dirpath") if is_remote_url(mc.get("dirpath"))
+                                                           else None)
 
     fast_dev = trainer_cfg.get("fast_dev_run", False)
     if getattr(args, "fast_dev_run", None) is not None:
@@ -249,6 +258,8 @@ def _build(args):
         wandb_config=_wandb_config(trainer_cfg),
         allow_random_weights=trainer_cfg.get("allow_random_weights", False),
         mesh=mesh,
+        remote_checkpoint_url=remote,
+        storage_options=mc.get("storage_options"),
     )
     return cfg, engine, dataset, trainer
 

@@ -21,11 +21,13 @@ step's metrics before they are logged.
 ``predict`` samples images for prompts with the engine's sampler and
 writes them as PNGs with a captioned grid.
 
-A run resumes from the latest step under ``<root>/checkpoints`` (the
-port's format, ``callbacks.CheckpointCallback``): parameters, optimizer
-state (with the schedule's count), EMA and step. The random generator
-restarts from the seed, as in the JAX package, which saves no rng. A
-checkpoint that cannot be read raises rather than start fresh beside it.
+A run resumes from the latest step in the blob store of
+``remote_checkpoint_url`` (``checkpoint/blob.py``), else from the latest
+step under ``<root>/checkpoints`` (the port's format,
+``callbacks.CheckpointCallback``): parameters, optimizer state (with the
+schedule's count), EMA and step. The random generator restarts from the
+seed, as in the JAX package, which saves no rng. A checkpoint that cannot be
+read raises rather than start fresh beside it.
 
 With a ``mesh`` (``parallel/mesh.py``) each process drives one rank: the
 engine's trainable modules are wrapped with FSDP2 before its state is
@@ -64,7 +66,9 @@ from ..ops.ring_attention import on_axis
 from ..parallel import rows as rows_
 from ..parallel.fsdp import full, reshard, wrap_engine
 from ..utils.profiling import record_module_names
-from .callbacks import STATE_FILE, checkpoint_steps, engine_modules, load_checkpoint, load_state_payload
+from ..checkpoint.blob import BlobCheckpointIO
+from .callbacks import (STATE_FILE, check_store_reach, checkpoint_steps, engine_modules, load_checkpoint,
+                        load_state_payload)
 
 logger = logging.getLogger(__name__)
 
@@ -186,8 +190,12 @@ class Trainer:
         wandb_config: Optional[dict] = None,
         allow_random_weights: bool = False,
         mesh=None,
+        remote_checkpoint_url: Optional[str] = None,
+        storage_options: Optional[dict] = None,
     ):
         self.engine = engine
+        self.remote_checkpoint_url = remote_checkpoint_url
+        self.storage_options = storage_options
         self.mesh = mesh  # parallel.mesh.Mesh: wrap the engine and run this rank's rows
         if mesh is not None and mesh.context > 1:
             model = getattr(engine, "model", None)
@@ -410,6 +418,14 @@ class Trainer:
             # ExceptionHandler parity: dump state for post-mortem
             if state is not None:
                 self._crash_dump(state)
+            # a blob write in flight is on a daemon thread, which dies with the interpreter:
+            # finish it, so a job stopped by SIGTERM keeps its newest checkpoint
+            for cb in self.callbacks:
+                if getattr(cb, "blob", None) is not None:
+                    try:
+                        cb.blob.wait()
+                    except Exception:
+                        logger.exception(f"the checkpoint write to {cb.blob.base_url} failed")
             raise
         for cb in self.callbacks:
             if hasattr(cb, "on_fit_end"):
@@ -500,12 +516,22 @@ class Trainer:
         )
 
     def _maybe_resume(self, state):
-        """Restore the latest step under ``<root>/checkpoints`` in place
-        (loop.py:567-613): parameters, optimizer state, EMA and step, and
-        mark the weights loaded. The generator is not restored (JAX saves no
-        rng either). Where JAX logs a failed resume and starts fresh, this
-        raises, so that a later save cannot rotate away a checkpoint it
-        could not read."""
+        """Restore the latest step in place (loop.py:567-640): from the blob
+        store of ``remote_checkpoint_url`` when it holds one, else from
+        ``<root>/checkpoints``; parameters, optimizer state, EMA and step,
+        and mark the weights loaded. The generator is not restored (JAX
+        saves no rng either). Where JAX logs a failed resume and starts
+        fresh, this raises, so that a later save cannot rotate away a
+        checkpoint it could not read."""
+        if self.remote_checkpoint_url:
+            check_store_reach(self.remote_checkpoint_url, self.mesh)
+            blob = BlobCheckpointIO(self.remote_checkpoint_url, self.storage_options)
+            latest = blob.latest_step()
+            if latest is not None:
+                load_state_payload(self.engine, state, blob.load_checkpoint(latest))
+                self._weights_loaded = True
+                logger.info(f"resumed from remote checkpoint step {latest} ({self.remote_checkpoint_url})")
+                return state
         ckpt_dir = (self.root_dir / "checkpoints").absolute()
         steps = checkpoint_steps(ckpt_dir)
         if not steps:

@@ -13,7 +13,11 @@ CheckpointCallback, trainer/loop.py Trainer._maybe_resume), on the CPU.
 (c) Only the newest ``keep`` checkpoints stay; an interrupted save leaves
     the previous one readable and the next save clears its remains.
 (d) A directory of JAX orbax trees and a corrupt file raise, an empty
-    checkpoints/ starts fresh, a remote dirpath raises (ROADMAP item 11).
+    checkpoints/ starts fresh; a ``memory://`` dirpath saves to the blob
+    store (pruned to ``keep``) and ``Trainer(remote_checkpoint_url=...)``
+    resumes from it bitwise (the sd15 engine in (b), the VAE trainer here),
+    a ``file://`` dirpath saves in the local directory it names, and a
+    scheme without a filesystem raises, naming it.
 """
 
 from pathlib import Path
@@ -55,10 +59,10 @@ def _engine(seed: int, vae: bool = False):
     return engine
 
 
-def _trainer(engine, root: Path):
+def _trainer(engine, root: Path, remote_checkpoint_url=None):
     from neurosis_tpu_torch.trainer.loop import Trainer
 
-    return Trainer(engine, default_root_dir=str(root), fast_dev_run=True)
+    return Trainer(engine, default_root_dir=str(root), fast_dev_run=True, remote_checkpoint_url=remote_checkpoint_url)
 
 
 def _batch(vae: bool = False) -> dict:
@@ -88,9 +92,9 @@ def _equal(a, b, where: str = "") -> None:
 def _snapshot(engine, state) -> dict:
     from neurosis_tpu_torch.trainer.callbacks import state_payload
 
-    payload = state_payload(engine, state)
-    return {k: (dict((n, t.clone()) for n, t in v.items()) if k in ("params", "ema_params") else v)
-            for k, v in payload.items()}
+    import copy
+
+    return copy.deepcopy(state_payload(engine, state))  # the optimizer's state tensors too, which steps update in place
 
 
 def test_diffusion_round_trip_and_third_step(tmp_path):
@@ -105,6 +109,10 @@ def test_diffusion_round_trip_and_third_step(tmp_path):
     assert state.optimizer.count == 2 and any("mu_codes" in s for s in state.optimizer.state.values())
     CheckpointCallback(every_n_train_steps=2).on_train_batch_end(_trainer(engine, tmp_path), state, None, {}, 2)
     assert (tmp_path / "checkpoints" / "2" / "state.pt").is_file()
+    url = f"memory://test_torch_checkpoint_resume/{tmp_path.name}/sd15"
+    remote = CheckpointCallback(dirpath=url, every_n_train_steps=2)
+    remote.on_train_batch_end(_trainer(engine, tmp_path), state, None, {}, 2)
+    remote.on_fit_end(None, state)  # waits for the write
     saved = _snapshot(engine, state)
     generator = state.generator.get_state()
 
@@ -122,6 +130,12 @@ def test_diffusion_round_trip_and_third_step(tmp_path):
     resumed, m2 = other.train_step(resumed, batch)
     assert float(m["loss"]) == float(m2["loss"])
     _equal(_snapshot(other, resumed), _snapshot(engine, state))
+
+    # the blob store's step 2, over the third step's state, from a root without checkpoints/
+    trainer = _trainer(other, tmp_path / "elsewhere", remote_checkpoint_url=url)
+    from_store = trainer._start("validate")
+    assert from_store.step == 2 and trainer._weights_loaded
+    _equal(_snapshot(other, from_store), saved)
 
 
 def test_vae_round_trip_saves_params_step_and_ema(tmp_path):
@@ -174,7 +188,7 @@ def test_keep_rotation_and_an_interrupted_save(tmp_path, monkeypatch):
 
 
 def test_unreadable_checkpoints_raise_and_an_empty_folder_starts_fresh(tmp_path):
-    from neurosis_tpu_torch.trainer.callbacks import CheckpointCallback
+    from neurosis_tpu_torch.trainer.callbacks import CheckpointCallback, checkpoint_steps
 
     engine = _engine(1, vae=True)
     ckpt = tmp_path / "checkpoints"
@@ -188,6 +202,49 @@ def test_unreadable_checkpoints_raise_and_an_empty_folder_starts_fresh(tmp_path)
     (ckpt / "3" / "state.pt").write_bytes(np.random.RandomState(0).bytes(256))
     with pytest.raises(ValueError, match="cannot read checkpoint"):
         _trainer(engine, tmp_path)._start("fit")
-    for url in ("gs://bucket/run", "s3://bucket/run", "memory://run"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            CheckpointCallback(dirpath=url)
+
+    from neurosis_tpu_torch.checkpoint.blob import BlobCheckpointIO
+
+    state = _trainer(engine, tmp_path / "fresh")._start("fit")
+    url = f"memory://test_torch_checkpoint_resume/{tmp_path.name}/vae"
+    remote, local = (CheckpointCallback(dirpath=d, every_n_train_steps=1, keep=2)
+                     for d in (url, f"file://{tmp_path}/local"))
+    for step in (1, 2, 3):
+        state.step = step
+        for cb in (remote, local):
+            cb.on_train_batch_end(_trainer(engine, tmp_path / "fresh"), state, None, {}, step)
+    remote.on_fit_end(None, state)
+    assert BlobCheckpointIO(url).list_steps() == [2, 3] and checkpoint_steps(tmp_path / "local") == [2, 3]
+    saved = _snapshot(engine, state)
+    with torch.no_grad():
+        for p in engine.g_parameters():
+            p.add_(1.0)
+    resumed = _trainer(engine, tmp_path / "fresh", remote_checkpoint_url=url)._start("fit")
+    assert resumed.step == 3
+    _equal(_snapshot(engine, resumed), saved)
+    with pytest.raises(ValueError, match="'nosuchscheme'"):
+        CheckpointCallback(dirpath="nosuchscheme://bucket/run")
+
+    # a fit stopped by SIGTERM (launch_pod's Terminated) finishes the write in flight before it raises
+    import time
+
+    from neurosis_tpu_torch.tools.launch_pod import Terminated
+    from neurosis_tpu_torch.trainer.loop import Trainer
+    from neurosis_tpu_torch.utils.fs import MemoryFileSystem
+
+    class SlowStore(MemoryFileSystem):
+        def open(self, path, mode="rb"):
+            if mode == "wb":
+                time.sleep(0.5)
+            return super().open(path, mode)
+
+    def stopped():
+        yield {k: v.numpy() for k, v in _batch(vae=True).items()}  # a dataset's host batch
+        raise Terminated("signal 15")
+
+    url = f"memory://test_torch_checkpoint_resume/{tmp_path.name}/stopped"
+    cb = CheckpointCallback(dirpath=url, every_n_train_steps=1, keep=2)
+    cb.blob._fs = SlowStore()
+    with pytest.raises(Terminated):
+        Trainer(engine, max_steps=5, default_root_dir=str(tmp_path / "stopped"), callbacks=[cb]).fit(stopped)
+    assert BlobCheckpointIO(url).list_steps() == [1]

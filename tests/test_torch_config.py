@@ -49,6 +49,7 @@ def test_reader_equals_pyyaml_on_every_config(path):
     "a: it's", "a: 'it''s' # comment", "a: b#c", "a: b # c", "'k': v", "\"k\": v", "on: 1", "1: one",
     "a:\n- 1\n- 2\nb: 3", "- a: 1\n  b: 2\n- c", "a:\n  - x: 1\n    y:\n      - 2\n  - 3",
     "a: ${oc.env:NAME,./x}", "a: tcp://localhost:1", "a: x:y", "a:  spaced  ", "# only a comment", "",
+    "a: {}", "a:\n- {}\n- []\n- b: {}",
 ])
 def test_reader_edge_cases_equal_pyyaml(text):
     from neurosis_tpu_torch.config.yaml_reader import safe_load
@@ -163,8 +164,9 @@ def test_registry_maps_torch_and_optax_optimizers():
     assert opt.defaults["weight_decay"] == 1e-4 and opt.defaults["lr"] == 4.5e-6  # optax's default decay
     with pytest.raises(NotImplementedError, match="item 11"):
         resolve_class_path("optax.lion")
+    assert resolve_class_path("neurosis_tpu.models.unet.UNetModel") is UNetModel  # the port's counterpart
     with pytest.raises(ImportError, match="cannot resolve"):
-        resolve_class_path("neurosis_tpu.models.unet.UNetModel")  # no import of the JAX package
+        resolve_class_path("neurosis_tpu.trainer.callbacks.HFHubCheckpoint")  # no counterpart; JAX's is not imported
 
 
 def test_instantiate_threads_device_and_generator():

@@ -1,5 +1,7 @@
 """Rules of the neurosis_tpu_torch package: it imports neither JAX nor the
-JAX package (nor the safetensors package, absent on the card's machine),
+JAX package (a ``neurosis_tpu.*`` class path resolves to the port's class
+without it), nor, at import, a package absent on the card's machine
+(safetensors, fsspec, pymongo, pandas, pydantic, zstandard, PyYAML, Pillow),
 calls no library attention kernel and no torch.compile, builds on CUDA
 unless told otherwise, and hands non-CPU tensors to its kernels rather than
 to their plain versions."""
@@ -27,8 +29,11 @@ def test_imports_no_jax_in_a_fresh_process():
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, 'neurosis_tpu_torch.')]\n"
         "[importlib.import_module(m) for m in mods]\n"
         "import chip_smoke, conv_tiles, conv_times, flash_times\n"
+        "from neurosis_tpu_torch.config.registry import resolve_class_path\n"
+        "assert resolve_class_path('neurosis_tpu.trainer.callbacks.ProgressCallback').__module__ =="
+        " 'neurosis_tpu_torch.trainer.callbacks'\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'neurosis_tpu',"
-        " 'safetensors')]\n"
+        " 'safetensors', 'fsspec', 'pymongo', 'pandas', 'pydantic', 'zstandard', 'yaml', 'PIL', 'huggingface_hub')]\n"
         "assert not bad, bad\n"
         "print(' '.join(mods))\n"
     )
