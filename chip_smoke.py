@@ -94,13 +94,13 @@ Phases, each fatal on failure:
      apart from the steps' and held to their own tables, each PNG is read
      back (names, sizes, not flat), every decode and reconstruction finite;
  14. a run that lasts, in chiprun_out/cli/ after phase 13: fit of a copy of
-     sdxl-te.example.yaml with fast_dev_run false, max_steps 3 and a
-     model_checkpoint: node (every 2 steps, keep 1), its third step
+     sdxl-te.example.yaml with fast_dev_run false, max_steps 2 and a
+     model_checkpoint: node (every 2 steps, keep 1), its second step
      profiled (device time, kernels by kind), the save at step 2 timed
-     (bytes, seconds, free disk); fit of the copy with max_steps 4 in the
+     (bytes, seconds, free disk); fit of the copy with max_steps 3 in the
      same projects/, which resumes: the restored parameters' checksum is the
      saved file's, the optimizer's count 2, each param group's lr its base x
-     sched(2), and it logs steps 3 and 4; one more 8-bit AdamW update timed
+     sched(2), and it logs step 3, saving nothing; one more 8-bit AdamW update timed
      and profiled alone; 8-bit AdamW on the card against the CPU at a bigG
      token embedding and a small leaf; each run's launches equal its steps
      x cli_sdxl_te's tables (those of cli_sdxl_f32). The run directory,
@@ -136,7 +136,7 @@ Phases, each fatal on failure:
      subprocess (chip_smoke.py --rank) of one NCCL rank that runs
      python -m neurosis_tpu_torch.tools.launch_pod's main: a copy of
      configs/sdxl/sdxl-tpu-v5e.yaml with devices 1, strategy fsdp, fsdp 1,
-     no ckpt_path, batch 2 (FSDP2 over a 1 x 1 mesh), 3 steps, the third
+     no ckpt_path, batch 2 (FSDP2 over a 1 x 1 mesh), 2 steps, the second
      profiled, a checkpoint at step 2, against the same copy's one-card run
      within the bf16 gates (losses 2e-2, grad norms 5e-2); both step-2
      checkpoints laid out alike, and a one-card step 3 resumed from each;
@@ -145,7 +145,8 @@ Phases, each fatal on failure:
      cards, the copy at devices 2 as data 2 and as fsdp 2 against one rank,
      else the line that says tier-1's gloo tests hold them. The run
      directory, with two SDXL checkpoints, is deleted afterwards;
- 18. the context axis: ring_self_attention over LocalRing(n) against the
+ 18. the context axis (run right after phase 13, beside phase 21's
+     processes): ring_self_attention over LocalRing(n) against the
      full-sequence flash kernel and the plain ring, FrozenCLIPT5Encoder at
      full width card vs CPU, the SDXL UNet wired for context_parallel;
  19. DreamSim, in chiprun_out/cli/: fit of vae.example.yaml with its loss:
@@ -175,7 +176,24 @@ Phases, each fatal on failure:
      to memory://phase20/vae (save_top_k 2), then a fit to step 4 with
      trainer.remote_checkpoint_url: the store holds steps 2-3, then 3-4, the
      resumed parameters, EMA shadows and step equal the saved ones bitwise;
-     the checkpoint's bytes, serialize, write, wait and resume seconds.
+     the checkpoint's bytes, serialize, write, wait and resume seconds;
+ 21. the loss-curve check (neurosis_tpu_torch/tools/loss_curve.py), started
+     before phase 13 and read after phase 20: the port's UNet at SD1.5's
+     widths from its numpy init (the float64 checksum equal to the committed
+     JAX curve's), 32x32 latents, batch 2, bf16, optax adam; in three
+     processes of their own (chip_smoke.py --loss-curve-arm), which run
+     beside phases 13 and 18: 200 steps at σ/noise seeds 0 and 1, every step
+     through the bf16 flash kernels at d = 40 and the conv kernel, each
+     process's launches read around its steps, and step 0 on the CPU in
+     fp32, held to the card's (loss 2e-2, grad norm 5e-2); the tool's rule:
+     the two seeds' EMA gap after a quarter of the steps is the band, and the
+     committed JAX curve (bf16, seed 0, made on the CPU by
+     tests/torch_loss_curve_jax.py) stays within 1.5 x band of seed 0's; one
+     more step in this process, timed and profiled.
+Phase 15's EDM copy also sets trainer.wandb_watch_steps and an
+HFHubCheckpoint (both at its last step) under stub wandb and
+huggingface_hub modules: the histograms' groups, the watch's device ms, the
+hub's calls, and the exported sgm file read back equal to the card's state.
 Phases 11, 13, 14 and 20 (a) load batches in 2 spawned prefetch worker processes
 (the CLI's default num_workers), which see no CUDA device.
 Then one JSON line of kernels, the nvidia-smi line and, last, the result line.
@@ -355,9 +373,10 @@ def sampling_tables() -> dict:
     out["cli_sd15_logger"] = ({}, dict(SD15_LOGGER_F32_FLASH_SHAPES), {}, {})
     return out
 
-# phase 14: sdxl-te.example.yaml as written through the CLI, saved at step 2 of a 3-step
-# run (keeping 1), then resumed for steps 3 and 4 in the same projects/
-TE_SAVE_STEPS, TE_RESUME_STEPS, TE_EVERY = 3, 4, 2
+# phase 14: sdxl-te.example.yaml as written through the CLI, saved at step 2 of a 2-step
+# run (keeping 1), then resumed for step 3 in the same projects/ (no second 20 GB save:
+# phase 17's VAE run holds the rotation)
+TE_SAVE_STEPS, TE_RESUME_STEPS, TE_EVERY = 2, 3, 2
 # (c): one bigG token embedding (vocab x width) and one LayerNorm weight, under min_8bit_size
 ADAMW8BIT_SHAPES = ((49408, 1280), (1280,))
 
@@ -444,6 +463,20 @@ DS_TOWERS = ("dino", "clip1", "clip2")
 DS_TOL = {"fp32": (1e-3, 1e-2), "bf16": (2e-2, 5e-2)}  # PERF.md section 2: losses, grad norms
 DS_FULL_WIDTH_TOL = 1e-3  # fp32 card vs CPU at full width
 
+# Phase 21: the port's arm of neurosis_tpu_torch/tools/loss_curve.py (CFG: SD1.5's widths, one ResBlock a
+# level, attention at every level) at 32x32 latents, batch 2, bf16, no remat. Level 0 (1024 tokens, 320
+# channels in 8 heads of 40) holds 3 transformer blocks (one input, two output blocks), each with a self
+# and a cross (kv = 77) attention, forward once and backward once a step; the upsample conv into level 0
+# (640 channels at 32x32) takes the conv kernel, forward and dgrad. Level 1 (16x16) and level 2 (8x8) are
+# under both gates, and level 0's 320- and 960-channel convs are no 128-multiples.
+LOSS_CURVE_FLASH_SHAPES = {(2, 8, 1024, 1024, 40): (3, 3), (2, 8, 1024, 77, 40): (3, 3)}
+LOSS_CURVE_CONV_SHAPES = {(2, 32, 32, 640, 640): (1, 1)}
+LOSS_CURVE_SEEDS = (0, 1)  # each in a process of its own, side by side
+LOSS_CURVE_FLAG = "--loss-curve-arm"  # chip_smoke.py --loss-curve-arm cuda|cpu SEED INIT_PT OUT_JSON
+LOSS_CURVE_CPU_THREADS = 2  # the CPU's step 0, beside the card processes (each host-bound on a core)
+LOSS_CURVE_DIR = Path("chiprun_out") / "loss_curve"
+LOSS_CURVE_TOL = {"loss": 2e-2, "grad_norm": 5e-2}  # PERF.md section 2's bf16 gates: step 0, card vs CPU fp32
+
 # path -> (its key in the report, the unit its launch tables count)
 PATHS = {"sd15": ("slice", "SD1.5 train step"),
          "sd15_f32": ("sd15_f32", "SD1.5 train step, fp32 UNet (sd15.example.yaml as written, 256 px, batch 1)"),
@@ -501,7 +534,9 @@ PATHS = {"sd15": ("slice", "SD1.5 train step"),
          "cli_mongo_vae": ("cli_mongo_vae", "generator step of vae.example.yaml (fp32, EMA) fit from MongoVAEDataset, "
                                             "saving each step to a memory:// store, through the CLI"),
          "cli_mongo_vae_resume": ("cli_mongo_vae_resume", "generator step of that copy resumed from the memory:// "
-                                                          "store (trainer.remote_checkpoint_url)")}
+                                                          "store (trainer.remote_checkpoint_url)"),
+         "loss_curve": ("loss_curve", "step of the loss-curve check's UNet (tools/loss_curve.py: SD1.5 widths, 32x32 "
+                                      "latents, batch 2, bf16, optax adam)")}
 # a path whose shape tables are another's (the same step, reached another way; the towers of
 # sdxl-te train, but at 77 tokens their attention is under the flash gate)
 TABLES_OF = {"cli_sdxl_bf16": "sdxl", "cli_sdxl_te": "cli_sdxl_f32", "cli_sdxl_vpred": "sdxl", "cli_sdxl_remat": "sdxl",
@@ -658,7 +693,8 @@ def flash_tables(torch) -> list:
            [(path, sh, (n, 0), dtype) for path, tables in sampling_tables().items()
             for dtype, table in zip((bf16, f32), tables[:2]) for sh, n in table.items()] + \
            [("ring", sh, n, dtype) for dtype in (bf16, f32) for sh, n in RING_FLASH_SHAPES.items()] + \
-           [("cli_ds_bf16", sh, n, bf16) for sh, n in DS_FLASH_SHAPES.items()]
+           [("cli_ds_bf16", sh, n, bf16) for sh, n in DS_FLASH_SHAPES.items()] + \
+           [("loss_curve", sh, n, bf16) for sh, n in LOSS_CURVE_FLASH_SHAPES.items()]
 
 
 def check_flash(torch, log: list) -> dict:
@@ -805,7 +841,8 @@ def check_conv(torch, log: list) -> dict:
              [("sdxl", sh, n) for sh, n in SDXL_CONV_SHAPES.items()] + \
              [("cli_vq_bf16", sh, n) for sh, n in VQ_CONV_SHAPES.items()] + \
              [(path, sh, (n, 0)) for path, t in sampling.items() for sh, n in t[2].items()] + \
-             [("cli_ds_bf16", sh, n) for sh, n in DS_CONV_SHAPES.items()]
+             [("cli_ds_bf16", sh, n) for sh, n in DS_CONV_SHAPES.items()] + \
+             [("loss_curve", sh, n) for sh, n in LOSS_CURVE_CONV_SHAPES.items()]
     measured = {}  # (kind, shape) -> its row: another path's row at that shape reuses it
     for path, shape, (n_fwd, n_dgrad) in tables:
         if all((kind, shape) in measured for kind, n in (("fwd", n_fwd), ("dgrad", n_dgrad)) if n):
@@ -1994,11 +2031,12 @@ def check_adamw8bit(torch, log: list) -> dict:
 def run_te_phase(torch, rows: dict) -> dict:
     """Phase 14, in CLI_DIR after phase 13 (its image folder): (a) fit of a
     copy of sdxl-te.example.yaml that differs only in fast_dev_run false,
-    max_steps 3 and a model_checkpoint: node (every 2 steps, keep 1), its
-    third step profiled, the save at step 2 timed; (b) fit of the same with
-    max_steps 4 in the same projects/: it resumes at step 2 (its parameters'
+    max_steps 2 and a model_checkpoint: node (every 2 steps, keep 1), its
+    second step profiled, the save at step 2 timed; (b) fit of the same with
+    max_steps 3 in the same projects/: it resumes at step 2 (its parameters'
     checksum equal to the saved file's, the optimizer's count 2, each
-    group's lr its base x sched(2)) and logs steps 3 and 4; then one more
+    group's lr its base x sched(2)), logs step 3 and leaves the saved step
+    as the only checkpoint; then one more
     8-bit update on its last grads, timed and profiled; (c) check_adamw8bit;
     (d) each run's kernel launches equal its steps x cli_sdxl_te's tables.
     The run directory is deleted afterwards, also when the phase fails."""
@@ -2095,8 +2133,8 @@ def run_te_phase(torch, rows: dict) -> dict:
                 and all(want_lr == lr and c == TE_EVERY for want_lr, lr, c in lrs)):
             raise PhaseError(f"the resumed run did not restore the saved state: {resumed}")
         steps_saved = sorted(int(d.name) for d in ckpt.iterdir())
-        if steps_saved != [TE_RESUME_STEPS]:
-            raise PhaseError(f"the resumed run left checkpoints {steps_saved}, not [{TE_RESUME_STEPS}]")
+        if steps_saved != [TE_EVERY]:  # its steps reach no save: the checkpoint it resumed from stays alone
+            raise PhaseError(f"the resumed run left checkpoints {steps_saved}, not [{TE_EVERY}]")
 
         # the 8-bit update alone, on the last step's grads
         opt, state = second["state"].optimizer, second["state"]
@@ -2153,8 +2191,10 @@ def phase15_configs(repo: Path) -> dict:
     ``sdxl-remat`` (phase 11's two-step bf16 copy with that remat policy and
     nothing else, the remat pair's other half), ``sd15-edm`` and ``sd15-rf``
     (sd15.example.yaml as written, 2 steps, with
-    the EDM objective, and with the comfy rectified-flow objective, L1, and an
-    image logger at step 2 whose sampler has rf_safeguard)."""
+    the EDM objective and, at its last step, the parameter watch and an
+    HFHubCheckpoint under a WandbLogger (WATCH_HUB_TRAINER), and with the comfy
+    rectified-flow objective, L1, and an image logger at step 2 whose sampler
+    has rf_safeguard)."""
     sdxl, sd15 = (repo / "configs/sdxl/sdxl.example.yaml").read_text(), (repo / "configs/sd15/sd15.example.yaml").read_text()
     hook = (repo / "configs/hook/loss_scale.example.yml").read_text()
     hooks = hook[hook.index("    forward_hooks:\n"):]
@@ -2192,7 +2232,7 @@ def phase15_configs(repo: Path) -> dict:
         return f"      class_path: neurosis.modules.diffusion.Denoiser\n      init_args:\n        preconditioning:\n" \
                f"          class_path: neurosis.modules.diffusion.{pre}\n"
 
-    edm = _edit(sd15, [two, (denoiser, continuous("EDMPreconditioning")),
+    edm = _edit(sd15, [(two[0], two[1] + WATCH_HUB_TRAINER), (denoiser, continuous("EDMPreconditioning")),
                        (weighting, weighting.replace("EpsWeighting", "EDMWeighting")),
                        (sampling, "          class_path: neurosis.modules.diffusion.sigma_sampling.EDMSampling\n")],
                 "sd15.example.yaml")
@@ -2211,6 +2251,119 @@ def phase15_configs(repo: Path) -> dict:
                           "        use_checkpoint: true\n        remat_policy: [" + ", ".join(VPRED_REMAT) + "]\n")],
                   "sdxl.example.yaml")
     return {"sdxl-vpred": vpred, "sdxl-remat": remat, "sd15-edm": edm, "sd15-rf": rf}
+
+
+# the EDM copy's trainer node also asks for the parameter watch and the hub callback at its last step
+WATCH_HUB_REPO = "chip-smoke/sd15-edm"
+WATCH_HUB_TRAINER = (f"  wandb_watch_steps: {OPTION_STEPS}\n  logger:\n"
+                     "    - class_path: lightning.pytorch.loggers.WandbLogger\n      init_args:\n"
+                     "        project: chip-smoke\n  callbacks:\n"
+                     "    - class_path: neurosis_tpu.trainer.callbacks.HFHubCheckpoint\n      init_args:\n"
+                     f"        repo_id: {WATCH_HUB_REPO}\n        every_n_train_steps: {OPTION_STEPS}\n")
+
+
+def with_watch_and_hub(torch, fit) -> tuple:
+    """``fit()`` (a CLI fit whose config sets WATCH_HUB_TRAINER) under stub
+    ``wandb`` and ``huggingface_hub`` modules (the card's machine has
+    neither; nothing leaves the process): the watch logs once, at the last
+    step, a histogram a group; the hub callback exports the sgm checkpoint
+    and makes JAX's two calls. The file is read back and held, tensor for
+    tensor, to the engine's modules after the fit, then deleted. Returns
+    (the fit's result, what the watch and the export measured)."""
+    import concurrent.futures
+    import shutil
+    import types
+
+    import numpy as np
+
+    from neurosis_tpu_torch.checkpoint.safetensors import load_file
+    from neurosis_tpu_torch.trainer.callbacks import HFHubCheckpoint
+
+    runs, api_calls, seen = [], [], {}
+
+    class Run:
+        def __init__(self):
+            self.logs = []
+
+        def log(self, payload, step=None):
+            self.logs.append((step, payload))
+
+    class Histogram:
+        def __init__(self, values):
+            self.values = np.asarray(values)
+
+    class HfApi:
+        def create_repo(self, repo_id, private=None, exist_ok=None):
+            api_calls.append(("create_repo", repo_id, private, exist_ok))
+
+        def upload_file(self, path_or_fileobj, path_in_repo, repo_id, run_as_future=False):
+            api_calls.append(("upload_file", Path(path_or_fileobj).name, path_in_repo, repo_id, run_as_future))
+            done = concurrent.futures.Future()
+            done.set_result(path_in_repo)
+            return done
+
+    def init(**_):
+        runs.append(Run())
+        return runs[-1]
+
+    wandb = types.ModuleType("wandb")
+    wandb.init, wandb.Histogram = init, Histogram
+    hub = types.ModuleType("huggingface_hub")
+    hub.HfApi = HfApi
+    inner = HFHubCheckpoint.on_train_batch_end
+
+    def capture(self, trainer, state, batch, metrics, step):
+        inner(self, trainer, state, batch, metrics, step)
+        if self.last_export is not None:
+            seen.update(export=dict(self.last_export), trainer=trainer)
+
+    saved = {name: sys.modules.get(name) for name in ("wandb", "huggingface_hub")}
+    sys.modules.update(wandb=wandb, huggingface_hub=hub)
+    HFHubCheckpoint.on_train_batch_end = capture
+    try:
+        result = fit()
+    finally:
+        HFHubCheckpoint.on_train_batch_end = inner
+        for name, mod in saved.items():
+            if mod is None:
+                sys.modules.pop(name, None)
+            else:
+                sys.modules[name] = mod
+    if "trainer" not in seen:
+        raise PhaseError("the hub callback exported nothing")
+    trainer, export = seen.pop("trainer"), seen.pop("export")
+    watched = [(step, payload) for run in runs for step, payload in run.logs
+               if any(k.startswith("parameters/") for k in payload)]
+    if [step for step, _ in watched] != [OPTION_STEPS] or trainer.last_watch is None:
+        raise PhaseError(f"the watch logged at steps {[step for step, _ in watched]}, not [{OPTION_STEPS}]")
+    groups = {k.split("/", 1)[1]: v.values.size for k, v in watched[0][1].items()}
+    watch = dict(trainer.last_watch, groups=len(groups), values=sum(groups.values()))
+    print(f"watch at step {OPTION_STEPS}: {len(groups)} groups, {watch['values']} values, device "
+          f"{watch['device_ms']:.3f} ms; the groups: {', '.join(groups)}", flush=True)
+    name = f"step_{OPTION_STEPS:08d}.safetensors"
+    want_calls = [("create_repo", WATCH_HUB_REPO, True, True),
+                  ("upload_file", name, f"checkpoints/{name}", WATCH_HUB_REPO, True)]
+    if api_calls != want_calls:
+        raise PhaseError(f"the hub callback made the calls {api_calls}, not {want_calls}")
+    t0 = time.perf_counter()
+    tensors = load_file(export["path"])
+    engine, compared = trainer.engine, 0
+    for prefix, module in (("model.diffusion_model.", engine.model), ("conditioner.", engine.conditioner),
+                           ("first_stage_model.", engine.first_stage)):
+        for k, v in module.state_dict().items():
+            got = tensors.pop(prefix + k, None)
+            if got is None or not torch.equal(got, v.detach().float().cpu()):
+                raise PhaseError(f"the exported {prefix + k} does not read back as the card's tensor")
+            compared += 1
+    if tensors:
+        raise PhaseError(f"the export holds {len(tensors)} tensors no module has: {sorted(tensors)[:3]}")
+    export.update(read_back_s=time.perf_counter() - t0, tensors=compared)
+    print(f"hub export at step {OPTION_STEPS}: {export['bytes']} bytes in {export['seconds']:.2f} s (gather and "
+          f"write), {compared} tensors read back equal to the card's in {export['read_back_s']:.2f} s; calls "
+          f"{api_calls}", flush=True)
+    shutil.rmtree(Path(export["path"]).parent, ignore_errors=True)
+    del trainer, engine
+    return result, dict(watch=watch, export=export, calls=api_calls)
 
 
 OPTION_ENGINES = ("v", "edm", "rf_xl", "rf_comfy", "unet_variants")
@@ -2378,7 +2531,8 @@ def run_options_phase(torch, rows: dict, report: dict, log: list) -> dict:
     peak memory beside phase 11's profiled bf16 copy under full remat (the
     same config but the policy); (d) fits of
     the sd15-edm and sd15-rf copies for 2 steps each (sd15_f32's tables; the
-    rf copy's logger call held to cli_sd15_logger's)."""
+    EDM copy's watch and hub callback through with_watch_and_hub; the rf
+    copy's logger call held to cli_sd15_logger's)."""
     import os
 
     from neurosis_tpu_torch.config.loader import load_config
@@ -2406,8 +2560,8 @@ def run_options_phase(torch, rows: dict, report: dict, log: list) -> dict:
         out["cli_sdxl_remat"] = run_cli(torch, rows, paths["sdxl-remat"], "CLI fit sdxl bf16 remat [none, none, "
                                         "dots_names], profiled", "cli_sdxl_remat", 2, profiled=False, profile_step=2,
                                         device_only=True)
-        out["cli_sd15_edm"] = run_cli(torch, rows, paths["sd15-edm"], "CLI fit sd15 EDM copy", "cli_sd15_edm",
-                                      OPTION_STEPS, profiled=False)
+        out["cli_sd15_edm"], out["watch_hub"] = with_watch_and_hub(torch, lambda: run_cli(
+            torch, rows, paths["sd15-edm"], "CLI fit sd15 EDM copy", "cli_sd15_edm", OPTION_STEPS, profiled=False))
         run = run_cli(torch, rows, paths["sd15-rf"], "CLI fit sd15 rectified-flow copy", "cli_sd15_rf",
                       OPTION_STEPS, profiled=False, logger=("cli_sd15_logger", 1))
         run.pop("images")
@@ -2775,7 +2929,7 @@ def run_ae_integer(torch, config: Path) -> dict:
 # ---------------------------------------------------------------------------
 
 RANK_FLAG = "--rank"  # chip_smoke.py --rank ARGS_JSON: one rank of phase 17, started by run_rank
-MESH_STEPS, MESH_SAVE_STEP = 3, 2
+MESH_STEPS, MESH_SAVE_STEP, MESH_RESUME_STEPS = 2, 2, 3
 MESH_DIR = CLI_DIR / "mesh"
 
 
@@ -2810,7 +2964,8 @@ def phase17_configs(repo: Path) -> dict:
         ("    batch_size: 8   # global batch: 2 per chip x 4 data-parallel groups\n", "    batch_size: 2\n"),
     ], "sdxl-tpu-v5e.yaml")
     fsdp = _edit(one, [("  devices: 1\n", "  devices: 1\n  strategy: fsdp\n")], "sdxl-one")
-    one_resume = _edit(one, [("    batch_size: 2\n", "    batch_size: 2\n    num_workers: 0\n")], "sdxl-one")
+    one_resume = _edit(one, [("    batch_size: 2\n", "    batch_size: 2\n    num_workers: 0\n"),
+                             (f"  max_steps: {MESH_STEPS}\n", f"  max_steps: {MESH_RESUME_STEPS}\n")], "sdxl-one")
     two_data = _edit(one, [("  devices: 1\n", "  devices: 2\n  strategy: fsdp\n")], "sdxl-one")
     two_fsdp = _edit(two_data, [("  fsdp: 1\n", "  fsdp: 2\n")], "sdxl-two-data")
     vae_one = _edit(vae, [
@@ -3005,6 +3160,10 @@ def run_mesh_phase(torch, rows: dict, report: dict) -> dict:
         out["cli_vae_one"] = here("vae-one-r", lambda: run_cli(
             torch, rows, configs["vae-one-resume"], "phase 17 vae pair resumed from a one-card save, one card",
             "cli_vae", 2, profiled=False, first_step=3, totals=vae_totals, units=1))
+        # the save at step 4 rotated the one it resumed from away (save_top_k 1)
+        kept = sorted(int(d.name) for d in (MESH_DIR / "vae-one-r" / "projects" / "checkpoints").iterdir())
+        if kept != [4]:
+            raise PhaseError(f"the resumed VAE run left checkpoints {kept}, not [4]")
         out["vae_pair_diff"] = _close("phase 17 vae pair: ddp vs one card", out["cli_vae_ddp"]["metrics"],
                                       out["cli_vae_one"]["metrics"], vae_gates)
 
@@ -3037,10 +3196,10 @@ def run_mesh_phase(torch, rows: dict, report: dict) -> dict:
         resume_from("sdxl-r-fsdp", "sdxl-fsdp", step)
         resume_from("sdxl-r-one", "sdxl-one", step)
         r_fsdp = here("sdxl-r-fsdp", lambda: run_cli(torch, rows, configs["sdxl-one-resume"], "phase 17 sdxl: the FSDP2 save "
-                                                     "resumed on one card", "cli_sdxl_fsdp", MESH_STEPS - step,
+                                                     "resumed on one card", "cli_sdxl_fsdp", MESH_RESUME_STEPS - step,
                                                      profiled=False, first_step=step + 1))
         r_one = here("sdxl-r-one", lambda: run_cli(torch, rows, configs["sdxl-one-resume"], "phase 17 sdxl: the one-card save "
-                                                   "resumed on one card", "cli_sdxl_fsdp", MESH_STEPS - step,
+                                                   "resumed on one card", "cli_sdxl_fsdp", MESH_RESUME_STEPS - step,
                                                    profiled=False, first_step=step + 1))
         out["resume_diff"] = _close("phase 17 sdxl resumed: FSDP2 save vs one-card save", r_fsdp["metrics"],
                                     r_one["metrics"], sdxl_gates)
@@ -3844,6 +4003,172 @@ def run_mongo_phase(torch, rows: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the statistical loss-curve check against JAX's committed curve
+# ---------------------------------------------------------------------------
+
+
+def loss_curve_arm_main(argv: list) -> int:
+    """One arm of phase 21 in a process of its own (``chip_smoke.py
+    --loss-curve-arm cuda|cpu SEED INIT_PT OUT_JSON``), from the initial
+    weights the parent saved: on ``cuda`` the JAX curve's steps of
+    ``lc.train`` at SEED in bf16, with the kernels' launch counts; on
+    ``cpu`` step 0 in fp32 (loss and grad norm, no update), the UNet built
+    on meta and the weights assigned. Its result goes to OUT_JSON."""
+    import torch
+
+    from neurosis_tpu_torch import ops
+    from neurosis_tpu_torch.models.unet import UNetModel
+    from neurosis_tpu_torch.tools import loss_curve as lc
+
+    device, seed, init_path, out_path = argv[0], int(argv[1]), argv[2], argv[3]
+    init = torch.load(init_path, map_location=device, weights_only=True)
+    t0 = time.perf_counter()
+    if device == "cpu":
+        torch.set_num_threads(LOSS_CURVE_CPU_THREADS)
+        model = UNetModel(**lc.CFG, device="meta", generator=torch.Generator())
+        model.load_state_dict(init, assign=True)
+        model.train()
+        loss, norm = lc.Arm(model).step(*next(lc.batches(1, seed)), update=False)
+        run = dict(losses=[float(loss)], grad_norms=[float(norm)], seconds=time.perf_counter() - t0)
+    else:
+        model = UNetModel(**lc.CFG, dtype=torch.bfloat16, device=device)
+        model.load_state_dict(init)
+        model.train()
+        ops.reset_launch_counts()
+        run = lc.train(model, json.loads(Path(lc.JAX_CURVE).read_text())["steps"], seed, dtype=torch.bfloat16)
+        run["launches"] = ops.launch_counts()
+    Path(out_path).write_text(json.dumps(run))
+    return 0
+
+
+def start_loss_curve(torch) -> dict:
+    """Phase 21's start, before phase 13: the check's UNet on the card from
+    the numpy init, whose checksum must equal the committed JAX curve's (the
+    same draws in the same order); its weights saved; then three processes
+    of ``loss_curve_arm_main`` started from them: the JAX curve's steps at
+    σ/noise seeds 0 and 1 on the card, and step 0 on the CPU in fp32. Each
+    card run is host-bound (the card idles most of a step), so they run
+    beside phases 13 and 18, which check launches and values and time
+    nothing. Returns what ``finish_loss_curve`` reads."""
+    import os
+
+    from neurosis_tpu_torch.tools import loss_curve as lc
+
+    t_phase = time.perf_counter()
+    jax_run = json.loads(Path(lc.JAX_CURVE).read_text())
+    want = dict(cfg=lc.CFG, res=lc.RES, batch=lc.BATCH, lr=lc.LR, data_seed=lc.DATA_SEED, dtype="bf16", seed=0)
+    if {k: jax_run.get(k) for k in want} != want:
+        raise PhaseError(f"{lc.JAX_CURVE} is not a curve of this check: {({k: jax_run.get(k) for k in want})}")
+    t0 = time.perf_counter()
+    model, checksum = lc.build_unet(torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"phase 21 UNet: {n_params} params, numpy init in {time.perf_counter() - t0:.1f} s, checksum "
+          f"{checksum!r} (the JAX curve's {jax_run['init_checksum']!r})", flush=True)
+    if checksum != jax_run["init_checksum"]:
+        raise PhaseError("the numpy init differs from the one the JAX curve started from")
+    LOSS_CURVE_DIR.mkdir(parents=True, exist_ok=True)
+    init_path = (LOSS_CURVE_DIR / "init.pt").resolve()
+    torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()}, init_path)
+    arms = {seed: ("cuda", seed) for seed in LOSS_CURVE_SEEDS}
+    arms["cpu"] = ("cpu", LOSS_CURVE_SEEDS[0])
+    outs = {name: (LOSS_CURVE_DIR / f"{name}.json").resolve() for name in arms}
+    env = dict(os.environ, PYTHONPATH=str(Path.cwd().resolve()))
+    procs = {name: subprocess.Popen([sys.executable, str(Path(__file__).resolve()), LOSS_CURVE_FLAG, device,
+                                     str(seed), str(init_path), str(outs[name])], env=env)
+             for name, (device, seed) in arms.items()}
+    return dict(model=model, checksum=checksum, n_params=n_params, jax_run=jax_run, procs=procs, outs=outs,
+                started=time.perf_counter(), start_s=time.perf_counter() - t_phase)
+
+
+def stop_loss_curve(handle: dict) -> None:
+    """Kill phase 21's processes that still run (a phase before 21 failed)."""
+    for p in handle["procs"].values():
+        if p.poll() is None:
+            p.kill()
+
+
+def finish_loss_curve(torch, rows: dict, handle: dict) -> dict:
+    """Phase 21's end, after phase 20: the three processes' results; the
+    launches of both card runs' 400 steps held to the loss_curve tables;
+    step 0's loss and grad norm on the card held to the CPU's under
+    LOSS_CURVE_TOL; the tool's rule on the two card seeds and the JAX curve;
+    one more step in this process alone, timed and profiled (launches,
+    device ms by kind)."""
+    import shutil
+
+    from neurosis_tpu_torch.tools import loss_curve as lc
+
+    t_phase = time.perf_counter()
+    try:
+        rcs = {name: p.wait(timeout=900) for name, p in handle["procs"].items()}
+    finally:
+        stop_loss_curve(handle)
+    waited_s = time.perf_counter() - t_phase
+    runs_s = time.perf_counter() - handle["started"]  # the processes' start to the last one's end, at most
+    if any(rcs.values()):
+        raise PhaseError(f"phase 21's arm processes exited with {rcs}")
+    res = {name: json.loads(path.read_text()) for name, path in handle["outs"].items()}
+    shutil.rmtree(LOSS_CURVE_DIR, ignore_errors=True)
+    cpu, runs, steps, jax_run = res["cpu"], {seed: res[seed] for seed in LOSS_CURVE_SEEDS}, \
+        handle["jax_run"]["steps"], handle["jax_run"]
+    print(f"phase 21 step 0 on the CPU (fp32, {LOSS_CURVE_CPU_THREADS} threads, its own process): loss "
+          f"{cpu['losses'][0]:.6f}, grad norm {cpu['grad_norms'][0]:.6f} ({cpu['seconds']:.1f} s)", flush=True)
+    for seed, run in runs.items():
+        run["ms_a_step"] = run["seconds"] * 1e3 / steps
+        losses = run["losses"]
+        print(f"phase 21 seed {seed}: {steps} steps in {run['seconds']:.2f} s ({run['ms_a_step']:.3f} ms a step, its "
+              f"own process beside the other seed's and phases 13 and 18), loss {losses[0]:.6f} -> {losses[-1]:.6f}",
+              flush=True)
+        if not all(math.isfinite(x) for x in losses + run["grad_norms"]):
+            raise PhaseError(f"phase 21 seed {seed} has a loss or grad norm that is not finite")
+    launches = {k: sum(run["launches"][k] for run in runs.values()) for k in runs[LOSS_CURVE_SEEDS[0]]["launches"]}
+    totals = step_totals(rows, "loss_curve")
+    check_launches(launches, totals, steps * len(LOSS_CURVE_SEEDS), "phase 21 step")
+
+    card0 = runs[LOSS_CURVE_SEEDS[0]]
+    step0 = {}
+    for key, tol in LOSS_CURVE_TOL.items():
+        series = {"loss": "losses", "grad_norm": "grad_norms"}[key]
+        got, ref = card0[series][0], cpu[series][0]
+        step0[key] = dict(card=got, cpu=ref, rel_err=abs(got - ref) / abs(ref), tol=tol)
+        print(f"phase 21 step 0 {key}: card {got:.6f}, CPU {ref:.6f}, rel err {step0[key]['rel_err']:.3e} "
+              f"(tol {tol})", flush=True)
+        if not step0[key]["rel_err"] <= tol:
+            raise PhaseError(f"phase 21 step 0's {key} on the card is not the CPU's: {step0[key]}")
+
+    report = lc.analyze([dict(side="card", seed=seed, dtype="bf16", losses=runs[seed]["losses"])
+                         for seed in LOSS_CURVE_SEEDS] + [jax_run])
+    (rule,) = report["checks"]
+    print(f"phase 21 rule: band {report['noise_band']:.6f} (warmup {report['warmup']}), JAX's deviation from seed "
+          f"{LOSS_CURVE_SEEDS[0]} {rule['max_ema_dev']:.6f}, limit {rule['limit']:.6f}: "
+          f"{'pass' if rule['pass'] else 'FAIL'}; final EMAs {report['final_ema']}", flush=True)
+    if not rule["pass"]:
+        raise PhaseError(f"the JAX curve left the band: {report}")
+
+    arm = lc.Arm(handle.pop("model"), torch.bfloat16)
+    batch = next(lc.batches(1, LOSS_CURVE_SEEDS[0]))
+    arm.step(*batch)  # the optimizer's state exists before the timed and the profiled step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    arm.step(*batch)
+    torch.cuda.synchronize()
+    alone_ms = (time.perf_counter() - t0) * 1e3
+    profile = profile_fn(torch, lambda: arm.step(*batch), "phase 21 step", alone_ms)
+    del arm
+    out = dict(launches=launches, per_step=totals, steps=steps, params=handle["n_params"],
+               init_checksum=handle["checksum"], step0=step0, report=report, cpu_step0=cpu, profile=profile,
+               step_alone_ms=alone_ms, runs_s=runs_s, waited_s=waited_s,
+               runs={seed: dict(losses=r["losses"], grad_norms=r["grad_norms"], seconds=r["seconds"],
+                                ms_a_step=r["ms_a_step"]) for seed, r in runs.items()},
+               phase_s=handle["start_s"] + time.perf_counter() - t_phase)
+    print(f"phase 21: {out['phase_s']:.1f} s in this process ({handle['start_s']:.1f} s before phase 13, "
+          f"{waited_s:.1f} s waiting for its processes after phase 20); one step alone {alone_ms:.1f} ms host; "
+          f"the profiled step: {profile.get('launches')} kernels, device {profile.get('device_ms')} ms", flush=True)
+    return out
+
+
 def kernel_kind(name: str) -> str:
     """Which layer a device kernel belongs to, by its name."""
     low = name.lower()
@@ -3933,6 +4258,7 @@ def main() -> int:
     report: dict = {"card": smi, "paths": {path: unit for path, (_key, unit) in PATHS.items()}, "phase_s": {}}
     log: list = []
     last = [t_start]
+    loss_curve = None  # phase 21's processes, from before phase 13 to after phase 20
 
     def lap(phases: str) -> None:
         """Seconds since the previous lap, printed and kept under ``phases``."""
@@ -3996,9 +4322,14 @@ def main() -> int:
         report.update(run_cli_phase(torch, rows))
         torch.cuda.empty_cache()
         lap("11")
+        loss_curve = start_loss_curve(torch)
+        lap("21 (start)")
         report.update(run_cli_sampling(torch, rows))
         torch.cuda.empty_cache()
         lap("13")
+        report.update(run_ring_phase(torch, rows, log))
+        torch.cuda.empty_cache()
+        lap("18")
         report["cli_sdxl_te"] = run_te_phase(torch, rows)
         torch.cuda.empty_cache()
         lap("14")
@@ -4011,17 +4342,19 @@ def main() -> int:
         report.update(run_mesh_phase(torch, rows, report))
         torch.cuda.empty_cache()
         lap("17")
-        report.update(run_ring_phase(torch, rows, log))
-        torch.cuda.empty_cache()
-        lap("18")
         report.update(run_dreamsim_phase(torch, rows, log))
         torch.cuda.empty_cache()
         lap("19")
         report.update(run_mongo_phase(torch, rows))
+        torch.cuda.empty_cache()
         lap("20")
+        report["loss_curve"] = finish_loss_curve(torch, rows, loss_curve)
+        lap("21")
         report["seconds"] = time.perf_counter() - t_start
         print(f"all phases: {report['seconds']:.1f} s", flush=True)
     except Exception as e:  # any failed phase ends the run without a result line
+        if loss_curve is not None:
+            stop_loss_curve(loss_curve)
         report["error"] = repr(e)
         _write(report, log)
         print(f"FAILED: {e!r}", file=sys.stderr, flush=True)
@@ -4052,4 +4385,6 @@ def _write(report: dict, log: list) -> None:
 
 
 if __name__ == "__main__":
-    sys.exit(rank_main(sys.argv[2:]) if sys.argv[1:2] == [RANK_FLAG] else main())
+    if sys.argv[1:2] == [RANK_FLAG]:
+        sys.exit(rank_main(sys.argv[2:]))
+    sys.exit(loss_curve_arm_main(sys.argv[2:]) if sys.argv[1:2] == [LOSS_CURVE_FLAG] else main())

@@ -20,7 +20,7 @@ def load_file(path) -> dict[str, torch.Tensor]:
     raw = Path(path).read_bytes()
     (n,) = struct.unpack("<Q", raw[:8])
     header = json.loads(raw[8:8 + n])
-    body = raw[8 + n:]
+    body = memoryview(raw)[8 + n:]  # slices of it are views: each tensor is copied once, below
     out = {}
     for name, meta in header.items():
         if name == "__metadata__":
@@ -39,20 +39,22 @@ _NAMES = {np.dtype(v).newbyteorder("<"): k for k, v in _DTYPES.items()}
 def save_file(tensors: dict, path, metadata: dict = None) -> None:
     """Write {name: tensor or array} as a .safetensors file (little-endian
     buffers in name order, the header padded to 8 bytes)."""
-    header, buffers, offset = {}, [], 0
+    header, arrays, offset = {}, [], 0
     for name in sorted(tensors):
         value = tensors[name]
         arr = value.detach().cpu().numpy() if isinstance(value, torch.Tensor) else np.asarray(value)
-        arr = np.array(arr, dtype=arr.dtype.newbyteorder("<"), order="C")
+        arr = np.asarray(arr, dtype=arr.dtype.newbyteorder("<"), order="C")
         if arr.dtype not in _NAMES:
             raise ValueError(f"{name} has dtype {arr.dtype}, which this writer does not take")
-        raw = arr.tobytes()
         header[name] = {"dtype": _NAMES[arr.dtype], "shape": list(arr.shape),
-                        "data_offsets": [offset, offset + len(raw)]}
-        buffers.append(raw)
-        offset += len(raw)
+                        "data_offsets": [offset, offset + arr.nbytes]}
+        arrays.append(arr)
+        offset += arr.nbytes
     if metadata:
         header["__metadata__"] = {str(k): str(v) for k, v in metadata.items()}
     head = json.dumps(header, separators=(",", ":")).encode()
     head += b" " * (-len(head) % 8)
-    Path(path).write_bytes(struct.pack("<Q", len(head)) + head + b"".join(buffers))
+    with open(path, "wb") as f:  # each buffer written as it is, not joined into one copy
+        f.write(struct.pack("<Q", len(head)) + head)
+        for arr in arrays:
+            f.write(arr.reshape(-1).view(np.uint8).data)

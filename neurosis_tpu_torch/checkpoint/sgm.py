@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ..models.text_encoder.clip import split_openclip_qkv
-from ..parallel.fsdp import assign
+from ..parallel.fsdp import assign, full
 from .safetensors import load_file, save_file
 
 logger = logging.getLogger(__name__)
@@ -114,16 +114,22 @@ def load_sgm_checkpoint(engine, state, path, with_report: bool = False):
     return state
 
 
-def export_sgm_checkpoint(engine, state, path) -> None:
-    """Write the reference layout as .safetensors (fp32 parameters)."""
+def sgm_state_dict(engine, state) -> dict:
+    """The reference layout's tensors (fp32 parameters), each whole: a
+    sharded one is gathered (a collective: every rank calls it)."""
     sd = {}
     for prefix, module in (("model.diffusion_model.", engine.model), ("conditioner.", engine.conditioner),
                            ("first_stage_model.", engine.first_stage)):
         if module is not None:
-            sd.update({prefix + k: v.float() for k, v in module.state_dict().items()})
+            sd.update({prefix + k: full(v).float() for k, v in module.state_dict().items()})
     if state.ema is not None:
         for (name, _), shadow in zip(engine.model.named_parameters(), state.ema.params):
-            sd[_ema_mangled_name("diffusion_model." + name)] = shadow
+            sd[_ema_mangled_name("diffusion_model." + name)] = full(shadow)
         sd["model_ema.decay"] = np.asarray(engine.ema_decay, np.float32)
         sd["model_ema.num_updates"] = np.asarray(state.ema.num_updates, np.int32)
-    save_file(sd, path)
+    return sd
+
+
+def export_sgm_checkpoint(engine, state, path) -> None:
+    """Write the reference layout as .safetensors (fp32 parameters)."""
+    save_file(sgm_state_dict(engine, state), path)

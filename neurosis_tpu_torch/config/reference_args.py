@@ -12,7 +12,15 @@ from __future__ import annotations
 REQUIRED = "<required>"  # an argument JAX's class takes without a default
 
 JAX_ONLY_ARGS: dict = {'bitsandbytes.optim.AdamW8bit': {'mask': None},
+ 'optax.adadelta': {'weight_decay_mask': None},
+ 'optax.adafactor': {'weight_decay_mask': None},
+ 'optax.adamaxw': {'mask': None},
  'optax.adamw': {'mask': None},
+ 'optax.adan': {'mask': None},
+ 'optax.lamb': {'mask': None},
+ 'optax.lars': {'trust_ratio_mask': True, 'weight_decay_mask': True},
+ 'optax.lion': {'mask': None},
+ 'optax.nadamw': {'mask': None},
  'torch.optim.AdamW': {'mask': None}}
 
 # optax's ``mask`` (a tree of the parameters' paths, or a function of the
@@ -20,7 +28,7 @@ JAX_ONLY_ARGS: dict = {'bitsandbytes.optim.AdamW8bit': {'mask': None},
 # (it runs the transform on each bare leaf), and the port's optimizers see
 # torch parameter lists, not Flax trees: see ROADMAP Queue 1 item 8
 _ITEMS = {
-    "8 (the optimizers: optax's mask)": ("mask",),
+    "8 (the optimizers: optax's mask)": ("mask", "weight_decay_mask", "trust_ratio_mask"),
 }
 
 

@@ -10,8 +10,12 @@ port has that module and name, and raises ``ImportError`` otherwise; the
 JAX package is never imported. The JAX
 registry maps ``torch.optim.AdamW``, ``Adam`` and ``SGD`` to optax's
 ``adamw``, ``adam`` and ``sgd``, and so does the port (to its counterparts
-of them, which train optax's math and take optax's arguments). Of the other
-real imports the JAX registry falls back to, the port keeps only ``torch.*``.
+of them, which train optax's math and take optax's arguments). Of optax's
+other aliases, which JAX's registry imports, the port has its own copies
+(``optimizers/optax_aliases.py``) of all but eight: six it refuses naming
+their item, and two whose update needs the loss value, which neither
+package's engine passes. Of the other real imports the JAX registry falls
+back to, the port keeps only ``torch.*``.
 """
 
 from __future__ import annotations
@@ -77,6 +81,9 @@ _PORTED = {
     "neurosis.optimizers.Adafactor": ("optimizers.adafactor", "Adafactor"),
     "neurosis.optimizers.AdafactorScheduler": ("optimizers.adafactor", "adafactor_relative_step_schedule"),
     **{f"optax.{n}": ("optimizers.adamw", n) for n in ("adamw", "adam", "sgd")},
+    **{f"optax.{n}": ("optimizers.optax_aliases", n) for n in (
+        "lion", "lamb", "adafactor", "nadamw", "nadam", "radam", "amsgrad", "adamax", "adamaxw", "adabelief",
+        "rmsprop", "adagrad", "yogi", "novograd", "adan", "adadelta", "rprop", "sign_sgd", "lars")},
     "torch.optim.AdamW": ("optimizers.adamw", "adamw"),
     "torch.optim.Adam": ("optimizers.adamw", "adam"),
     "torch.optim.SGD": ("optimizers.adamw", "sgd"),
@@ -135,8 +142,13 @@ _PORTED.update({_DS + m + c + k: ("data.mongo", c + "Dataset")
                 for k in ("Dataset", "Module")})
 
 # paths the JAX registry knows and the port has not ported, by ROADMAP Queue 1 item
-_NOT_PORTED: Dict[str, str] = {}
-_REST_ITEM = "11 (the rest)"
+_OPTAX_ITEM = "14 (optax's other transforms)"
+_NOT_PORTED: Dict[str, str] = {f"optax.{n}": _OPTAX_ITEM for n in (
+    "noisy_sgd", "sm3", "fromage", "optimistic_gradient_descent", "optimistic_adam", "optimistic_adam_v2")}
+# optax aliases whose update needs the loss value: JAX's engine calls
+# ``optimizer.update(grads, state, params)`` (neurosis_tpu/trainer/engine.py:203)
+# and cannot drive them either
+_NEEDS_LOSS = ("optax.lbfgs", "optax.polyak_sgd")
 _JAX_PACKAGE = "neurosis_tpu."
 
 
@@ -144,13 +156,18 @@ def resolve_class_path(path: str) -> Any:
     if path in _PORTED:
         module, name = _PORTED[path]
         return getattr(importlib.import_module(f"neurosis_tpu_torch.{module}"), name)
+    if path in _NEEDS_LOSS:
+        raise NotImplementedError(f"class_path {path!r} needs the loss value in its update, and the JAX package's "
+                                  "engine passes only grads, state and params (optimizer.update(grads, state, "
+                                  "params)): neither package can drive it")
     if path in _NOT_PORTED:
         raise NotImplementedError(f"class_path {path!r} is not ported yet: ROADMAP Queue 1 item {_NOT_PORTED[path]}")
     if path.startswith(_JAX_PACKAGE):
         return _port_counterpart(path)
     if path.startswith("optax."):
-        raise NotImplementedError(f"class_path {path!r} is not ported yet (of optax the port takes adam, adamw "
-                                  f"and sgd): ROADMAP Queue 1 item {_REST_ITEM}")
+        raise NotImplementedError(f"class_path {path!r} is not ported yet (of optax the port takes the aliases of "
+                                  f"optax 0.2.6 but {', '.join(sorted(_NOT_PORTED))} and {' and '.join(_NEEDS_LOSS)}):"
+                                  f" ROADMAP Queue 1 item {_OPTAX_ITEM}")
     if path.startswith("torch."):
         module, _, name = path.rpartition(".")
         try:

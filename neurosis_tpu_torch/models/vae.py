@@ -162,6 +162,8 @@ class _Level(nn.Module):
     """One resolution level: ``block``, ``attn`` where the level attends,
     and ``downsample``/``upsample``."""
 
+    flax_inline = True  # no module in JAX's tree: its children's names carry its path ('down.0.block.1')
+
     def __init__(self, blocks: list, attns: list):
         super().__init__()
         self.block = nn.ModuleList(blocks)
@@ -170,6 +172,8 @@ class _Level(nn.Module):
 
 
 class _Mid(nn.Module):
+    flax_inline = True  # JAX names its children 'mid.block_1', 'mid.attn_1'
+
     def __init__(self, ch: int, attn_type: str, dropout: float, temb_channels: int, dtype, device):
         super().__init__()
         res = dict(dropout=dropout, temb_channels=temb_channels, dtype=dtype, device=device)
@@ -315,6 +319,8 @@ def ddpm_timestep_embedding(timesteps: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 class _TimestepEmbed(nn.Module):
+    flax_inline = True  # JAX names its children 'temb.dense.0'
+
     def __init__(self, ch: int, temb_ch: int, dtype, device):
         super().__init__()
         self.dense = nn.ModuleList([Dense(ch, temb_ch, dtype=dtype, device=device),

@@ -1,7 +1,7 @@
 """The trainer callbacks (port of neurosis_tpu/trainer/callbacks.py):
 device memory stats, the model summary, the image logger, checkpoints, the
-progress line with its smoothed loss and the resolved config's copy.
-``HFHubCheckpoint`` (uploads to the Hugging Face Hub) is not ported.
+progress line with its smoothed loss, the resolved config's copy and the
+uploads of sgm checkpoints to the Hugging Face Hub (``HFHubCheckpoint``).
 
 Checkpoints are the port's own format, not the JAX package's orbax trees:
 one directory a step under ``dirpath`` (default ``<root>/checkpoints``), as
@@ -445,6 +445,63 @@ class CheckpointCallback:
     def on_fit_end(self, trainer, state):
         if self.blob is not None:
             self.blob.wait()
+
+
+class HFHubCheckpoint:
+    """Push sgm checkpoints to a Hugging Face Hub repo on a step cadence
+    (JAX's ``HFHubCheckpoint``, trainer/callbacks.py:365-411; non-blocking
+    uploads): the reference layout (``checkpoint/sgm.py``) to
+    ``<root>/hub/step_NNNNNNNN.safetensors``, then ``create_repo`` and
+    ``upload_file(..., run_as_future=True)``; the fit's end waits on each
+    upload. ``huggingface_hub`` is imported at the call. Every failure is
+    logged, not raised. On a mesh every rank gathers the state and the
+    writer alone writes and uploads. ``last_export`` holds the last file's
+    path, bytes and seconds."""
+
+    def __init__(self, repo_id: str, every_n_train_steps: int = 1000, private: bool = True,
+                 path_in_repo: str = "checkpoints"):
+        self.repo_id = repo_id
+        self.every_n_train_steps = every_n_train_steps
+        self.private = private
+        self.path_in_repo = path_in_repo
+        self._futures = []
+        self.last_export: Optional[dict] = None
+
+    def on_train_batch_end(self, trainer, state, batch, metrics, step: int):
+        if step % self.every_n_train_steps != 0:
+            return
+        try:
+            from huggingface_hub import HfApi
+
+            from ..checkpoint.safetensors import save_file
+            from ..checkpoint.sgm import sgm_state_dict
+
+            t0 = time.perf_counter()
+            sd = sgm_state_dict(trainer.engine, state)
+            mesh = getattr(trainer, "mesh", None)
+            if mesh is not None and not mesh.is_writer:
+                return
+            path = Path(trainer.root_dir) / "hub" / f"step_{step:08d}.safetensors"
+            path.parent.mkdir(parents=True, exist_ok=True)
+            save_file(sd, path)
+            del sd
+            self.last_export = {"path": str(path), "bytes": path.stat().st_size,
+                                "seconds": time.perf_counter() - t0}
+            api = HfApi()
+            api.create_repo(self.repo_id, private=self.private, exist_ok=True)
+            fut = api.upload_file(path_or_fileobj=str(path), path_in_repo=f"{self.path_in_repo}/{path.name}",
+                                  repo_id=self.repo_id, run_as_future=True)
+            self._futures.append(fut)
+            logger.info(f"HF hub upload queued: {self.repo_id}/{path.name}")
+        except Exception:
+            logger.exception("HF hub checkpoint upload failed")
+
+    def on_fit_end(self, trainer, state):
+        for fut in self._futures:
+            try:
+                fut.result(timeout=600)
+            except Exception:
+                logger.exception("pending HF upload failed")
 
 
 # -- console progress and the config's copy -----------------------------------------------

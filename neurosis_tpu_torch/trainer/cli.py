@@ -260,6 +260,7 @@ def _build(args):
         mesh=mesh,
         remote_checkpoint_url=remote,
         storage_options=mc.get("storage_options"),
+        wandb_watch_steps=trainer_cfg.get("wandb_watch_steps", 0),
     )
     return cfg, engine, dataset, trainer
 

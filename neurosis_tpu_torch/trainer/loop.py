@@ -67,6 +67,7 @@ from ..parallel import rows as rows_
 from ..parallel.fsdp import full, reshard, wrap_engine
 from ..utils.profiling import record_module_names
 from ..checkpoint.blob import BlobCheckpointIO
+from . import watch
 from .callbacks import (STATE_FILE, check_store_reach, checkpoint_steps, engine_modules, load_checkpoint,
                         load_state_payload)
 
@@ -192,6 +193,7 @@ class Trainer:
         mesh=None,
         remote_checkpoint_url: Optional[str] = None,
         storage_options: Optional[dict] = None,
+        wandb_watch_steps: int = 0,
     ):
         self.engine = engine
         self.remote_checkpoint_url = remote_checkpoint_url
@@ -220,6 +222,10 @@ class Trainer:
         # opt-in (fast_dev_run implies it)
         self.allow_random_weights = allow_random_weights or fast_dev_run
         self._weights_loaded = False
+        self.wandb_watch_steps = int(wandb_watch_steps or 0)
+        # on a mesh every rank gathers on the watch's cadence when the writer may log (the same on every rank)
+        self._watch_gathers = mesh is not None and bool(wandb_config)
+        self.last_watch: Optional[dict] = None  # the last watch's groups and times
         # cadence state the callbacks read (StepType batch_idx/global_batch)
         self.batch_idx = 0
         self.epoch = 0
@@ -399,6 +405,7 @@ class Trainer:
                         else:
                             fn = self.engine.train_step
                         state, metrics = self._step(fn, state, prepped, rows)
+                        self._wandb_watch(int(state.step))
                         metrics["data_ms"] = data_ms
                         loss = metrics.get("loss")
                         for hook in hooks:
@@ -431,6 +438,35 @@ class Trainer:
             if hasattr(cb, "on_fit_end"):
                 cb.on_fit_end(self, state)
         return state
+
+    def _wandb_watch(self, step: int) -> None:
+        """JAX's ``_wandb_watch`` (loop.py:538-565): on the
+        ``wandb_watch_steps`` cadence, with a wandb run, log a histogram of
+        the trained parameters by top-level module (``trainer/watch.py``).
+        Failures are logged, not raised."""
+        if not self.wandb_watch_steps or step % self.wandb_watch_steps:
+            return
+        wb = getattr(self.logger, "wandb", None)
+        if wb is None and not self._watch_gathers:
+            return
+        try:
+            import wandb as _wandb  # noqa: F401 (JAX imports it before it gathers)
+
+            cuda = self.device.type == "cuda"
+            if cuda:
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+            arrays = watch.device_arrays(self.engine)
+            if cuda:
+                end.record()
+                end.synchronize()
+            arrays = {g: v.cpu().numpy() for g, v in arrays.items()}
+            self.last_watch = {"step": step, "groups": list(arrays), "values": sum(v.size for v in arrays.values()),
+                               "device_ms": start.elapsed_time(end) if cuda else None}
+            if wb is not None:
+                wb.log({f"parameters/{k}": _wandb.Histogram(v) for k, v in arrays.items()}, step=step)
+        except Exception:
+            logger.exception("wandb watch logging failed")
 
     def validate(self, batch_iter_factory, max_batches: Optional[int] = None) -> dict:
         """Loss-only evaluation: mean metrics over the dataset (no updates)."""

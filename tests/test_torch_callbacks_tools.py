@@ -93,9 +93,10 @@ def test_cli_resolves_jax_paths_to_the_port_s_callbacks():
         {"class_path": "neurosis_tpu.trainer.callbacks.ProgressCallback", "init_args": {"every_n": 1}},
         {"class_path": "neurosis_tpu.trainer.callbacks.SaveConfigCallback"},
         {"class_path": "neurosis_tpu.trainer.callbacks.HFHubCheckpoint", "init_args": {"repo_id": "x/y"}}]}}
-    progress, save = _callbacks(cfg)  # the unported HFHubCheckpoint warns and is skipped
+    progress, save, hub = _callbacks(cfg)
     assert isinstance(progress, port_cb.ProgressCallback) and progress.every_n == 1
     assert isinstance(save, port_cb.SaveConfigCallback) and save.config is cfg
+    assert isinstance(hub, port_cb.HFHubCheckpoint) and hub.repo_id == "x/y" and hub.every_n_train_steps == 1000
 
 
 # -- tools/convert.py and tools/blessup.py -------------------------------------------

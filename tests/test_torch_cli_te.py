@@ -4,8 +4,9 @@ the slowest port test and the test runner's workers take whole files).
 
 sdxl-te.example.yaml with its widths and depths cut (8-bit AdamW, the legacy
 cosine schedule, both towers trainable at their own base_lr): three steps
-from the port's CLI builder and the JAX CLI's builder on shared weights and
-the same draws give the losses and grad norms within 1e-5, the same
+from the port's CLI builder and the JAX CLI's builder on shared weights (the
+port's seeded init in JAX's abstractly evaluated trees, the UNet perturbed)
+and the same draws give the losses and grad norms within 1e-5, the same
 per-group lr, both towers moving, and updates that agree.
 """
 
@@ -100,10 +101,15 @@ def test_sdxl_te_three_steps_match_jax(tmp_path):
         np.testing.assert_array_equal(prep[k].numpy(), v, err_msg=k)
 
     jbatch = {k: jnp.asarray(v) for k, v in jprep.items()}
-    jstate, jfrozen = jax.jit(jengine.init)(jax.random.PRNGKey(42), jbatch)
-    frozen = to_np(jfrozen)
-    assert not jstate.params["conditioner"] and sorted(frozen["conditioner"]) == ["embedders_0", "embedders_1"]
-    params = {"model": perturb(jstate.params["model"], 1), "conditioner": frozen.pop("conditioner")}
+    # JAX's init evaluated abstractly (compiling it took most of a minute): its trees, filled with the
+    # port's seeded init by the JAX package's own importer
+    jstate, jfrozen = jax.eval_shape(jengine.init, jax.random.PRNGKey(42), jbatch)
+    assert not jstate.params["conditioner"] and sorted(jfrozen) == ["conditioner", "first_stage"]
+    assert sorted(jfrozen["conditioner"]) == ["embedders_0", "embedders_1"]
+    frozen = {"first_stage": _imported(jfrozen["first_stage"], engine.first_stage, "first_stage."),
+              "conditioner": _imported(jfrozen["conditioner"], engine.conditioner, "conditioner.")}
+    params = {"model": perturb(_imported(jstate.params["model"], engine.model, "model."), 1),
+              "conditioner": frozen.pop("conditioner")}
     frozen["conditioner"] = {}
     load_into(engine.model, params["model"])
     load_into(engine.conditioner, params["conditioner"])
@@ -175,6 +181,21 @@ def test_sdxl_te_three_steps_match_jax(tmp_path):
         if top > 0 and np.abs(dp).max() > 0:
             moved.add(name.split(".")[2] if name.startswith("conditioner.") else "unet")
     assert moved == {"unet", "0", "1"}  # the UNet and both towers
+
+
+def _imported(template, module, prefix: str) -> dict:
+    """``module``'s weights in JAX's tree ``template`` (numpy), by
+    ``neurosis_tpu.checkpoint.import_torch_params``; the conditioner's
+    ``embedders.N`` are flax's ``embedders_N`` there."""
+    import re
+
+    from neurosis_tpu.checkpoint import import_torch_params
+
+    sd = {re.sub(r"^embedders\.(\d+)", r"embedders_\1", k): v.detach().numpy().copy()
+          for k, v in module.state_dict().items()}
+    tree, missing, unexpected = import_torch_params(template, sd)
+    assert not missing and not unexpected, (prefix, missing[:3], unexpected[:3])
+    return to_np(tree)
 
 
 def _jax_update(optimizer, grads, state, params):

@@ -1,7 +1,10 @@
 """The port's optax counterparts (neurosis_tpu_torch/optimizers/adamw.py:
-``adam``, ``adamw``, ``sgd``) and CAME (optimizers/came.py) against optax
-and the JAX package's ``came`` on the CPU, and the ``torch.optim`` class
-paths, which both packages map to optax's functions.
+``adam``, ``adamw``, ``sgd``; optimizers/optax_aliases.py: optax 0.2.6's
+other aliases, each with its defaults and non-default arguments, its
+signature against optax's, and the aliases left refused) and CAME
+(optimizers/came.py) against optax and the JAX package's ``came`` on the
+CPU, and the ``torch.optim`` class paths, which both packages map to
+optax's functions.
 
 The same seeded parameters (a conv kernel, a dense kernel, a bias, in
 JAX's layout, handed to torch in its own with ``jax_layout`` set as the
@@ -166,5 +169,103 @@ def test_the_optax_paths_resolve_and_mask_is_refused():
         build_optimizer({"class_path": f"optax.{name}", "init_args": {"learning_rate": 1e-3}})
     with pytest.raises(NotImplementedError, match="item 8"):
         build_optimizer({"class_path": "optax.adamw", "init_args": {"learning_rate": 1e-3, "mask": {"a": True}}})
-    with pytest.raises(NotImplementedError, match="item 11"):
-        instantiate({"class_path": "optax.lion"})
+    with pytest.raises(NotImplementedError, match="item 14"):
+        instantiate({"class_path": "optax.sm3"})
+
+
+# -- optax's other aliases (optimizers/optax_aliases.py) -----------------------
+
+# name → the non-default arguments of each case beside the defaults' (the
+# learning rate is 1e-2 except where optax's default is None)
+ALIAS_CASES = {
+    "lion": [{"mu_dtype": "bfloat16"}, {"weight_decay": 0.05}],
+    "lamb": [{"weight_decay": 0.1}],
+    "adafactor": [{"learning_rate": 1e-2, "min_dim_size_to_factor": 4},
+                  {"min_dim_size_to_factor": 4, "momentum": 0.9, "weight_decay_rate": 0.01, "decay_rate": 0.5},
+                  {"multiply_by_parameter_scale": False, "clipping_threshold": None, "factored": False}],
+    "nadamw": [{"weight_decay": 0.05}],
+    "nadam": [{"eps_root": 1e-6}],
+    "radam": [{"threshold": 4.5}],  # ρ reaches 4.96 at the fifth step
+    "amsgrad": [{"eps_root": 1e-6}],
+    "adamax": [{"b2": 0.99}],
+    "adamaxw": [{"weight_decay": 0.05}],
+    "adabelief": [{"nesterov": True}],
+    "rmsprop": [{"centered": True}, {"momentum": 0.9, "nesterov": True},
+                {"bias_correction": True, "eps_in_sqrt": False, "initial_scale": 0.1}],
+    "adagrad": [{"eps": 1e-3}],
+    "yogi": [{"b1": 0.5}],
+    "novograd": [{"weight_decay": 0.1}],
+    "adan": [{"weight_decay": 0.05}],
+    "adadelta": [{"learning_rate": 0.5}, {"weight_decay": 0.1, "rho": 0.8}],
+    "rprop": [{"eta_plus": 1.5}],
+    "sign_sgd": [{"learning_rate": 0.1}],
+    "lars": [{"nesterov": True}, {"weight_decay": 0.1}],
+}
+_LR_NONE = ("adafactor", "adadelta")
+_DTYPE_ARGS = ("mu_dtype", "dtype_momentum")
+
+
+def _alias_cases():
+    for name, extra in ALIAS_CASES.items():
+        yield pytest.param(name, {}, id=f"{name}-defaults")
+        for i, kw in enumerate(extra):
+            yield pytest.param(name, kw, id=f"{name}-{'-'.join(kw)}")
+
+
+@pytest.mark.parametrize("name,kw", list(_alias_cases()))
+def test_an_optax_alias_matches_optax(name, kw):
+    """5 steps of optax 0.2.6's update, leaf by leaf, on the conv and dense
+    kernels and the bias, and the port's optimizer from the registry, with
+    the defaults and with non-default arguments; fp32 within 1e-6 of each
+    parameter's largest value (the adafactor cases factor only past
+    ``min_dim_size_to_factor``, so the non-default cases factor the conv's
+    and the dense kernel's JAX axes)."""
+    import optax
+
+    from neurosis_tpu_torch.config.registry import resolve_class_path
+
+    kw = dict(kw)
+    lr = kw.pop("learning_rate", None if name in _LR_NONE else 1e-2)
+    jax_kw = {k: (jnp.bfloat16 if k in _DTYPE_ARGS else v) for k, v in kw.items()}
+    lr_kw = {} if lr is None else {"learning_rate": lr}
+    port = resolve_class_path(f"optax.{name}")
+    _run_both(getattr(optax, name)(**lr_kw, **jax_kw), lambda ps: port(ps, **lr_kw, **kw))
+
+
+@pytest.mark.parametrize("name", list(ALIAS_CASES))
+def test_an_optax_alias_takes_optax_s_signature(name):
+    """The port's function takes optax's arguments at optax's defaults, less
+    optax's masks (the loader refuses them off their defaults, item 8)."""
+    import inspect
+
+    import optax
+
+    from neurosis_tpu_torch.config.reference_args import JAX_ONLY_ARGS
+    from neurosis_tpu_torch.optimizers import optax_aliases
+
+    def sig(fn, skip=()):
+        out = {}
+        for n, p in inspect.signature(fn).parameters.items():
+            if n in skip:
+                continue
+            d = p.default
+            out[n] = (p.kind == p.KEYWORD_ONLY, "<required>" if d is p.empty else
+                      (np.dtype(d).name if n in _DTYPE_ARGS and d is not None else d))
+        return out
+
+    masks = JAX_ONLY_ARGS.get(f"optax.{name}", {})
+    assert sig(getattr(optax_aliases, name), ("params",)) == sig(getattr(optax, name), tuple(masks))
+    assert set(masks) <= {"mask", "weight_decay_mask", "trust_ratio_mask"}
+
+
+@pytest.mark.parametrize("path,match", [("optax.lbfgs", "loss value"), ("optax.polyak_sgd", "loss value"),
+                                        ("optax.noisy_sgd", "item 14"), ("optax.sm3", "item 14"),
+                                        ("optax.fromage", "item 14"),
+                                        ("optax.optimistic_gradient_descent", "item 14"),
+                                        ("optax.optimistic_adam", "item 14"),
+                                        ("optax.optimistic_adam_v2", "item 14")])
+def test_the_optax_aliases_left_are_refused_with_their_reason(path, match):
+    from neurosis_tpu_torch.config.registry import resolve_class_path
+
+    with pytest.raises(NotImplementedError, match=match):
+        resolve_class_path(path)

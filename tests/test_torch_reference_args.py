@@ -113,6 +113,8 @@ SHARED_DEFAULTS_THAT_DIFFER = {
     **{("neurosis.modules.diffusion.model." + c, "attn_resolutions"): "JAX requires it; the port defaults to none"
        for c in ("Encoder", "Decoder", "Model")},
     ("neurosis.models.text_encoder.FrozenCLIPEmbedder", "version"): "names weights neither package fetches",
+    ("optax.adafactor", "dtype_momentum"): "the same dtype: jnp.float32 in JAX, 'float32' in the port, which "
+                                           "names dtypes as the YAML does",
 }
 
 
